@@ -1,0 +1,805 @@
+"""Continuous-batching autoregressive decode engine over a paged KV cache.
+
+Port of paddle_tpu's `inference/decode.py` `DecodeEngine` (fp32 pages,
+one tenant):
+
+  * the KV store is one device-resident page pool per K and V
+    (`[layers, pages, page_tokens, heads, head_dim]`, fp32) plus a
+    per-sequence block table; `memory.page_allocator` hands out
+    refcounted page ids. Admission allocates pages, eviction releases
+    them — capacity growth is a longer block table, never a cache copy;
+  * the compute core is `models.gpt`: a miss admission runs the fused
+    prefill-into-pages, and `paged_step` advances EVERY active request
+    one token, writing through the block table and attending through the
+    hand-written CUDA kernel (`ops.kernels.decode_attention`);
+  * batch and block-table width are padded to bucket rungs
+    (`inference.batching`), so the step sees a small fixed set of shapes;
+  * **prefix sharing**: a hash trie caches page-aligned prompt prefixes.
+    A request with a cached head maps the cached pages (refcount++) and
+    feeds only its tail through the batched decode step. A slot's first
+    write into a shared page triggers copy-on-write;
+  * pool exhaustion is a typed RESOURCE_EXHAUSTED on the victim stream
+    (after LRU-evicting cold prefix-cache pages), never an engine crash;
+  * sampling is host-side numpy (greedy, or temperature with optional
+    top-k), with the JAX package's per-(seed, position) generator, so a
+    seeded stream samples the same tokens in both packages.
+
+Unlike the JAX engine, whose pools are donated and functionally updated,
+this engine updates its pools in place. Admission is single-tenant FIFO:
+the JAX engine's weighted-fair QoS, quotas and preemption, host-RAM
+tiering, KV handoff, speculative decoding, int8 pages and weights, and
+its metrics, spans and memz are later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import itertools
+import json
+import queue
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import flags as _flags
+from ..core.device import resolve_device
+from ..memory.page_allocator import PageAllocator, PageExhausted, copy_page
+from ..models.gpt import (GPTConfig, gpt_paged_decode_fns,
+                          gpt_paged_prefill_fns, params_from_numpy)
+from .batching import _WARMUP_SIG_CAP, bucket_ladder, next_bucket
+from .errors import (ERR_INVALID_ARGUMENT, ERR_RESOURCE_EXHAUSTED,
+                     ERR_UNAVAILABLE, TypedServeError)
+
+DEFAULT_MAX_SLOTS = 8          # fallback when device memory stats are absent
+DEFAULT_MAX_NEW_TOKENS = 64
+HBM_FRACTION = 0.5             # share of free device memory slots may fill
+DEFAULT_PAGE_TOKENS = 16       # mirrors PADDLE_TPU_DECODE_PAGE_TOKENS
+ARTIFACT_FORMAT = "paddle_tpu.decode.v1"
+
+_REQ_IDS = itertools.count(1)
+
+
+def _trie_owner(digest: bytes) -> tuple:
+    """Allocator owner tag for a prefix-trie node (short digest hex)."""
+    return ("trie", digest.hex()[:12])
+
+
+def kv_slot_bytes(cfg: GPTConfig, capacity: Optional[int] = None) -> int:
+    """Device bytes one sequence's full K+V panel occupies at `capacity`
+    (the paged analog is `kv_page_bytes` x pages actually mapped)."""
+    cap = capacity or cfg.max_seq_len
+    return cfg.layers * 2 * cap * cfg.heads * cfg.head_dim * 4
+
+
+def kv_page_bytes(cfg: GPTConfig, page_tokens: int,
+                  kv_dtype: str = "float32") -> int:
+    """Device bytes one K+V page occupies (fp32 pools only, so far)."""
+    if kv_dtype != "float32":
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r}: only float32 pages are ported")
+    return cfg.layers * 2 * int(page_tokens) * cfg.heads * cfg.head_dim * 4
+
+
+def default_slot_count(cfg: GPTConfig, device=None) -> int:
+    """Size the slot pool from free device memory: how many full-capacity
+    KV panels fit in `HBM_FRACTION` of the free bytes
+    (`torch.cuda.mem_get_info`). A CPU device gets `DEFAULT_MAX_SLOTS`."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return DEFAULT_MAX_SLOTS
+    free, _ = torch.cuda.mem_get_info(dev)
+    return max(1, min(int(free * HBM_FRACTION // kv_slot_bytes(cfg)), 256))
+
+
+def kv_capacity_ladder(max_seq_len: int,
+                       floor: Optional[int] = None) -> List[int]:
+    """Powers of two (times the floor) from the floor up to — and
+    including — max_seq_len. The floor defaults to the page size so
+    every rung is a page-granular capacity."""
+    lo = int(floor) if floor else DEFAULT_PAGE_TOKENS
+    if max_seq_len <= lo:
+        return [int(max_seq_len)]
+    vals, v = [], lo
+    while v < max_seq_len:
+        vals.append(v)
+        v *= 2
+    vals.append(int(max_seq_len))
+    return sorted(set(vals))
+
+
+class DecodeStream:
+    """Consumer handle for one request's token stream.
+
+    Events arrive in order: zero or more ``("token", tok, eos)`` then
+    exactly one ``("done", tokens)`` — or a `TypedServeError` raised out
+    of `next_event` / `result` if the stream died (engine stop,
+    per-request failure)."""
+
+    def __init__(self, req_id: int, prompt: List[int]):
+        self.request_id = req_id
+        self.prompt = list(prompt)
+        self.tokens: List[int] = []      # generated so far (mirror)
+        self._q: queue.Queue = queue.Queue()
+        self._closed = False             # producer-side latch
+
+    # -- producer (engine thread) ------------------------------------
+    def _push_token(self, tok: int, eos: bool):
+        if not self._closed:
+            self.tokens.append(int(tok))
+            self._q.put(("token", int(tok), bool(eos)))
+
+    def _push_done(self):
+        if not self._closed:
+            self._closed = True
+            self._q.put(("done", list(self.tokens)))
+
+    def _push_error(self, err: TypedServeError):
+        if not self._closed:
+            self._closed = True
+            self._q.put(("error", err))
+
+    # -- consumer ----------------------------------------------------
+    def next_event(self, timeout: Optional[float] = None):
+        try:
+            ev = self._q.get(timeout=timeout)
+        except queue.Empty:
+            raise TypedServeError(
+                ERR_UNAVAILABLE,
+                f"decode stream {self.request_id}: no event within "
+                f"{timeout}s") from None
+        if ev[0] == "error":
+            raise ev[1]
+        return ev
+
+    def events(self, timeout: Optional[float] = None):
+        """Yield ("token", tok, eos) events until done; raises on error."""
+        while True:
+            ev = self.next_event(timeout=timeout)
+            if ev[0] == "done":
+                return
+            yield ev
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        """Block until the stream completes; returns generated tokens."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            left = None if deadline is None \
+                else max(deadline - time.monotonic(), 0.0)
+            ev = self.next_event(timeout=left)
+            if ev[0] == "done":
+                return ev[1]
+
+
+class _Req:
+    __slots__ = ("id", "prompt", "max_new", "temperature", "top_k",
+                 "eos_id", "seed", "stream", "cache_len", "last_tok",
+                 "generated", "pages", "input_tail", "feeding",
+                 "t_submit", "t_admit", "prefill_s")
+
+    def __init__(self, prompt, max_new, temperature, top_k, eos_id,
+                 seed=None):
+        self.id = next(_REQ_IDS)
+        self.prompt = prompt
+        self.max_new = max_new
+        self.temperature = temperature
+        self.top_k = top_k
+        self.eos_id = eos_id
+        self.seed = seed         # per-stream sampling seed (None -> engine RNG)
+        self.stream = DecodeStream(self.id, prompt)
+        self.cache_len = 0
+        self.last_tok = 0
+        self.generated: List[int] = []
+        self.pages: List[int] = []       # block table (page ids, in order)
+        self.input_tail: deque = deque() # prompt tokens still to feed
+        self.feeding = False             # consuming prompt via the step
+        self.t_submit = time.monotonic()
+        self.t_admit = 0.0
+        self.prefill_s = 0.0
+
+
+class _PrefixCache:
+    """Hash trie of page-aligned prompt prefixes -> pool pages.
+
+    Keys are a SHA-1 hash *chain* over full pages of prompt tokens —
+    entry i's digest commits to pages 0..i, so one dict lookup per page
+    walks the trie without storing token arrays. Every entry holds one
+    allocator reference; `lookup` retains matched pages on the caller's
+    behalf (so an entry evicted a microsecond later cannot free a page
+    the caller is about to map).
+
+    Eviction is **leaf-first LRU**: among entries, ones with no live
+    child go first (ordered by last-touch tick), and only when every
+    candidate is mid-chain does the oldest interior entry go. Forced
+    mid-chain removals bump the `orphaned` stat. Single leaf lock; lock
+    order is trie -> allocator everywhere. (The JAX trie also tracks
+    host-tier handles; tiering is not ported, so every entry here is a
+    device page.)"""
+
+    def __init__(self, alloc: PageAllocator, page_tokens: int):
+        self._alloc = alloc
+        self._pt = int(page_tokens)
+        self._lock = threading.Lock()
+        # digest -> [page, tick, parent_digest|None]; one ref held each
+        self._entries: Dict[bytes, List] = {}
+        self._kids: Dict[bytes, int] = {}     # digest -> live children
+        self._tick = 0
+        self._evictions = 0
+        self._orphaned = 0
+
+    def _digests(self, prompt: Sequence[int]) -> List[bytes]:
+        h, out = b"", []
+        for i in range(len(prompt) // self._pt):
+            chunk = np.asarray(prompt[i * self._pt:(i + 1) * self._pt],
+                               np.int64).tobytes()
+            h = hashlib.sha1(h + chunk).digest()
+            out.append(h)
+        return out
+
+    def _remove(self, d: bytes, ent: List):
+        """Drop one entry (lock held): release its ref, unlink from its
+        parent, count stranded descendants."""
+        del self._entries[d]
+        parent = ent[2]
+        if parent is not None and parent in self._kids:
+            self._kids[parent] -= 1
+            if self._kids[parent] <= 0:
+                del self._kids[parent]
+        self._orphaned += self._kids.pop(d, 0)
+        self._alloc.release(ent[0], owner=_trie_owner(d))
+
+    def lookup(self, prompt: Sequence[int],
+               owner: Optional[tuple] = None) -> Tuple[List[int], int]:
+        """Longest cached page-aligned prefix of `prompt`. Returns
+        (pages, hit_tokens); each returned page has been retained for the
+        caller — attributed to `owner` — who owns releasing every one."""
+        pages: List[int] = []
+        with self._lock:
+            self._tick += 1
+            for d in self._digests(prompt):
+                ent = self._entries.get(d)
+                if ent is None:
+                    break
+                self._alloc.retain(ent[0], owner=owner)
+                ent[1] = self._tick
+                pages.append(ent[0])
+        return pages, len(pages) * self._pt
+
+    def insert(self, prompt: Sequence[int], pages: Sequence[int]):
+        """Cache `prompt`'s full pages (pages[i] holds prompt rows
+        [i*pt, (i+1)*pt)); already-cached prefixes are left in place."""
+        with self._lock:
+            self._tick += 1
+            prev = None
+            for d, p in zip(self._digests(prompt), pages):
+                if d not in self._entries:
+                    self._alloc.retain(p, owner=_trie_owner(d))
+                    self._entries[d] = [int(p), self._tick, prev]
+                    if prev is not None and prev in self._entries:
+                        self._kids[prev] = self._kids.get(prev, 0) + 1
+                prev = d
+
+    def _leaf_key(self, d: bytes, ent: List):
+        return (1 if self._kids.get(d) else 0, ent[1])
+
+    def evict(self, n: int) -> int:
+        """Release up to `n` entries' pages, leaf-first LRU, re-deriving
+        leaf status after every removal (so evicting a whole chain walks
+        it tip-to-root instead of orphaning it)."""
+        removed = 0
+        with self._lock:
+            while removed < max(n, 0) and self._entries:
+                d, e = min(self._entries.items(),
+                           key=lambda x: self._leaf_key(*x))
+                self._remove(d, e)
+                removed += 1
+            self._evictions += removed
+        return removed
+
+    def clear(self):
+        with self._lock:
+            for d, ent in self._entries.items():
+                self._alloc.release(ent[0], owner=_trie_owner(d))
+            self._entries.clear()
+            self._kids.clear()
+
+    def stats(self) -> Dict:
+        with self._lock:
+            return {"cached_pages": len(self._entries),
+                    "evictions": self._evictions,
+                    "orphaned": self._orphaned}
+
+
+class DecodeEngine:
+    """Slot-pool continuous batcher over the paged incremental GPT
+    forward: fixed device page pool + per-slot block tables, prefix
+    sharing with copy-on-write, typed backpressure on exhaustion.
+
+    Give it a `models.gpt.GPTDecoder` as `model`, or `cfg` plus `params`
+    (the port's flat tensor dict: `models.gpt.params_from_numpy` carries
+    the JAX package's weights across). `device` defaults to cuda and
+    raises without a GPU."""
+
+    def __init__(self, model=None, *, cfg: Optional[GPTConfig] = None,
+                 params: Optional[Mapping] = None,
+                 eps: Optional[float] = None,
+                 max_slots: Optional[int] = None,
+                 max_new_tokens: int = DEFAULT_MAX_NEW_TOKENS,
+                 page_tokens: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 device=None):
+        if model is not None:
+            cfg = model.cfg
+            params = model.params()
+            eps = model.eps if eps is None else eps
+        if cfg is None or params is None:
+            raise ValueError("DecodeEngine needs a model or (cfg, params)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.eps = 1e-5 if eps is None else float(eps)
+        self.params = {k: v.to(self.device, torch.float32)
+                       for k, v in params.items()}
+        self.max_new_tokens = int(max_new_tokens)
+        self.max_slots = int(max_slots) if max_slots \
+            else default_slot_count(cfg, device=self.device)
+        self.max_pending = 4 * self.max_slots
+        self.page_tokens = int(
+            page_tokens or _flags.env_value("PADDLE_TPU_DECODE_PAGE_TOKENS"))
+        if self.page_tokens < 1:
+            raise ValueError(f"page_tokens must be >= 1, "
+                             f"got {self.page_tokens}")
+        self.batch_ladder = bucket_ladder(
+            self.max_slots, env=_flags.env_value("PADDLE_TPU_DECODE_BUCKETS"))
+        self.kv_ladder = kv_capacity_ladder(cfg.max_seq_len,
+                                            floor=self.page_tokens)
+        # block-table width rungs: pages needed to hold each kv rung
+        self.page_ladder = sorted(
+            {-(-r // self.page_tokens) for r in self.kv_ladder})
+        self.pages_per_seq = -(-cfg.max_seq_len // self.page_tokens)
+        # +1: page 0 is the reserved null/scratch page (table padding
+        # and padded-batch writes land there, never on live data)
+        self.num_pages = int(num_pages) if num_pages \
+            else self.max_slots * self.pages_per_seq + 1
+        self._alloc = PageAllocator(self.num_pages)
+        use_prefix = prefix_cache if prefix_cache is not None \
+            else bool(_flags.env_value("PADDLE_TPU_DECODE_PREFIX_CACHE"))
+        self._prefix = _PrefixCache(self._alloc, self.page_tokens) \
+            if use_prefix else None
+
+        self._prefill, self._step = gpt_paged_decode_fns(
+            cfg, eps=self.eps, page_tokens=self.page_tokens)
+        self._paged_prefill = gpt_paged_prefill_fns(
+            cfg, eps=self.eps, page_tokens=self.page_tokens)
+        self._rng = np.random.default_rng(0)   # unseeded requests' draws
+
+        self._pending: deque = deque()
+        self._active: List[_Req] = []
+        self._kpool = None           # [L, P, page_tokens, nh, D], lazy
+        self._vpool = None
+        self._last_b_rung = self.batch_ladder[0]
+        self._last_w_rung = self.page_ladder[0]
+        self._steps = 0
+        self._tokens = 0
+        self._step_s = 0.0
+        self._counts = {"prefix_hits": 0, "prefix_misses": 0,
+                        "prefix_hit_tokens": 0, "cow_copies": 0,
+                        "prefills": 0}
+        self._stop = False
+        self._cond = threading.Condition()
+        self._thread = threading.Thread(
+            target=self._loop, name="decode-scheduler", daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------ API
+
+    def submit(self, prompt: Sequence[int], max_new_tokens=None,
+               temperature: float = 0.0, top_k: int = 0,
+               eos_id=None, seed=None) -> DecodeStream:
+        toks = [int(t) for t in np.asarray(prompt, dtype=np.int64).reshape(-1)]
+        if not toks:
+            raise TypedServeError(ERR_INVALID_ARGUMENT, "empty prompt")
+        if any(t < 0 or t >= self.cfg.vocab_size for t in toks):
+            raise TypedServeError(
+                ERR_INVALID_ARGUMENT,
+                f"prompt token out of range [0, {self.cfg.vocab_size})")
+        if len(toks) >= self.cfg.max_seq_len:
+            raise TypedServeError(
+                ERR_INVALID_ARGUMENT,
+                f"prompt length {len(toks)} leaves no room to generate "
+                f"(max_seq_len={self.cfg.max_seq_len})")
+        req = _Req(toks, int(max_new_tokens or self.max_new_tokens),
+                   float(temperature), int(top_k),
+                   None if eos_id is None else int(eos_id),
+                   seed=None if seed is None else int(seed))
+        with self._cond:
+            if self._stop:
+                raise TypedServeError(ERR_UNAVAILABLE,
+                                      "decode engine stopped")
+            if len(self._pending) >= self.max_pending:
+                raise TypedServeError(
+                    ERR_RESOURCE_EXHAUSTED,
+                    f"decode queue full ({self.max_pending} pending)")
+            self._pending.append(req)
+            self._cond.notify_all()
+        return req.stream
+
+    def _pool_shape(self):
+        L, nh, D = self.cfg.layers, self.cfg.heads, self.cfg.head_dim
+        return (L, self.num_pages, self.page_tokens, nh, D)
+
+    def _ensure_pool(self):
+        if self._kpool is None:
+            self._kpool = torch.zeros(self._pool_shape(), dtype=torch.float32,
+                                      device=self.device)
+            self._vpool = torch.zeros_like(self._kpool)
+
+    def warmup(self, verbose: bool = False) -> int:
+        """Allocate the pools, build the kernels, and run the decode step
+        once per (batch-rung x page-rung) signature (capped), with
+        all-null block tables so every write lands in the null page.
+        Call before submitting. Returns the number of signatures run."""
+        self._ensure_pool()
+        sigs = [(b, w) for b in self.batch_ladder for w in self.page_ladder]
+        sigs = sigs[:_WARMUP_SIG_CAP]
+        for b, w in sigs:
+            z = torch.zeros(b, dtype=torch.int32)
+            self._step(self.params, self._kpool, self._vpool,
+                       torch.zeros((b, w), dtype=torch.int32), z, z)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if verbose:
+            print(f"DECODE WARMUP step_sigs={len(sigs)} "
+                  f"page_rungs={self.page_ladder} "
+                  f"batch_rungs={self.batch_ladder}", flush=True)
+        return len(sigs)
+
+    def stats(self) -> Dict:
+        st = {
+            "device": str(self.device),
+            "active": len(self._active),
+            "pending": len(self._pending),
+            "max_slots": self.max_slots,
+            "steps": self._steps,
+            "tokens": self._tokens,
+            "step_seconds": self._step_s,
+            # rung of the most recent step; the smallest formable rung
+            # before the first one (never a bogus 0)
+            "batch_rung": int(self._last_b_rung),
+            "kv_rung": int(self._last_w_rung * self.page_tokens),
+            "batch_ladder": list(self.batch_ladder),
+            "kv_ladder": list(self.kv_ladder),
+            "page_tokens": self.page_tokens,
+            "kv_dtype": "float32",
+            "kv_page_bytes": kv_page_bytes(self.cfg, self.page_tokens),
+            "pages": self._alloc.stats(),
+            "cow_copies": self._counts["cow_copies"],
+            "prefills": self._counts["prefills"],
+        }
+        if self._prefix is not None:
+            st["prefix_cache"] = dict(
+                self._prefix.stats(),
+                hits=self._counts["prefix_hits"],
+                misses=self._counts["prefix_misses"],
+                hit_tokens=self._counts["prefix_hit_tokens"])
+        return st
+
+    def stop(self):
+        """Stop the scheduler; open streams get typed UNAVAILABLE."""
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join(timeout=30)
+        leftovers = list(self._active) + list(self._pending)
+        self._active, self._pending = [], deque()
+        for req in leftovers:
+            req.stream._push_error(TypedServeError(
+                ERR_UNAVAILABLE, "decode engine stopped"))
+            self._release_pages(req)
+        if self._prefix is not None:
+            self._prefix.clear()
+
+    # ------------------------------------------------------- scheduler
+
+    def _loop(self):
+        while True:
+            with self._cond:
+                while (not self._stop and not self._pending
+                       and not self._active):
+                    self._cond.wait(timeout=0.1)
+                if self._stop:
+                    return
+                # single-tenant FIFO admission into the free slots
+                newly = []
+                while self._pending \
+                        and len(self._active) + len(newly) < self.max_slots:
+                    newly.append(self._pending.popleft())
+            admitting = list(newly)
+            try:
+                for req in newly:
+                    if self._admit(req):
+                        self._active.append(req)
+                    admitting.remove(req)
+                if self._active:
+                    self._step_once()
+            except Exception as exc:  # engine-level failure: fail the
+                # batch (typed), free its pages, keep serving newcomers
+                err = exc if isinstance(exc, TypedServeError) else \
+                    TypedServeError(ERR_UNAVAILABLE,
+                                    f"decode scheduler failure: {exc}")
+                for req in self._active + admitting:
+                    req.stream._push_error(err)
+                    self._release_pages(req)
+                self._active = []
+
+    # ---------------------------------------------------- page plumbing
+
+    @staticmethod
+    def _owner_for(req) -> tuple:
+        """The owner tag stamped on pages `req` holds."""
+        return ("slot", req.id, "default")
+
+    def _release_pages(self, req: _Req):
+        """Drop the slot's reference on every page it maps (exactly one
+        ref per block-table entry). Idempotent via the list reset."""
+        owner = self._owner_for(req)
+        pages, req.pages = req.pages, []
+        for p in pages:
+            self._alloc.release(p, owner=owner)
+
+    def _alloc_pages(self, n: int, req: _Req) -> List[int]:
+        """Allocate `n` pages for `req`: the pool, then — under pressure —
+        LRU-evict cold prefix-cache pages and retry once. Failure is typed
+        RESOURCE_EXHAUSTED for THIS request."""
+        owner = self._owner_for(req)
+        try:
+            return self._alloc.alloc(n, owner=owner)
+        except PageExhausted as exc:
+            err = exc
+        if self._prefix is not None \
+                and self._prefix.evict(max(n - self._alloc.free_count(), 1)):
+            try:
+                return self._alloc.alloc(n, owner=owner)
+            except PageExhausted as exc:
+                err = exc
+        raise TypedServeError(
+            ERR_RESOURCE_EXHAUSTED,
+            f"decode request {req.id}: KV page pool exhausted ({err})"
+        ) from err
+
+    def _cow(self, req: _Req, slot: int):
+        """First write into a shared page: copy it to a fresh page and
+        repoint this slot's block table (the other owners keep the
+        original — that's the isolation)."""
+        old = req.pages[slot]
+        (new,) = self._alloc_pages(1, req)
+        copy_page(self._kpool, old, new)
+        copy_page(self._vpool, old, new)
+        req.pages[slot] = new
+        self._alloc.release(old, owner=self._owner_for(req))
+        self._counts["cow_copies"] += 1
+
+    # ------------------------------------------------------- admission
+
+    def _admit(self, req: _Req) -> bool:
+        """Give the request KV pages and a first token source.
+
+        Prefix hit: map the cached pages (refcount++), queue the uncached
+        prompt tail to be fed through the batched decode step — no
+        prefill at all. Miss: prefill the prompt straight into fresh
+        pages, deliver the first sampled token immediately. True if the
+        request now occupies a decode slot."""
+        toks = req.prompt
+        plen = len(toks)
+        pt = self.page_tokens
+        self._ensure_pool()
+        req.t_admit = time.monotonic()
+
+        usable, hit_pages = 0, []
+        owner = self._owner_for(req)
+        if self._prefix is not None:
+            hit_pages, hit_tokens = self._prefix.lookup(toks, owner=owner)
+            # at least one prompt token is always re-fed so the step
+            # has logits to sample the first generated token from
+            usable = min(hit_tokens, plen - 1)
+            n_map = min(len(hit_pages), -(-(usable + 1) // pt)) \
+                if usable else 0
+            for p in hit_pages[n_map:]:
+                self._alloc.release(p, owner=owner)
+            hit_pages = hit_pages[:n_map]
+            self._counts["prefix_hits" if usable else "prefix_misses"] += 1
+            self._counts["prefix_hit_tokens"] += usable
+
+        if usable:
+            req.pages = hit_pages
+            req.cache_len = usable
+            req.last_tok = toks[usable]
+            req.input_tail = deque(toks[usable + 1:])
+            req.feeding = True
+            return True
+
+        # miss: prefill the whole prompt into freshly allocated pages
+        try:
+            pages = self._alloc_pages(-(-plen // pt), req)
+        except TypedServeError as err:
+            req.stream._push_error(err)
+            return False
+        req.pages = pages
+        t0 = time.perf_counter()
+        logits, _, _ = self._paged_prefill(
+            self.params, self._kpool, self._vpool,
+            torch.tensor([toks], dtype=torch.long),
+            torch.tensor([pages], dtype=torch.int32),
+            torch.tensor([plen], dtype=torch.long))
+        row = logits[0].float().cpu().numpy()
+        req.prefill_s = time.perf_counter() - t0
+        self._counts["prefills"] += 1
+        tok = self._sample(row, req)
+        req.cache_len = plen
+        req.last_tok = tok
+        req.generated.append(tok)
+        self._tokens += 1
+        if self._prefix is not None:
+            self._prefix.insert(toks, pages[:plen // pt])
+        eos = req.eos_id is not None and tok == req.eos_id
+        req.stream._push_token(tok, eos)
+        if eos or len(req.generated) >= req.max_new \
+                or req.cache_len >= self.cfg.max_seq_len:
+            self._finish(req)
+            self._release_pages(req)
+            return False
+        return True
+
+    # ------------------------------------------------------------ step
+
+    def _step_once(self):
+        pt = self.page_tokens
+        # provision the write target for row cache_len: a fresh page at
+        # a page boundary, a copy-on-write if the target page is shared
+        victims = []
+        for req in self._active:
+            slot = req.cache_len // pt
+            try:
+                if slot >= len(req.pages):
+                    req.pages.extend(self._alloc_pages(1, req))
+                elif self._alloc.refcount(req.pages[slot]) > 1:
+                    self._cow(req, slot)
+            except TypedServeError as err:
+                req.stream._push_error(err)
+                self._release_pages(req)
+                victims.append(req)
+        if victims:
+            dead = {r.id for r in victims}
+            self._active = [r for r in self._active if r.id not in dead]
+        reqs = self._active
+        if not reqs:
+            return
+        b_rung = next_bucket(len(reqs), self.batch_ladder)
+        w_rung = next_bucket(max(len(r.pages) for r in reqs),
+                             self.page_ladder)
+        tables = np.zeros((b_rung, w_rung), np.int32)   # pad -> null page
+        ltok = np.zeros(b_rung, np.int64)
+        clen = np.zeros(b_rung, np.int64)
+        for j, req in enumerate(reqs):
+            tables[j, :len(req.pages)] = req.pages
+            ltok[j] = req.last_tok
+            clen[j] = req.cache_len
+        t0 = time.perf_counter()
+        logits, _, _ = self._step(
+            self.params, self._kpool, self._vpool, torch.from_numpy(tables),
+            torch.from_numpy(ltok), torch.from_numpy(clen))
+        lognp = logits.float().cpu().numpy()
+        self._step_s += time.perf_counter() - t0
+        self._last_b_rung, self._last_w_rung = b_rung, w_rung
+        self._steps += 1
+        finished = []
+        for j, req in enumerate(reqs):
+            req.cache_len += 1
+            if req.input_tail:           # still consuming prompt tail:
+                req.last_tok = req.input_tail.popleft()
+                continue                 # logits are mid-prompt, discard
+            if req.feeding:
+                # the step just consumed the final prompt token — its
+                # pages now hold the whole prompt: cache them, and fall
+                # through to sample this request's FIRST token
+                req.feeding = False
+                if self._prefix is not None:
+                    self._prefix.insert(
+                        req.prompt, req.pages[:len(req.prompt) // pt])
+            tok = self._sample(lognp[j], req)
+            req.generated.append(tok)
+            req.last_tok = tok
+            self._tokens += 1
+            eos = req.eos_id is not None and tok == req.eos_id
+            req.stream._push_token(tok, eos)
+            if eos or len(req.generated) >= req.max_new \
+                    or req.cache_len >= self.cfg.max_seq_len:
+                self._finish(req)
+                self._release_pages(req)
+                finished.append(req)
+        if finished:
+            done = {r.id for r in finished}
+            self._active = [r for r in reqs if r.id not in done]
+
+    def _finish(self, req: _Req):
+        req.stream._push_done()
+
+    def _dist(self, row: np.ndarray, req: _Req) -> np.ndarray:
+        """The request's sampling distribution over the vocab (its
+        temperature/top-k transform of one logit row)."""
+        logits = row.astype(np.float64) / max(req.temperature, 1e-6)
+        if 0 < req.top_k < logits.shape[0]:
+            kth = np.partition(logits, -req.top_k)[-req.top_k]
+            logits = np.where(logits >= kth, logits, -np.inf)
+        logits -= logits.max()
+        p = np.exp(logits)
+        p /= p.sum()
+        return p
+
+    def _req_rng(self, req: _Req, pos: int):
+        """Sampling generator for the token at absolute sequence
+        position `pos`. Seeded streams draw from a counter-based RNG
+        keyed on (seed, position) — the JAX package's generator, so a
+        seeded stream samples draw-for-draw the same tokens in both
+        packages, regardless of engine history or batch mates.
+        Unseeded requests share the engine RNG."""
+        if req.seed is None:
+            return self._rng
+        return np.random.default_rng((req.seed, pos))
+
+    def _sample(self, row: np.ndarray, req: _Req, pos=None) -> int:
+        if req.temperature <= 0.0:
+            return int(np.argmax(row))
+        p = self._dist(row, req)
+        if pos is None:
+            pos = len(req.prompt) + len(req.generated)
+        return int(self._req_rng(req, pos).choice(p.shape[0], p=p))
+
+
+# ------------------------------------------------------------ artifact
+
+def save_for_decode(params_np: Mapping, cfg: GPTConfig, eps: float,
+                    prefix: str):
+    """Persist weights for the decode daemon in the JAX package's
+    ``paddle_tpu.decode.v1`` format: ``<prefix>.decode.json`` (config,
+    eps) + ``<prefix>.decode.npz`` (params, either layout). Artifacts
+    written by either package load in both."""
+    meta = {"config": dataclasses.asdict(cfg), "eps": float(eps),
+            "format": ARTIFACT_FORMAT}
+    arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v)) for k, v in params_np.items()}
+    with open(prefix + ".decode.json", "w") as f:
+        json.dump(meta, f, indent=2, sort_keys=True)
+    np.savez(prefix + ".decode.npz", **arrays)
+
+
+def _load_decode_artifact(prefix: str):
+    with open(prefix + ".decode.json") as f:
+        meta = json.load(f)
+    if meta.get("format") != ARTIFACT_FORMAT:
+        raise ValueError(f"{prefix}.decode.json: not a decode artifact")
+    if meta.get("quant") is not None:
+        raise NotImplementedError(
+            f"{prefix}: quant={meta['quant']!r} artifacts are not ported "
+            f"yet (fp32 only)")
+    cfg = GPTConfig(**meta["config"])
+    with np.load(prefix + ".decode.npz") as z:
+        params = {k: z[k] for k in z.files}
+    return cfg, params, meta.get("eps")
+
+
+def load_for_decode(prefix: str, device=None, **engine_kw) -> DecodeEngine:
+    """Load a `save_for_decode` artifact (from either package) into a
+    ready DecodeEngine on `device` (default cuda)."""
+    dev = resolve_device(device)
+    cfg, params, eps = _load_decode_artifact(prefix)
+    return DecodeEngine(cfg=cfg, params=params_from_numpy(cfg, params, dev),
+                        eps=eps, device=dev, **engine_kw)
+
+
+__all__ = ["DecodeEngine", "DecodeStream", "kv_slot_bytes", "kv_page_bytes",
+           "kv_capacity_ladder", "default_slot_count", "save_for_decode",
+           "load_for_decode"]

@@ -1,0 +1,436 @@
+"""GPT decoder language model, decode side, in PyTorch.
+
+Port of the decode half of paddle_tpu's `models/gpt.py`: the configs, the
+prefill forward, the paged decode step and the fused prefill-into-pages,
+with the same math and op order (pre-LN blocks, `_pp_ln`'s
+mean / centred variance / sqrt(var + eps), f32 scores, a -1e30 causal mask,
+exact gelu, tied LM head), so the same weights give the same logits.
+
+Weights stay ``[in, out]`` (the JAX package's nn/layer/common.py layout):
+every matmul is ``x @ w``, and `torch.nn.Linear` (``[out, in]``) is not
+used anywhere — loading a state dict into it would silently transpose.
+
+Parameters are a flat ``{name: tensor}`` dict whose names are the JAX
+package's per-block indexed names (``wte.weight``,
+``blocks.3.attn.qkv.weight``, ``ln_f.bias``, ...). `params_from_numpy` is
+the one function that carries weights across from the JAX package; it
+accepts the JAX arrays in either layout (scan-stacked ``blocks.<name>``
+with a leading [layers] axis, or indexed ``blocks.<i>.<name>``).
+`GPTDecoder` is the same parameters as an `nn.Module`.
+
+The JAX `gpt_decode_fns` also has a contiguous-cache `decode_step` (TPU
+kernel `_decode_attention_pallas`); the engine does not use it and it is
+not ported. MoE configs raise `NotImplementedError`, as in JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from ..memory.page_allocator import gather_pages, write_pages
+from ..ops.kernels.decode_attention import NEG_INF, paged_decode_attention
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    """Same fields and defaults as the JAX package's GPTConfig, so a
+    decode artifact's config JSON loads unchanged. The training-only
+    fields (dropout, moe_*, scan_layers, fused_head_ce) are carried for
+    that compatibility and do not change the decode math."""
+    vocab_size: int = 50304          # 50257 padded to a multiple of 128
+    max_seq_len: int = 1024
+    hidden: int = 768
+    layers: int = 12
+    heads: int = 12
+    ffn_mult: int = 4
+    dropout: float = 0.0
+    dtype: str = "float32"
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_aux_coef: float = 0.01
+    scan_layers: bool = None
+    fused_head_ce: bool = None
+
+    @property
+    def head_dim(self):
+        return self.hidden // self.heads
+
+
+def gpt_tiny(**kw):
+    return GPTConfig(vocab_size=512, max_seq_len=128, hidden=64, layers=2,
+                     heads=4, **kw)
+
+
+def gpt2_124m(**kw):
+    return GPTConfig(hidden=768, layers=12, heads=12, **kw)
+
+
+def gpt2_345m(**kw):
+    return GPTConfig(hidden=1024, layers=24, heads=16, **kw)
+
+
+def gpt3_1p3b(**kw):
+    return GPTConfig(hidden=2048, layers=24, heads=16, max_seq_len=2048, **kw)
+
+
+# ------------------------------------------------------------ parameters
+
+_BLOCK_SHAPES = (          # relative name -> shape as a function of cfg
+    ("ln1.weight", lambda c: (c.hidden,)),
+    ("ln1.bias", lambda c: (c.hidden,)),
+    ("attn.qkv.weight", lambda c: (c.hidden, 3 * c.hidden)),
+    ("attn.qkv.bias", lambda c: (3 * c.hidden,)),
+    ("attn.proj.weight", lambda c: (c.hidden, c.hidden)),
+    ("attn.proj.bias", lambda c: (c.hidden,)),
+    ("ln2.weight", lambda c: (c.hidden,)),
+    ("ln2.bias", lambda c: (c.hidden,)),
+    ("fc1.weight", lambda c: (c.hidden, c.ffn_mult * c.hidden)),
+    ("fc1.bias", lambda c: (c.ffn_mult * c.hidden,)),
+    ("fc2.weight", lambda c: (c.ffn_mult * c.hidden, c.hidden)),
+    ("fc2.bias", lambda c: (c.hidden,)),
+)
+
+
+def param_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every decode parameter's indexed name -> shape."""
+    out = {"wte.weight": (cfg.vocab_size, cfg.hidden),
+           "wpe.weight": (cfg.max_seq_len, cfg.hidden)}
+    for i in range(cfg.layers):
+        for rel, shape in _BLOCK_SHAPES:
+            out[f"blocks.{i}.{rel}"] = shape(cfg)
+    out["ln_f.weight"] = (cfg.hidden,)
+    out["ln_f.bias"] = (cfg.hidden,)
+    return out
+
+
+def init_params_numpy(cfg: GPTConfig, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random fp32 weights in the indexed layout, from `seed`: normals of
+    std 0.02 for matrices and embeddings, LayerNorm weights 1, biases 0."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        if name.endswith(".bias"):
+            out[name] = np.zeros(shape, np.float32)
+        elif len(shape) == 1:                      # LayerNorm weight
+            out[name] = np.ones(shape, np.float32)
+        else:
+            out[name] = (rng.standard_normal(shape, np.float32) * 0.02) \
+                .astype(np.float32)
+    return out
+
+
+def params_from_numpy(cfg: GPTConfig, arrays: Mapping[str, np.ndarray],
+                      device=None) -> Dict[str, torch.Tensor]:
+    """Carry JAX-package weights (numpy arrays) into the port's params.
+
+    `arrays` may use either layout of the JAX package: scan-stacked
+    (``blocks.attn.qkv.weight`` with a leading [layers] axis) or indexed
+    (``blocks.3.attn.qkv.weight``). Returns the indexed layout as fp32
+    tensors on `device` (default cuda). Missing or mis-shaped weights
+    raise."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError("params_from_numpy: MoE blocks have no "
+                                  "decode path")
+    dev = resolve_device(device)
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        if k.startswith("blocks.") and not re.match(r"blocks\.\d+\.", k):
+            rel = k[len("blocks."):]
+            if v.shape[0] != cfg.layers:
+                raise ValueError(f"{k}: stacked axis {v.shape[0]} != "
+                                 f"layers {cfg.layers}")
+            for i in range(cfg.layers):
+                flat[f"blocks.{i}.{rel}"] = v[i]
+        else:
+            flat[k] = v
+    want = param_shapes(cfg)
+    missing = sorted(set(want) - set(flat))
+    if missing:
+        raise KeyError(f"params_from_numpy: missing {missing[:4]}"
+                       f"{' ...' if len(missing) > 4 else ''}")
+    out = {}
+    for name, shape in want.items():
+        a = flat[name]
+        if tuple(a.shape) != shape:
+            raise ValueError(f"params_from_numpy: {name} has shape "
+                             f"{tuple(a.shape)}, want {shape}")
+        out[name] = torch.tensor(a, dtype=torch.float32, device=dev)
+    return out
+
+
+def split_decode_params(params: Mapping[str, torch.Tensor], cfg: GPTConfig):
+    """Split the flat indexed param dict (`params_from_numpy`'s layout)
+    into (embed, [block_i], head) for the decode fns."""
+    embed = {k: v for k, v in params.items()
+             if k.startswith(("wte.", "wpe."))}
+    head = {k: v for k, v in params.items() if k.startswith("ln_f.")}
+    blocks = []
+    for i in range(cfg.layers):
+        pref = f"blocks.{i}."
+        blocks.append({k[len(pref):]: v for k, v in params.items()
+                       if k.startswith(pref)})
+    return embed, blocks, head
+
+
+class _Weights(nn.Module):
+    """A `weight` and, if `bias_shape` is given, a `bias` — the leaf of
+    every parameter name (Linear weights are ``[in, out]``)."""
+
+    def __init__(self, shape, bias_shape, device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(shape, device=device),
+                                   requires_grad=False)
+        if bias_shape is not None:
+            self.bias = nn.Parameter(torch.empty(bias_shape, device=device),
+                                     requires_grad=False)
+
+
+class _Attn(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        C = cfg.hidden
+        self.qkv = _Weights((C, 3 * C), (3 * C,), device)
+        self.proj = _Weights((C, C), (C,), device)
+
+
+class _Block(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        C, F = cfg.hidden, cfg.ffn_mult * cfg.hidden
+        self.ln1 = _Weights((C,), (C,), device)
+        self.attn = _Attn(cfg, device)
+        self.ln2 = _Weights((C,), (C,), device)
+        self.fc1 = _Weights((C, F), (F,), device)
+        self.fc2 = _Weights((F, C), (C,), device)
+
+
+class GPTDecoder(nn.Module):
+    """The decode parameters as an `nn.Module`; `state_dict()` keys are
+    exactly the JAX package's indexed names. Load weights with
+    ``load_state_dict(params_from_numpy(cfg, arrays, device))``.
+    `forward(tokens [B, T])` is the full causal forward -> logits
+    [B, T, V] (the teacher-forcing oracle for the decode path)."""
+
+    def __init__(self, cfg: GPTConfig, eps: float = 1e-5, device=None):
+        super().__init__()
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("GPTDecoder: MoE blocks have no "
+                                      "decode path")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.eps = float(eps)
+        self.wte = _Weights((cfg.vocab_size, cfg.hidden), None, dev)
+        self.wpe = _Weights((cfg.max_seq_len, cfg.hidden), None, dev)
+        self.blocks = nn.ModuleList(_Block(cfg, dev)
+                                    for _ in range(cfg.layers))
+        self.ln_f = _Weights((cfg.hidden,), (cfg.hidden,), dev)
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The flat param dict the decode fns take."""
+        return dict(self.state_dict())
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        xf, _, _ = _hidden(self.params(), self.cfg, self.eps,
+                           tokens.to(self.wte.weight.device, torch.long))
+        return xf @ self.wte.weight.T
+
+
+# ---------------------------------------------------------------- math
+
+def _pp_ln(x, g, b, eps):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) / torch.sqrt(var + eps) * g + b
+
+
+def _ffn(bp, x, eps):
+    h2 = _pp_ln(x, bp["ln2.weight"], bp["ln2.bias"], eps)
+    m = torch.nn.functional.gelu(h2 @ bp["fc1.weight"] + bp["fc1.bias"])
+    return x + m @ bp["fc2.weight"] + bp["fc2.bias"]
+
+
+def _hidden(params, cfg: GPTConfig, eps: float, tokens: torch.Tensor):
+    """Causal forward over tokens [B, T] -> (final-LN hidden [B, T, C],
+    per-layer K and V panels, each [layers, B, T, heads, head_dim])."""
+    embed, blocks, head = split_decode_params(params, cfg)
+    B, T = tokens.shape
+    D, nh = cfg.head_dim, cfg.heads
+    scale = 1.0 / math.sqrt(D)
+    pos = torch.arange(T, device=tokens.device)
+    x = embed["wte.weight"][tokens] + embed["wpe.weight"][pos]
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool,
+                                   device=tokens.device))
+    ks, vs = [], []
+    for bp in blocks:
+        h1 = _pp_ln(x, bp["ln1.weight"], bp["ln1.bias"], eps)
+        qkv = h1 @ bp["attn.qkv.weight"] + bp["attn.qkv.bias"]
+        q, k, v = qkv.split(cfg.hidden, dim=-1)
+        q = q.reshape(B, T, nh, D)
+        k = k.reshape(B, T, nh, D)
+        v = v.reshape(B, T, nh, D)
+        ks.append(k)
+        vs.append(v)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        s = s.float().masked_fill(~causal, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, T, -1)
+        x = x + o @ bp["attn.proj.weight"] + bp["attn.proj.bias"]
+        x = _ffn(bp, x, eps)
+    xf = _pp_ln(x, head["ln_f.weight"], head["ln_f.bias"], eps)
+    return xf, torch.stack(ks), torch.stack(vs)
+
+
+# An fp32 KV pool is a bare [layers, P, page_tokens, heads, head_dim]
+# tensor (the int8 pool of the JAX package comes in a later slice). Writes
+# go into the pool IN PLACE (index_put_, through the allocator's pool ops),
+# where the JAX versions return a functionally updated, donated buffer.
+
+def _kv_pool_write(pool, li, page_idx, offset, rows):
+    """Scatter fresh K/V rows at [li, page_idx, offset], in place (`li`
+    may be `slice(None)` for an all-layer scatter)."""
+    return write_pages(pool, rows, page_idx, offset=offset, layer=li)
+
+
+def _kv_pool_layer(pool, li):
+    """Layer `li`'s pool view [P, page_tokens, heads, head_dim]."""
+    return pool[li]
+
+
+def _kv_pool_take(pool, tables):
+    """Block-table gather of the full pool (`jnp.take(pool, tables,
+    axis=1)`): tables [B, W] -> [L, B, W, page_tokens, heads, head_dim]."""
+    return gather_pages(pool, tables)
+
+
+def _prefill_fn(cfg: GPTConfig, eps: float):
+    """prefill(params, tokens [B,T], lens [B])
+        -> (logits [B,V] at each row's position lens-1,
+            k, v [layers, B, T, heads, head_dim])"""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "gpt_decode_fns: MoE blocks have no KV-decode path yet")
+
+    @torch.no_grad()
+    def prefill(params, tokens, lens):
+        embed = params["wte.weight"]
+        tokens = tokens.to(embed.device, torch.long)
+        xf, k, v = _hidden(params, cfg, eps, tokens)
+        T = tokens.shape[1]
+        last = (lens.to(embed.device, torch.long) - 1).clamp(0, T - 1)
+        xl = xf[torch.arange(xf.shape[0], device=xf.device), last]
+        return xl @ embed.T, k, v
+
+    return prefill
+
+
+def gpt_paged_decode_fns(cfg: GPTConfig, eps: float = 1e-5,
+                         page_tokens: int = 16):
+    """`(prefill, paged_step)` over a PAGED KV cache.
+
+    paged_step(params,
+               k_pool, v_pool [layers, P, page_tokens, heads, head_dim],
+               tables   [B, W] int32 (unused entries -> null page 0),
+               last_tok [B] int,
+               cache_len [B] int)
+        -> (logits [B,V], k_pool, v_pool)
+
+    The new token's K/V lands at page tables[b, cache_len//pt], row
+    cache_len%pt (written into the pools in place; padded batch rows
+    carry all-null tables, so their garbage writes fall into the
+    reserved null page); attention walks the block table through
+    `ops.kernels.decode_attention.paged_decode_attention` — the CUDA
+    kernel on the GPU, the plain version on the CPU.
+    """
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "gpt_paged_decode_fns: MoE blocks have no KV-decode path yet")
+    D = cfg.head_dim
+    nh = cfg.heads
+    pt = int(page_tokens)
+
+    @torch.no_grad()
+    def paged_step(params, k_pool, v_pool, tables, last_tok, cache_len):
+        embed, blocks, head = split_decode_params(params, cfg)
+        dev = embed["wte.weight"].device
+        tables = tables.to(dev, torch.int32)
+        last_tok = last_tok.to(dev, torch.long)
+        B = last_tok.shape[0]
+        W = tables.shape[1]
+        pos = cache_len.to(dev, torch.long).clamp(0, cfg.max_seq_len - 1)
+        x = embed["wte.weight"][last_tok] + embed["wpe.weight"][pos]
+        page_idx = tables.gather(
+            1, torch.clamp(pos // pt, max=W - 1)[:, None])[:, 0].long()
+        offset = pos % pt
+        lengths = (pos + 1).to(torch.int32)   # the row just written is live
+        for i, bp in enumerate(blocks):
+            h1 = _pp_ln(x, bp["ln1.weight"], bp["ln1.bias"], eps)
+            qkv = h1 @ bp["attn.qkv.weight"] + bp["attn.qkv.bias"]
+            q, k_new, v_new = qkv.split(cfg.hidden, dim=-1)
+            q = q.reshape(B, nh, D).contiguous()   # the kernel wants dense q
+            _kv_pool_write(k_pool, i, page_idx, offset,
+                           k_new.reshape(B, nh, D))
+            _kv_pool_write(v_pool, i, page_idx, offset,
+                           v_new.reshape(B, nh, D))
+            o = paged_decode_attention(
+                q, _kv_pool_layer(k_pool, i), _kv_pool_layer(v_pool, i),
+                tables, lengths).reshape(B, -1)
+            x = x + o @ bp["attn.proj.weight"] + bp["attn.proj.bias"]
+            x = _ffn(bp, x, eps)
+        xf = _pp_ln(x, head["ln_f.weight"], head["ln_f.bias"], eps)
+        logits = xf @ embed["wte.weight"].T
+        return logits, k_pool, v_pool
+
+    return _prefill_fn(cfg, eps), paged_step
+
+
+def gpt_paged_prefill_fns(cfg: GPTConfig, eps: float = 1e-5,
+                          page_tokens: int = 16):
+    """Fused prefill-into-pages: the prompt's K/V panel (the parallel
+    prefill) scattered straight into pool pages, in place.
+
+    paged_prefill(params,
+                  k_pool, v_pool [layers, P, page_tokens, heads, head_dim],
+                  toks   [1, R] int (prompt, possibly padded),
+                  tables [1, W] int32 (W >= ceil(n / page_tokens)),
+                  n      [1]    int (true prompt length))
+        -> (logits [1, V], k_pool, v_pool)
+
+    Row r lands at page tables[0, r//pt], offset r%pt; padding rows at
+    or past `n` go to the null page, so a short prompt never dirties
+    pages it does not own."""
+    pt = int(page_tokens)
+    prefill = _prefill_fn(cfg, eps)
+
+    @torch.no_grad()
+    def paged_prefill(params, k_pool, v_pool, toks, tables, n):
+        dev = k_pool.device
+        R = toks.shape[1]
+        tables = tables.to(dev, torch.long)
+        W = tables.shape[1]
+        logits, k, v = prefill(params, toks, n)
+        rows = torch.arange(R, device=dev)
+        valid = rows < int(n[0])
+        slot = torch.clamp(rows // pt, max=W - 1)
+        page_idx = torch.where(valid, tables[0, slot],
+                               torch.zeros_like(rows))
+        offset = rows % pt
+        _kv_pool_write(k_pool, slice(None), page_idx, offset, k[:, 0])
+        _kv_pool_write(v_pool, slice(None), page_idx, offset, v[:, 0])
+        return logits, k_pool, v_pool
+
+    return paged_prefill
+
+
+__all__ = ["GPTConfig", "gpt_tiny", "gpt2_124m", "gpt2_345m", "gpt3_1p3b",
+           "GPTDecoder", "init_params_numpy", "params_from_numpy",
+           "param_shapes", "split_decode_params", "gpt_paged_decode_fns",
+           "gpt_paged_prefill_fns"]
