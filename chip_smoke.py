@@ -13,7 +13,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      path gives it (paged decode attention: B=8, H=12, D=64, pt=16, W=64,
      P=513, lengths over 1..1024, plus edge cases), max abs error <= 1e-5;
      kernel, plain and library (gather + scaled_dot_product_attention)
-     times with CUDA events, and the memory/compute bound;
+     device times (CUDA events around the replay of a CUDA graph of many
+     calls, so the host's launch gaps are not counted; the eagerly
+     launched time is printed beside), and the memory/compute bound;
+ 2b. the int8 kernels the same way: int8 paged attention on pools made by
+     quantize_kv at phase 2's shapes (<= 1e-4 against its plain version,
+     <= 0.05 against the fp32 attention of the unquantized pools; plus
+     head dims 16 and 128; library = gather + dequantize + sdpa), and,
+     after ragged shapes, the int8-weight matmul over one
+     decode step's 48 block matmuls of the seed-0 GPT-2 weights quantized
+     by quantize_params, at M=8 and M=512 (<= 1e-4 against its plain
+     version; library = torch.matmul on the fp32 weights);
   3. the main path: GPT-2 124M (random weights from seed 0) served by the
      paged DecodeEngine, 8 greedy requests (two sharing a 64-token head),
      every stream done, each token checked against a full forward
@@ -24,11 +34,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      the step at batch 1); then (3b) the decode step's time on the host
      clock (two readings) and its device time by kernel (torch.profiler)
      at B=8, 512 tokens per sequence;
+  3-int8. the same engine run on save_for_decode(..., quant="int8") weights
+     with int8 KV pages (load_for_decode(kv_dtype="int8")): phase 3's 8
+     requests and its steady window, every stream done, each token
+     checked against a full forward over the dequantized weights (within
+     INT8_LOGIT_TOL of the max logit), launch counts equal to layers x
+     steps (int8 attention) and 4 x layers x (steps + prefills) (int8
+     matmul), page bytes against fp32, and phase 3b's step profile on
+     the int8 path; (3c) the host cost of one eager call of what the int8
+     step adds (the matmul wrapper beside torch.matmul, quantize_kv);
   4. the decode server: a save_for_decode artifact served by
      `python -m paddle_tpu_torch.inference.serve --decode` in a
      subprocess, 4 concurrent wire requests compared with phase 3, its
      own kernel launch count equal to layers x its decode steps, then
-     SIGTERM and a clean drain;
+     SIGTERM and a clean drain; (4-int8) the same on the int8 artifact
+     with --kv-dtype int8, held to the int8 engine and the int8 launch
+     formulas;
   5. one JSON line {"kernels": [...]} with every kernel's numbers;
   6. last line {"ok": true, "device": {...}}.
 
@@ -53,6 +74,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32, non-tensor-core
 KERNEL_TOL = 1e-5               # kernel vs plain version, max abs error
 LOGIT_TOL = 1e-4                # teacher-forced token vs max logit
+INT8_KERNEL_TOL = 1e-4          # int8 kernels vs plain (tests/test_quant.py)
+INT8_KV_TOL = 0.05              # int8 attention vs fp32 (docs/serving.md)
+# int8 KV moves every logit of a stream away from the full forward over
+# the same (dequantized) weights. Taking the documented int8-KV tolerance
+# INT8_KV_TOL as that per-logit error e, the chosen token's logit is at
+# most 2e below the oracle's max (its own error plus the max's), so the
+# teacher-forced gap of an int8 stream must stay within 2 * 0.05.
+INT8_LOGIT_TOL = 2 * INT8_KV_TOL
+MATMULS = ("attn.qkv.weight", "attn.proj.weight", "fc1.weight",
+           "fc2.weight")
 
 
 def log(msg):
@@ -81,6 +112,44 @@ def cuda_ms(torch, fn, iters, warm=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters, warm=3):
+    """Mean device ms of fn(i) over `iters` calls captured in one CUDA
+    graph and replayed (CUDA events around the replay): the card's own
+    time for the calls, without the gaps the host leaves between eager
+    launches. `cuda_ms` of a small kernel called from Python measures
+    mostly those gaps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warm):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def timings(torch, kernel, plain, library, iters):
+    """Device ms of the kernel, its plain version and the library call
+    (`graph_ms`), and the kernel's eagerly launched ms (`cuda_ms`, host
+    launch gaps included)."""
+    return {"ms": graph_ms(torch, kernel, iters),
+            "plain_ms": graph_ms(torch, plain, max(iters // 5, 1)),
+            "library_ms": graph_ms(torch, library, max(iters // 5, 1)),
+            "eager_ms": cuda_ms(torch, kernel, iters)}
 
 
 # ------------------------------------------------------------ phase 2
@@ -158,9 +227,8 @@ def phase_paged_attention(torch, np):
             q[li][:, :, None, :], kk, vv, attn_mask=live)[:, :, 0]
 
     lib_err = (library(0) - plain(0)).abs().max().item()
-    ms = cuda_ms(torch, kernel, 240)
-    plain_ms = cuda_ms(torch, plain, 48)
-    library_ms = cuda_ms(torch, library, 48)
+    t = timings(torch, kernel, plain, library, 240)
+    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
     rows = sum(main_len)
     pages = sum(-(-n // pt) for n in main_len)
     nbytes = 4 * (2 * B * H * D            # q in, out
@@ -179,7 +247,8 @@ def phase_paged_attention(torch, np):
            "library_ms": library_ms}
     log(f"PHASE 2 paged_decode_attention B={B} H={H} D={D} pt={pt} W={W} "
         f"P={P} lengths={main_len} max_abs_err={err:.3e} "
-        f"(gate {KERNEL_TOL}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
+        f"(gate {KERNEL_TOL}) kernel_ms={ms:.6f} (graph replay; eager "
+        f"launches {t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
         f"library_ms={library_ms:.6f} (library vs plain err "
         f"{lib_err:.3e}) bound_ms={rec['bound_ms']:.6f} "
         f"({rec['bound_by']}, {nbytes} bytes, {flops} flops) "
@@ -187,6 +256,217 @@ def phase_paged_attention(torch, np):
     del q, k, v
     torch.cuda.empty_cache()
     return rec
+
+
+# ----------------------------------------------------------- phase 2b
+
+def phase_paged_attention_int8(torch, np):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.quant.kv import dequantize_kv, quantize_kv
+
+    B, H, D, pt, W, P, L = 8, 12, 64, 16, 64, 513, 12
+    rng = np.random.default_rng(0)           # phase 2's lengths
+    main_len = [int(x) for x in rng.integers(1, W * pt + 1, size=B)]
+    edge_len = [1, 16, 32, W * pt, 1, 17, 1008, 15]
+    err = err32 = 0.0
+    for lens in (main_len, edge_len):
+        q, k, v, tables, lengths = paged_attention_inputs(
+            torch, np, rng, lens, L, P, pt, H, D, W)
+        if lens is edge_len:
+            tables[4].zero_()
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        for li in range(L):
+            args = (q[li], kq[li], ks[li], vq[li], vs[li], tables, lengths)
+            got = da.paged_decode_attention_quant(*args)
+            want = da.paged_decode_attention_quant(*args, kernel="reference")
+            truth = da.paged_decode_attention(q[li], k[li], v[li], tables,
+                                              lengths, kernel="reference")
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError("paged_decode_attention_quant: non-finite")
+            err = max(err, (got - want).abs().max().item())
+            err32 = max(err32, (got - truth).abs().max().item())
+        del k, v
+    # other head dims the wrapper takes: one char2 per lane (D <= 64) and
+    # two (D = 128)
+    for d in (16, 128):
+        lens = [1, 5, 32]
+        q, k, v, tables, lengths = paged_attention_inputs(
+            torch, np, rng, lens, 1, 3 * 8 + 1, 4, 4, d, 8)
+        kq, ks = quantize_kv(k[0])
+        vq, vs = quantize_kv(v[0])
+        args = (q[0], kq, ks, vq, vs, tables, lengths)
+        got = da.paged_decode_attention_quant(*args)
+        want = da.paged_decode_attention_quant(*args, kernel="reference")
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+    if err > INT8_KERNEL_TOL or err32 > INT8_KV_TOL:
+        raise RuntimeError(f"paged_decode_attention_quant max abs err {err} "
+                           f"(gate {INT8_KERNEL_TOL}), vs fp32 {err32} "
+                           f"(gate {INT8_KV_TOL})")
+
+    # timing at the main path's shapes, rotating over the L layers' pools
+    # (~78 MB of live int8 K/V, more than L2 holds) as a decode step does
+    q, k, v, tables, lengths = paged_attention_inputs(
+        torch, np, rng, main_len, L, P, pt, H, D, W)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    del k, v
+    idx = tables.long()
+    live = (torch.arange(W * pt, device="cuda")[None, :]
+            < lengths[:, None].long())[:, None, None, :]       # [B,1,1,S]
+
+    def args(i):
+        li = i % L
+        return (q[li], kq[li], ks[li], vq[li], vs[li], tables, lengths)
+
+    def kernel(i):
+        return da.paged_decode_attention_quant(*args(i))
+
+    def plain(i):
+        return da.paged_decode_attention_quant(*args(i), kernel="reference")
+
+    def library(i):
+        li = i % L
+        kk = dequantize_kv(kq[li][idx], ks[li][idx])
+        vv = dequantize_kv(vq[li][idx], vs[li][idx])
+        kk = kk.reshape(B, W * pt, H, D).transpose(1, 2)
+        vv = vv.reshape(B, W * pt, H, D).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[li][:, :, None, :], kk, vv, attn_mask=live)[:, :, 0]
+
+    lib_err = (library(0) - plain(0)).abs().max().item()
+    t = timings(torch, kernel, plain, library, 240)
+    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
+    rows = sum(main_len)
+    pages = sum(-(-n // pt) for n in main_len)
+    nbytes = (4 * 2 * B * H * D            # q in, out (fp32)
+              + 2 * rows * H * (D + 4)     # live int8 K/V rows + scales
+              + 4 * (pages + B))           # live table entries, lengths
+    flops = 6 * rows * H * D               # dequantize k, v; q.k; p.v
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    rec = {"name": "paged_decode_attention_int8", "route": "cuda",
+           "source": "paddle_tpu_torch/ops/kernels/csrc/"
+                     "paged_decode_attention_int8.cu",
+           "replaces": "paddle_tpu/ops/pallas/decode_attention.py:278",
+           "launches": 0, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms}
+    log(f"PHASE 2b paged_decode_attention_int8 B={B} H={H} D={D} pt={pt} "
+        f"W={W} P={P} lengths={main_len} max_abs_err={err:.3e} (gate "
+        f"{INT8_KERNEL_TOL}) vs_fp32_err={err32:.3e} (gate {INT8_KV_TOL}) "
+        f"kernel_ms={ms:.6f} (graph replay; eager launches "
+        f"{t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
+        f"library_ms={library_ms:.6f} (library vs plain err "
+        f"{lib_err:.3e}) bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}, {nbytes} bytes, {flops} flops) "
+        f"kernel_over_bound={ms / rec['bound_ms']:.2f}x")
+    del q, kq, vq
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
+    """The int8-weight matmul over one decode step's 48 block matmuls (12
+    layers x qkv, proj, fc1, fc2 of the seed-0 weights), in the step's
+    order, so the 85 MB of int8 weights stream from device memory as they
+    do in a step; at M=8 (a decode step at 8 slots) and M=512 (a prefill
+    of 512 prompt rows)."""
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    ws = []
+    for i in range(cfg.layers):
+        for rel in MATMULS:
+            name = f"blocks.{i}.{rel}"
+            ws.append((torch.from_numpy(qarrays[name]).cuda(),
+                       torch.from_numpy(qarrays[name + "::scale"]).cuda(),
+                       torch.from_numpy(arrays[name]).cuda()))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    # ragged shapes first: the scalar (unaligned) paths of both kernels
+    err = 0.0
+    for M, K, N in ((1, 37, 45), (3, 768, 770), (8, 36, 48), (70, 37, 45),
+                    (129, 100, 64)):
+        x = torch.randn((M, K), generator=g, device="cuda")
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((N,), generator=g, device="cuda") / 127
+        got = qm.int8_weight_matmul(x, w, s)
+        want = qm.int8_weight_matmul(x, w, s, kernel="reference")
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+    if err > INT8_KERNEL_TOL:
+        raise RuntimeError(f"int8_weight_matmul ragged shapes max abs err "
+                           f"{err} > {INT8_KERNEL_TOL}")
+    log(f"PHASE 2b int8_weight_matmul ragged shapes max_abs_err={err:.3e}")
+    out = {}
+    for M in (8, 512):
+        xs = {K: torch.randn((M, K), generator=g, device="cuda")
+              for K in {w.shape[0] for w, _, _ in ws}}
+        err = 0.0
+        for w, s, _ in ws:
+            got = qm.int8_weight_matmul(xs[w.shape[0]], w, s)
+            want = qm.int8_weight_matmul(xs[w.shape[0]], w, s,
+                                         kernel="reference")
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError("int8_weight_matmul: non-finite")
+            err = max(err, (got - want).abs().max().item())
+        if err > INT8_KERNEL_TOL:
+            raise RuntimeError(f"int8_weight_matmul M={M} max abs err {err} "
+                               f"> {INT8_KERNEL_TOL}")
+
+        def step(fn):
+            def run(_):
+                for w, s, wf in ws:
+                    fn(xs[w.shape[0]], w, s, wf)
+            return run
+
+        t = timings(
+            torch,
+            step(lambda x, w, s, wf: qm.int8_weight_matmul(x, w, s)),
+            step(lambda x, w, s, wf: qm.int8_weight_matmul(
+                x, w, s, kernel="reference")),
+            step(lambda x, w, s, wf: torch.matmul(x, wf)), 10)
+        ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
+        nbytes = sum(w.numel() + 4 * (s.numel() + M * w.shape[0]
+                                      + M * w.shape[1]) for w, s, _ in ws)
+        flops = sum(2 * M * w.numel() + M * w.shape[1] for w, _, _ in ws)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        out[M] = {"name": "int8_weight_matmul", "route": "cuda",
+                  "source": "paddle_tpu_torch/ops/kernels/csrc/"
+                            "int8_weight_matmul.cu",
+                  "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:43",
+                  "launches": 0, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                  "library_ms": library_ms}
+        log(f"PHASE 2b int8_weight_matmul M={M} over one step's "
+            f"{len(ws)} block matmuls (K x N: 768x2304, 768x768, 768x3072, "
+            f"3072x768 per layer) max_abs_err={err:.3e} (gate "
+            f"{INT8_KERNEL_TOL}) kernel_ms={ms:.6f} (graph replay; eager "
+            f"launches {t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
+            f"library_ms={library_ms:.6f} (fp32 torch.matmul) "
+            f"bound_ms={out[M]['bound_ms']:.6f} ({out[M]['bound_by']}, "
+            f"{nbytes} bytes, {flops} flops) "
+            f"kernel_over_bound={ms / out[M]['bound_ms']:.2f}x")
+        for kn in sorted({tuple(w.shape) for w, _, _ in ws}):
+            w, s, wf = next(t for t in ws if tuple(t[0].shape) == kn)
+            one = graph_ms(torch, lambda _: qm.int8_weight_matmul(
+                xs[w.shape[0]], w, s), 50)
+            b1 = (w.numel() + 4 * (s.numel() + M * w.shape[0]
+                                   + M * w.shape[1])) / HBM_BYTES_PER_S
+            f1 = (2 * M * w.numel() + M * w.shape[1]) / FP32_FLOPS_PER_S
+            log(f"PHASE 2b int8_weight_matmul M={M} K x N={kn[0]}x"
+                f"{kn[1]} one launch (weight in L2) kernel_ms="
+                f"{one:.6f} bound_ms={max(b1, f1) * 1e3:.6f}")
+    del ws
+    torch.cuda.empty_cache()
+    return out[8]
 
 
 # ------------------------------------------------------------ phase 3
@@ -204,22 +484,38 @@ def teacher_forced(torch, model, prompt, out):
     return (rows.max(dim=-1).values - chosen).max().item()
 
 
-def phase_engine(torch, np, power):
-    from paddle_tpu_torch.inference.decode import DecodeEngine
-    from paddle_tpu_torch.models.gpt import (GPTDecoder, gpt2_124m,
-                                             init_params_numpy,
-                                             params_from_numpy)
+def kernel_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
     from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    return {"paged_decode_attention": da.launches,
+            "paged_decode_attention_int8": da.quant_launches,
+            "int8_weight_matmul": qm.launches}
 
-    cfg = gpt2_124m()
-    t0 = time.perf_counter()
-    arrays = init_params_numpy(cfg, seed=0)
-    params = params_from_numpy(cfg, arrays, "cuda")
-    eng = DecodeEngine(cfg=cfg, params=params, eps=1e-5, max_slots=8,
-                       page_tokens=16, device="cuda")
-    sigs = eng.warmup()
-    log(f"PHASE 3 setup: weights+engine+warmup({sigs} step shapes) "
-        f"{time.perf_counter() - t0:.3f}s")
+
+def zero_counts():
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    da.launches = da.quant_launches = qm.launches = 0
+
+
+def expected_counts(cfg, steps, prefills, int8):
+    """Launches a run must show: one attention launch per layer per decode
+    step (the int8 kernel on int8 pages), and on int8 weights one matmul
+    launch per block matmul per step and per prefill."""
+    attn = cfg.layers * steps
+    return {"paged_decode_attention": 0 if int8 else attn,
+            "paged_decode_attention_int8": attn if int8 else 0,
+            "int8_weight_matmul":
+                len(MATMULS) * cfg.layers * (steps + prefills) if int8
+                else 0}
+
+
+def phase_engine(torch, np, power, cfg, eng, oracle, tol, tag, int8):
+    """Serve phase 3's 8 greedy requests (two sharing a 64-token head)
+    and then the steady 8-stream window on `eng`; hold every token to the
+    full forward of `oracle` (teacher-forced, within `tol` of the max
+    logit) and the launch counts to `expected_counts`."""
     rng = np.random.default_rng(1)
     head = [int(t) for t in rng.integers(0, cfg.vocab_size, 64)]
     prompts = []
@@ -228,52 +524,53 @@ def phase_engine(torch, np, power):
         prompts.append(head + tail[:n - 64] if i in (3, 4) else tail)
     max_new = 32
     try:
-        da.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
         outs = [s.result(timeout=600) for s in streams]
         wall = time.perf_counter() - t0
-        launches = da.launches
+        counts = kernel_counts()
         st = eng.stats()
-        steady = steady_window(eng, da, cfg, rng)
+        steady = steady_window(eng, cfg, rng, int8)
     finally:
         eng.stop()
     if any(len(o) != max_new for o in outs):
         raise RuntimeError(f"short streams: {[len(o) for o in outs]}")
-    if launches != cfg.layers * st["steps"] or launches == 0:
-        raise RuntimeError(f"kernel launches {launches} != layers "
-                           f"{cfg.layers} x steps {st['steps']}")
+    want = expected_counts(cfg, st["steps"], st["prefills"], int8)
+    if counts != want or st["steps"] == 0:
+        raise RuntimeError(f"{tag}: kernel launches {counts} != {want} "
+                           f"({st['steps']} steps, {st['prefills']} "
+                           f"prefills)")
     if st["prefix_cache"]["hits"] < 1:
         raise RuntimeError(f"expected a prefix hit: {st['prefix_cache']}")
-    model = GPTDecoder(cfg, device="cuda")
-    model.load_state_dict(params)
-    gaps = [teacher_forced(torch, model, p, o) for p, o in zip(prompts, outs)]
-    if max(gaps) > LOGIT_TOL:
-        raise RuntimeError(f"teacher-forced check failed: gaps {gaps}")
+    gaps = [teacher_forced(torch, oracle, p, o) for p, o in zip(prompts, outs)]
+    if max(gaps) > tol:
+        raise RuntimeError(f"{tag}: teacher-forced check failed: gaps {gaps}")
     tokens = sum(len(o) for o in outs)
     step_ms = st["step_seconds"] / st["steps"] * 1e3
-    log(f"PHASE 3 engine gpt2_124m slots=8 page_tokens=16 requests=8 "
+    log(f"{tag} engine gpt2_124m kv_dtype={st['kv_dtype']} slots=8 "
+        f"page_tokens=16 requests=8 "
         f"prompt_lens={[len(p) for p in prompts]} max_new={max_new} "
         f"streams_done=8 tokens={tokens} steps={st['steps']} "
         f"prefills={st['prefills']} prefix={st['prefix_cache']} "
-        f"cow={st['cow_copies']} kernel_launches={launches} "
-        f"teacher_forced_max_gap={max(gaps):.3e} (gate {LOGIT_TOL})")
+        f"cow={st['cow_copies']} kernel_launches={counts} "
+        f"teacher_forced_max_gap={max(gaps):.3e} (gate {tol})")
     # a mixed window: most of its steps run one stream feeding the
     # prefix hit's prompt tail at batch 1, and yield no token
-    log(f"PHASE 3 mixed window [{power}]: wall_s={wall:.6f} "
+    log(f"{tag} mixed window [{power}]: wall_s={wall:.6f} "
         f"tokens_per_s={tokens / wall:.3f} ms_per_step={step_ms:.6f} "
         f"tokens_per_step={st['tokens'] - st['prefills']}/{st['steps']} "
         f"(step_seconds={st['step_seconds']:.6f} over {st['steps']} steps, "
         f"step = host->device inputs + 12-layer paged step + logits to "
         f"host)")
     s_prompts, s_outs, s_wall, s_st = steady
-    gaps = [teacher_forced(torch, model, p, o)
-            for p, o in zip(s_prompts, s_outs)]
-    if max(gaps) > LOGIT_TOL:
-        raise RuntimeError(f"steady window teacher-forced check failed: "
-                           f"gaps {gaps}")
+    s_gaps = [teacher_forced(torch, oracle, p, o)
+              for p, o in zip(s_prompts, s_outs)]
+    if max(s_gaps) > tol:
+        raise RuntimeError(f"{tag}: steady window teacher-forced check "
+                           f"failed: gaps {s_gaps}")
     s_tokens = sum(len(o) for o in s_outs)
-    log(f"PHASE 3 steady window [{power}]: 8 distinct "
+    log(f"{tag} steady window [{power}]: 8 distinct "
         f"{len(s_prompts[0])}-token prompts x {len(s_outs[0])} new tokens, "
         f"wall_s={s_wall:.6f} tokens_per_s={s_tokens / s_wall:.3f} "
         f"steps={s_st['steps']} tokens_per_step="
@@ -282,19 +579,18 @@ def phase_engine(torch, np, power):
         f"prefills={s_st['prefills']} "
         f"prefill_s={s_wall - s_st['step_seconds']:.6f} (wall less steps) "
         f"kernel_launches={s_st['launches']} "
-        f"teacher_forced_max_gap={max(gaps):.3e}")
-    del model
-    return cfg, arrays, prompts, outs, launches, params
+        f"teacher_forced_max_gap={max(s_gaps):.3e}")
+    return prompts, outs, counts, gaps
 
 
-def steady_window(eng, da, cfg, rng, n=8, plen=128, max_new=64):
+def steady_window(eng, cfg, rng, int8, n=8, plen=128, max_new=64):
     """8 streams decoding together: distinct prompts (no prefix hit, so
     no prompt tail goes through the step), all submitted at once. Returns
     (prompts, outputs, wall seconds, stats deltas)."""
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, plen)]
                for _ in range(n)]
     before = eng.stats()
-    da.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     outs = [s.result(timeout=600) for s in streams]
@@ -303,30 +599,33 @@ def steady_window(eng, da, cfg, rng, n=8, plen=128, max_new=64):
     st = {"steps": after["steps"] - before["steps"],
           "step_seconds": after["step_seconds"] - before["step_seconds"],
           "prefills": after["prefills"] - before["prefills"],
-          "launches": da.launches}
+          "launches": kernel_counts()}
     if any(len(o) != max_new for o in outs) or st["steps"] == 0 \
-            or st["launches"] != cfg.layers * st["steps"]:
+            or st["launches"] != expected_counts(cfg, st["steps"],
+                                                 st["prefills"], int8):
         raise RuntimeError(f"steady window: streams "
                            f"{[len(o) for o in outs]}, {st}")
     return prompts, outs, wall, st
 
 
-def phase_step_profile(torch, np, cfg, params, power):
+def phase_step_profile(torch, np, cfg, params, power, kv_dtype, tag):
     """Where a decode step's time goes: the 12-layer paged step at B=8,
     every sequence 512 tokens long, timed on the host clock (inputs in,
     logits out, as the engine runs it) and traced with torch.profiler
-    for device time by kernel."""
+    for device time by kernel. `params` and `kv_dtype` pick the fp32 or
+    the int8 path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.models.gpt import gpt_paged_decode_fns
+    from paddle_tpu_torch.quant.kv import kv_pool_zeros
 
     B, pt, W, n = 8, 16, 64, 512
     P = B * W + 1
     _, step = gpt_paged_decode_fns(cfg, page_tokens=pt)
     shape = (cfg.layers, P, pt, cfg.heads, cfg.head_dim)
-    kpool = torch.zeros(shape, device="cuda")
-    vpool = torch.zeros(shape, device="cuda")
+    kpool = kv_pool_zeros(shape, kv_dtype, "cuda")
+    vpool = kv_pool_zeros(shape, kv_dtype, "cuda")
     rng = np.random.default_rng(2)
     tables = np.zeros((B, W), np.int32)
     perm = rng.permutation(np.arange(1, P))
@@ -371,7 +670,8 @@ def phase_step_profile(torch, np, cfg, params, power):
     dev_ms = sum(r[0] for r in rows) / 1e3
     top = "; ".join(f"{name[:60]} {us:.1f}us x{cnt:g}"
                     for us, cnt, name in rows[:8])
-    log(f"PHASE 3b step breakdown [{power}]: gpt2_124m B={B} len={n} "
+    log(f"{tag} step breakdown [{power}]: gpt2_124m kv_dtype={kv_dtype} "
+        f"B={B} len={n} "
         f"host_ms_per_step={host_ms:.6f} (readings "
         f"{', '.join(f'{h:.6f}' for h in host)}) "
         f"device_ms_per_step={dev_ms if rows else 'not measured'} "
@@ -380,9 +680,50 @@ def phase_step_profile(torch, np, cfg, params, power):
         f"top kernels per step: {top or 'no device events recorded'}")
 
 
+def phase_host_costs(torch, power):
+    """Host microseconds per eager call of what the int8 step adds: the
+    int8-weight matmul wrapper (beside the torch.matmul it replaces) and
+    quantize_kv of one step's new K rows, at B=8 decode shapes."""
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    from paddle_tpu_torch.quant.kv import quantize_kv
+
+    def us(fn, n=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((8, 768), generator=g, device="cuda")
+    w = torch.randint(-127, 128, (768, 768), generator=g, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((768,), generator=g, device="cuda")
+    wf = w.float()
+    rows = x.reshape(8, 12, 64)
+    zero_counts()
+    costs = {"int8_weight_matmul": us(lambda: qm.int8_weight_matmul(x, w, s)),
+             "torch.matmul": us(lambda: torch.matmul(x, wf)),
+             "quantize_kv": us(lambda: quantize_kv(rows))}
+    log(f"PHASE 3c host us per eager call [{power}]: "
+        + " ".join(f"{k}={v:.3f}" for k, v in costs.items())
+        + " (M=8, K=N=768; quantize_kv of [8, 12, 64] rows, twice per "
+          "layer per int8 step)")
+
+
 # ------------------------------------------------------------ phase 4
 
-def phase_server(torch, np, cfg, arrays, prompts, outs, params):
+def phase_server(torch, np, cfg, arrays, prompts, outs, oracle_params, tol,
+                 tag, int8):
+    """Serve `arrays` (int8 weights and pages when `int8`) from the decode
+    daemon in a subprocess; 4 concurrent wire requests must give the
+    in-process engine's tokens `outs` (or pass the teacher-forced check
+    against `oracle_params` within `tol`), and the daemon's own launch
+    counts must follow `expected_counts`."""
     from paddle_tpu_torch.inference.decode import save_for_decode
     from paddle_tpu_torch.inference.serve import decode_request
     from paddle_tpu_torch.models.gpt import GPTDecoder
@@ -390,12 +731,14 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, params):
     picks = [0, 2, 4, 6]            # incl. one of the shared-head prompts
     with tempfile.TemporaryDirectory() as td:
         prefix = os.path.join(td, "gpt2_124m")
-        save_for_decode(arrays, cfg, 1e-5, prefix)
+        save_for_decode(arrays, cfg, 1e-5, prefix,
+                        quant="int8" if int8 else None)
         env = dict(os.environ)
         env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
         proc = subprocess.Popen(
             [sys.executable, "-m", "paddle_tpu_torch.inference.serve",
              prefix, "--decode", "--decode-slots", "8", "--port", "0",
+             "--kv-dtype", "int8" if int8 else "float32",
              # a PDI1 request carries no options: it gets this default
              "--decode-max-new", str(len(outs[0]))],
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -454,23 +797,25 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, params):
     if rc != 0 or "DRAINED ok=True" not in out_log:
         raise RuntimeError(f"server drain failed rc={rc}:\n"
                            + "\n".join(out_log[-40:]))
-    # the server's own counts: its requests went through the kernel on
-    # the card, one launch per layer per decode step
+    # the server's own counts: its requests went through the kernels on
+    # the card, by the launch formulas of expected_counts
     stats = [ln for ln in out_log if ln.startswith("DECODE STATS ")]
     if len(stats) != 1:
         raise RuntimeError("server printed no DECODE STATS line:\n"
                            + "\n".join(out_log[-40:]))
     kv = dict(f.split("=", 1) for f in stats[0].split()[2:])
-    srv_steps = int(kv["steps"])
-    srv_launches = int(kv["paged_decode_attention_launches"])
+    srv_steps, srv_prefills = int(kv["steps"]), int(kv["prefills"])
+    srv_counts = {k: int(kv[f"{k}_launches"]) for k in kernel_counts()}
+    want = expected_counts(cfg, srv_steps, srv_prefills, int8)
     if not kv["device"].startswith("cuda") or srv_steps == 0 \
-            or srv_launches != cfg.layers * srv_steps:
-        raise RuntimeError(f"server kernel launches {srv_launches} != "
-                           f"layers {cfg.layers} x steps {srv_steps} on "
-                           f"{kv['device']}")
+            or srv_counts != want \
+            or kv["kv_dtype"] != ("int8" if int8 else "float32"):
+        raise RuntimeError(f"server kernel launches {srv_counts} != {want} "
+                           f"({srv_steps} steps, {srv_prefills} prefills) "
+                           f"on {kv['device']}, kv_dtype {kv['kv_dtype']}")
     # the server batches 4 streams where phase 3 batched 8, so fp32 sums
     # may differ in the last bits; a token that differs must still be a
-    # max-logit choice of the full forward (within LOGIT_TOL)
+    # max-logit choice of the full forward (within tol)
     model = None
     same = 0
     for i in picks:
@@ -479,17 +824,18 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, params):
             continue
         if model is None:
             model = GPTDecoder(cfg, device="cuda")
-            model.load_state_dict(params)
+            model.load_state_dict(oracle_params)
         gap = teacher_forced(torch, model, prompts[i], results[i])
-        if len(results[i]) != len(outs[i]) or gap > LOGIT_TOL:
+        if len(results[i]) != len(outs[i]) or gap > tol:
             raise RuntimeError(f"server reply {i} ({len(results[i])} "
                                f"tokens) differs from the engine "
                                f"({len(outs[i])} tokens) and fails the "
                                f"teacher-forced check (gap {gap})")
-    log(f"PHASE 4 server: 4 concurrent requests (3 PDI2 streams, 1 PDI1) "
-        f"on port {port}, wall_s={wall:.6f}, identical_to_engine="
-        f"{same}/4, device={kv['device']} steps={srv_steps} "
-        f"kernel_launches={srv_launches} (= {cfg.layers} x steps), "
+    log(f"{tag} server: 4 concurrent requests (3 PDI2 streams, 1 PDI1) "
+        f"on port {port}, kv_dtype={kv['kv_dtype']}, wall_s={wall:.6f}, "
+        f"identical_to_engine={same}/4, device={kv['device']} "
+        f"steps={srv_steps} prefills={srv_prefills} "
+        f"kernel_launches={srv_counts} (= {want}), "
         f"SIGTERM -> DRAINED ok=True rc=0")
 
 
@@ -517,12 +863,77 @@ def main():
                 if "registers" in ln or "spill" in ln]
         log(f"PHASE 1 ptxas {name}: {' | '.join(info) or 'cached build'}")
 
-    records = [phase_paged_attention(torch, np)]
-    cfg, arrays, prompts, outs, launches, params = phase_engine(
-        torch, np, power)
-    records[0]["launches"] = launches
-    phase_step_profile(torch, np, cfg, params, power)
-    phase_server(torch, np, cfg, arrays, prompts, outs, params)
+    from paddle_tpu_torch.inference.decode import (DecodeEngine,
+                                                   kv_page_bytes,
+                                                   load_for_decode,
+                                                   save_for_decode)
+    from paddle_tpu_torch.models.gpt import (GPTDecoder, gpt2_124m,
+                                             init_params_numpy,
+                                             params_from_numpy)
+    from paddle_tpu_torch.quant.ptq import dequantize_params, quantize_params
+
+    records = [phase_paged_attention(torch, np),
+               phase_paged_attention_int8(torch, np)]
+    cfg = gpt2_124m()
+    t0 = time.perf_counter()
+    arrays = init_params_numpy(cfg, seed=0)
+    qarrays = quantize_params(arrays)
+    log(f"PHASE 2b setup: seed-0 weights + quantize_params "
+        f"{time.perf_counter() - t0:.3f}s")
+    records.append(phase_int8_matmul(torch, np, cfg, qarrays, arrays))
+
+    # phase 3: the fp32 path
+    t0 = time.perf_counter()
+    params = params_from_numpy(cfg, arrays, "cuda")
+    eng = DecodeEngine(cfg=cfg, params=params, eps=1e-5, max_slots=8,
+                       page_tokens=16, device="cuda")
+    sigs = eng.warmup()
+    log(f"PHASE 3 setup: weights+engine+warmup({sigs} step shapes) "
+        f"{time.perf_counter() - t0:.3f}s")
+    oracle = GPTDecoder(cfg, device="cuda")
+    oracle.load_state_dict(params)
+    prompts, outs, counts, _ = phase_engine(
+        torch, np, power, cfg, eng, oracle, LOGIT_TOL, "PHASE 3", int8=False)
+    records[0]["launches"] = counts["paged_decode_attention"]
+    del oracle
+    phase_step_profile(torch, np, cfg, params, power, "float32", "PHASE 3b")
+
+    # phase 3-int8: int8 weights (a quant="int8" artifact) + int8 pages
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "gpt2_124m_int8")
+        save_for_decode(qarrays, cfg, 1e-5, prefix, quant="int8")
+        eng8 = load_for_decode(prefix, device="cuda", kv_dtype="int8",
+                               max_slots=8, page_tokens=16)
+    sigs = eng8.warmup()
+    log(f"PHASE 3-int8 setup: save_for_decode(quant='int8') + "
+        f"load_for_decode(kv_dtype='int8') + warmup({sigs} step shapes) "
+        f"{time.perf_counter() - t0:.3f}s")
+    kinds = {str(eng8.params[f"blocks.0.{rel}"].dtype) for rel in MATMULS}
+    if kinds != {"torch.int8"}:
+        raise RuntimeError(f"int8 engine holds block weights as {kinds}")
+    deq = params_from_numpy(cfg, dequantize_params(qarrays), "cuda")
+    oracle8 = GPTDecoder(cfg, device="cuda")
+    oracle8.load_state_dict(deq)
+    prompts8, outs8, counts8, _ = phase_engine(
+        torch, np, power, cfg, eng8, oracle8, INT8_LOGIT_TOL,
+        "PHASE 3-int8", int8=True)
+    del oracle8
+    same = sum(a == b for o8, o in zip(outs8, outs) for a, b in zip(o8, o))
+    log(f"PHASE 3-int8 tokens equal to phase 3's fp32 streams (same "
+        f"prompts): {same}/{sum(len(o) for o in outs)}; page bytes at "
+        f"pt=16: int8 {kv_page_bytes(cfg, 16, 'int8')} vs fp32 "
+        f"{kv_page_bytes(cfg, 16)}")
+    records[1]["launches"] = counts8["paged_decode_attention_int8"]
+    records[2]["launches"] = counts8["int8_weight_matmul"]
+    phase_step_profile(torch, np, cfg, eng8.params, power, "int8",
+                       "PHASE 3b-int8")
+    phase_host_costs(torch, power)
+
+    phase_server(torch, np, cfg, arrays, prompts, outs, params, LOGIT_TOL,
+                 "PHASE 4", int8=False)
+    phase_server(torch, np, cfg, qarrays, prompts8, outs8, deq,
+                 INT8_LOGIT_TOL, "PHASE 4-int8", int8=True)
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

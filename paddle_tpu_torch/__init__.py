@@ -7,7 +7,9 @@ Module names follow the JAX package so each counterpart is easy to find:
   * `models.gpt`            GPT configs, the paged decode forward, weights
   * `memory.page_allocator` refcounted KV page bookkeeping + pool ops
   * `ops.kernels`           hand-written CUDA kernels and their plain
-                            PyTorch versions (`decode_attention`)
+                            PyTorch versions (`decode_attention`,
+                            `quant_matmul`)
+  * `quant`                 int8 PTQ of decode weights, int8 KV pages
   * `inference.decode`      the paged-KV continuous-batching DecodeEngine
   * `inference.serve`       the PDI1/PDI2 decode server
 

@@ -62,6 +62,12 @@ define_env_flag(
     "Decode-engine batch bucket ladder override, space/comma-separated "
     "ints (inference/decode.py); empty uses powers of two up to max_slots.")
 define_env_flag(
+    "PADDLE_TPU_DECODE_KV_DTYPE", "float32",
+    "Decode KV page-pool dtype: 'float32', or 'int8' for quantized "
+    "pages (quant/kv.py) — int8 payload plus one fp32 scale per "
+    "(token row, head), cutting page memory ~4x at the cost of ~1/254 "
+    "relative rounding error per K/V row.")
+define_env_flag(
     "PADDLE_TPU_DECODE_PAGE_TOKENS", 16,
     "KV-cache page size in tokens for the paged decode engine "
     "(inference/decode.py, memory/page_allocator.py).")

@@ -1,17 +1,18 @@
 """Continuous-batching autoregressive decode engine over a paged KV cache.
 
-Port of paddle_tpu's `inference/decode.py` `DecodeEngine` (fp32 pages,
-one tenant):
+Port of paddle_tpu's `inference/decode.py` `DecodeEngine` (one tenant):
 
   * the KV store is one device-resident page pool per K and V
-    (`[layers, pages, page_tokens, heads, head_dim]`, fp32) plus a
-    per-sequence block table; `memory.page_allocator` hands out
+    (`[layers, pages, page_tokens, heads, head_dim]`, fp32, or with
+    ``kv_dtype="int8"`` the `quant.kv` pair of int8 codes and one fp32
+    scale per (layer, page, row, head)) plus a per-sequence block table; `memory.page_allocator` hands out
     refcounted page ids. Admission allocates pages, eviction releases
     them — capacity growth is a longer block table, never a cache copy;
   * the compute core is `models.gpt`: a miss admission runs the fused
     prefill-into-pages, and `paged_step` advances EVERY active request
     one token, writing through the block table and attending through the
-    hand-written CUDA kernel (`ops.kernels.decode_attention`);
+    hand-written CUDA kernels (`ops.kernels`: paged attention, fp32 or
+    int8, and the int8-weight matmul of a quantized artifact);
   * batch and block-table width are padded to bucket rungs
     (`inference.batching`), so the step sees a small fixed set of shapes;
   * **prefix sharing**: a hash trie caches page-aligned prompt prefixes.
@@ -27,8 +28,8 @@ one tenant):
 Unlike the JAX engine, whose pools are donated and functionally updated,
 this engine updates its pools in place. Admission is single-tenant FIFO:
 the JAX engine's weighted-fair QoS, quotas and preemption, host-RAM
-tiering, KV handoff, speculative decoding, int8 pages and weights, and
-its metrics, spans and memz are later slices of the port.
+tiering, KV handoff, speculative decoding, and its metrics, spans and
+memz are later slices of the port.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ from ..core.device import resolve_device
 from ..memory.page_allocator import PageAllocator, PageExhausted, copy_page
 from ..models.gpt import (GPTConfig, gpt_paged_decode_fns,
                           gpt_paged_prefill_fns, params_from_numpy)
+from ..quant.kv import kv_pool_zeros, validate_kv_dtype
+from ..quant.ptq import is_quantized, quantize_params
 from .batching import _WARMUP_SIG_CAP, bucket_ladder, next_bucket
 from .errors import (ERR_INVALID_ARGUMENT, ERR_RESOURCE_EXHAUSTED,
                      ERR_UNAVAILABLE, TypedServeError)
@@ -77,11 +80,13 @@ def kv_slot_bytes(cfg: GPTConfig, capacity: Optional[int] = None) -> int:
 
 def kv_page_bytes(cfg: GPTConfig, page_tokens: int,
                   kv_dtype: str = "float32") -> int:
-    """Device bytes one K+V page occupies (fp32 pools only, so far)."""
-    if kv_dtype != "float32":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: only float32 pages are ported")
-    return cfg.layers * 2 * int(page_tokens) * cfg.heads * cfg.head_dim * 4
+    """Device bytes one K+V page occupies at the pool dtype. The int8 pool
+    (quant/kv.py) pays 1 byte per element plus one fp32 scale per (token
+    row, head) — 1 + 4/head_dim bytes/element vs 4 for fp32."""
+    rows = cfg.layers * 2 * int(page_tokens) * cfg.heads
+    if validate_kv_dtype(kv_dtype) == "int8":
+        return rows * cfg.head_dim + rows * 4
+    return rows * cfg.head_dim * 4
 
 
 def default_slot_count(cfg: GPTConfig, device=None) -> int:
@@ -320,8 +325,10 @@ class DecodeEngine:
 
     Give it a `models.gpt.GPTDecoder` as `model`, or `cfg` plus `params`
     (the port's flat tensor dict: `models.gpt.params_from_numpy` carries
-    the JAX package's weights across). `device` defaults to cuda and
-    raises without a GPU."""
+    the JAX package's weights across, int8 weights of a quantized artifact
+    included, which stay int8). `kv_dtype` ("float32" or "int8", default
+    PADDLE_TPU_DECODE_KV_DTYPE) picks the page pool. `device` defaults to
+    cuda and raises without a GPU."""
 
     def __init__(self, model=None, *, cfg: Optional[GPTConfig] = None,
                  params: Optional[Mapping] = None,
@@ -331,6 +338,7 @@ class DecodeEngine:
                  page_tokens: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
+                 kv_dtype: Optional[str] = None,
                  device=None):
         if model is not None:
             cfg = model.cfg
@@ -341,8 +349,13 @@ class DecodeEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.eps = 1e-5 if eps is None else float(eps)
-        self.params = {k: v.to(self.device, torch.float32)
+        # int8 weights (a quantized artifact) stay int8; the rest is fp32
+        self.params = {k: v.to(self.device) if v.dtype == torch.int8
+                       else v.to(self.device, torch.float32)
                        for k, v in params.items()}
+        self.kv_dtype = validate_kv_dtype(
+            kv_dtype if kv_dtype is not None
+            else _flags.env_value("PADDLE_TPU_DECODE_KV_DTYPE"))
         self.max_new_tokens = int(max_new_tokens)
         self.max_slots = int(max_slots) if max_slots \
             else default_slot_count(cfg, device=self.device)
@@ -378,7 +391,8 @@ class DecodeEngine:
 
         self._pending: deque = deque()
         self._active: List[_Req] = []
-        self._kpool = None           # [L, P, page_tokens, nh, D], lazy
+        self._kpool = None           # [L, P, page_tokens, nh, D] (or the
+                                     # int8 (data, scale) pair), lazy
         self._vpool = None
         self._last_b_rung = self.batch_ladder[0]
         self._last_w_rung = self.page_ladder[0]
@@ -433,9 +447,10 @@ class DecodeEngine:
 
     def _ensure_pool(self):
         if self._kpool is None:
-            self._kpool = torch.zeros(self._pool_shape(), dtype=torch.float32,
-                                      device=self.device)
-            self._vpool = torch.zeros_like(self._kpool)
+            self._kpool = kv_pool_zeros(self._pool_shape(), self.kv_dtype,
+                                        self.device)
+            self._vpool = kv_pool_zeros(self._pool_shape(), self.kv_dtype,
+                                        self.device)
 
     def warmup(self, verbose: bool = False) -> int:
         """Allocate the pools, build the kernels, and run the decode step
@@ -473,8 +488,9 @@ class DecodeEngine:
             "batch_ladder": list(self.batch_ladder),
             "kv_ladder": list(self.kv_ladder),
             "page_tokens": self.page_tokens,
-            "kv_dtype": "float32",
-            "kv_page_bytes": kv_page_bytes(self.cfg, self.page_tokens),
+            "kv_dtype": self.kv_dtype,
+            "kv_page_bytes": kv_page_bytes(self.cfg, self.page_tokens,
+                                           self.kv_dtype),
             "pages": self._alloc.stats(),
             "cow_copies": self._counts["cow_copies"],
             "prefills": self._counts["prefills"],
@@ -571,9 +587,9 @@ class DecodeEngine:
         ) from err
 
     def _cow(self, req: _Req, slot: int):
-        """First write into a shared page: copy it to a fresh page and
-        repoint this slot's block table (the other owners keep the
-        original — that's the isolation)."""
+        """First write into a shared page: copy it to a fresh page (data
+        and scale of an int8 pool) and repoint this slot's block table
+        (the other owners keep the original — that's the isolation)."""
         old = req.pages[slot]
         (new,) = self._alloc_pages(1, req)
         copy_page(self._kpool, old, new)
@@ -762,15 +778,29 @@ class DecodeEngine:
 # ------------------------------------------------------------ artifact
 
 def save_for_decode(params_np: Mapping, cfg: GPTConfig, eps: float,
-                    prefix: str):
+                    prefix: str, quant: Optional[str] = None):
     """Persist weights for the decode daemon in the JAX package's
     ``paddle_tpu.decode.v1`` format: ``<prefix>.decode.json`` (config,
     eps) + ``<prefix>.decode.npz`` (params, either layout). Artifacts
-    written by either package load in both."""
+    written by either package load in both.
+
+    ``quant="int8"`` applies `quant.ptq.quantize_params` before writing
+    (int8 weights under their own keys plus fp32 ``::scale`` siblings;
+    params that already carry them are written as they are) and records
+    ``"quant": "int8"`` in the manifest, as the JAX package does. The
+    default fp32 artifact has no ``quant`` key."""
     meta = {"config": dataclasses.asdict(cfg), "eps": float(eps),
             "format": ARTIFACT_FORMAT}
     arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                   else np.asarray(v)) for k, v in params_np.items()}
+    if quant is not None:
+        if quant != "int8":
+            raise ValueError(f"quant={quant!r}: expected None or 'int8'")
+        if not is_quantized(arrays):
+            arrays = quantize_params(arrays)
+        meta["quant"] = "int8"
+    elif is_quantized(arrays):
+        raise ValueError("params carry ::scale keys: pass quant='int8'")
     with open(prefix + ".decode.json", "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
     np.savez(prefix + ".decode.npz", **arrays)
@@ -781,19 +811,24 @@ def _load_decode_artifact(prefix: str):
         meta = json.load(f)
     if meta.get("format") != ARTIFACT_FORMAT:
         raise ValueError(f"{prefix}.decode.json: not a decode artifact")
-    if meta.get("quant") is not None:
-        raise NotImplementedError(
-            f"{prefix}: quant={meta['quant']!r} artifacts are not ported "
-            f"yet (fp32 only)")
+    quant = meta.get("quant")
+    if quant not in (None, "int8"):
+        raise ValueError(f"{prefix}: quant={quant!r}: expected none or "
+                         f"'int8'")
     cfg = GPTConfig(**meta["config"])
     with np.load(prefix + ".decode.npz") as z:
         params = {k: z[k] for k in z.files}
+    if (quant == "int8") != is_quantized(params):
+        raise ValueError(f"{prefix}: manifest quant={quant!r} but the "
+                         f"weights {'do not ' if quant else ''}carry "
+                         f"::scale keys")
     return cfg, params, meta.get("eps")
 
 
 def load_for_decode(prefix: str, device=None, **engine_kw) -> DecodeEngine:
-    """Load a `save_for_decode` artifact (from either package) into a
-    ready DecodeEngine on `device` (default cuda)."""
+    """Load a `save_for_decode` artifact (from either package, fp32 or
+    ``quant="int8"``) into a ready DecodeEngine on `device` (default
+    cuda); `engine_kw` goes to the engine (``kv_dtype=``, slots, ...)."""
     dev = resolve_device(device)
     cfg, params, eps = _load_decode_artifact(prefix)
     return DecodeEngine(cfg=cfg, params=params_from_numpy(cfg, params, dev),

@@ -19,12 +19,19 @@ request gets exactly one frame with the accumulated tokens.
 
     python -m paddle_tpu_torch.inference.serve <prefix> --decode --port 9000
 
+    python -m paddle_tpu_torch.inference.serve <int8 prefix> --decode \
+        --kv-dtype int8          # int8 weights (save_for_decode(quant=
+                                 # "int8")) and int8 KV pages
+
 The daemon prints ``SERVING <port>`` once it listens, and on SIGTERM
 drains (answers every request in flight), prints ``DECODE STATS
-device=... steps=N tokens=N paged_decode_attention_launches=N`` (the
-launches counted since ``SERVING``, so a run can show the kernel served
-its requests), then ``DRAINED ok=<bool>``, and exits 0. The one-shot (non-decode) predictor mode, the router, the
-admin endpoint and KV handoff are later slices of the port.
+device=... kv_dtype=... steps=N prefills=N tokens=N
+paged_decode_attention_launches=N paged_decode_attention_int8_launches=N
+int8_weight_matmul_launches=N``
+(the kernel launches counted since ``SERVING``, so a run can show the
+kernels served its requests), then ``DRAINED ok=<bool>``, and exits 0.
+The one-shot (non-decode) predictor mode, the router, the admin endpoint
+and KV handoff are later slices of the port.
 """
 from __future__ import annotations
 
@@ -248,7 +255,7 @@ class InferenceServer:
     def __init__(self, model_prefix: str, port: int = 0,
                  host: str = "127.0.0.1", decode: bool = True,
                  decode_slots: int = None, decode_max_new: int = None,
-                 warmup: bool = False, device=None):
+                 warmup: bool = False, kv_dtype: str = None, device=None):
         if not decode:
             raise NotImplementedError(
                 "paddle_tpu_torch serves decode mode only (pass "
@@ -259,6 +266,8 @@ class InferenceServer:
             kw["max_slots"] = int(decode_slots)
         if decode_max_new:
             kw["max_new_tokens"] = int(decode_max_new)
+        if kv_dtype:
+            kw["kv_dtype"] = str(kv_dtype)
         self._engine = load_for_decode(model_prefix, device=device, **kw)
         self.warmup_steps = self._engine.warmup(verbose=True) if warmup \
             else 0
@@ -466,6 +475,11 @@ def main(argv=None):
     ap.add_argument("--decode-max-new", type=int, default=None,
                     help="default max new tokens per request when the "
                          "client does not specify one")
+    ap.add_argument("--kv-dtype", default=None,
+                    choices=("float32", "int8"),
+                    help="KV page-pool dtype: int8 stores quantized pages "
+                         "with per-row scales, cutting page memory ~4x "
+                         "(default PADDLE_TPU_DECODE_KV_DTYPE)")
     ap.add_argument("--warmup", action="store_true",
                     help="run every decode step shape once at startup")
     ap.add_argument("--device", default="cuda",
@@ -477,14 +491,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not args.decode:
         ap.error("only --decode mode is served by paddle_tpu_torch")
-    from ..ops.kernels import decode_attention
+    from ..ops.kernels import decode_attention, quant_matmul
     srv = InferenceServer(args.model, port=args.port, host=args.host,
                           decode_slots=args.decode_slots,
                           decode_max_new=args.decode_max_new,
-                          warmup=args.warmup, device=args.device)
+                          warmup=args.warmup, kv_dtype=args.kv_dtype,
+                          device=args.device)
+
+    def counts():
+        return {"paged_decode_attention_launches": decode_attention.launches,
+                "paged_decode_attention_int8_launches":
+                    decode_attention.quant_launches,
+                "int8_weight_matmul_launches": quant_matmul.launches}
+
     # kernel launches counted from here on belong to served requests
-    # (warmup's are already in the count)
-    launches0 = decode_attention.launches
+    # (warmup's are already in the counts)
+    counts0 = counts()
     print(f"SERVING {srv.port}", flush=True)
     # SIGTERM = graceful retirement: stop accepting, finish in-flight,
     # exit 0
@@ -495,9 +517,12 @@ def main(argv=None):
         print("DRAINING", flush=True)
         ok = srv.drain(timeout=args.drain_timeout)
         st = srv.engine.stats()
-        print(f"DECODE STATS device={st['device']} steps={st['steps']} "
-              f"tokens={st['tokens']} paged_decode_attention_launches="
-              f"{decode_attention.launches - launches0}", flush=True)
+        served = " ".join(f"{k}={v - counts0[k]}"
+                          for k, v in counts().items())
+        print(f"DECODE STATS device={st['device']} "
+              f"kv_dtype={st['kv_dtype']} steps={st['steps']} "
+              f"prefills={st['prefills']} tokens={st['tokens']} {served}",
+              flush=True)
         print(f"DRAINED ok={ok}", flush=True)
     except KeyboardInterrupt:
         srv.stop()

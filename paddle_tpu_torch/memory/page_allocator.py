@@ -30,8 +30,9 @@ its memz ring; that plane is not ported yet.
 
 `write_pages` / `copy_page` / `gather_pages` are the pool ops that pair
 with the bookkeeping, as torch index ops over a pool whose axis 1 is the
-page axis; they are the only scatter and gather of pool pages in the
-package (`models.gpt` writes its rows through `write_pages`). Unlike the
+page axis (a tensor, or the int8 pool's (data, scale) pair); they are
+the only scatter and gather of pool pages in the package (`models.gpt`
+writes its rows through `write_pages`). Unlike the
 JAX versions (pure functions over donated buffers), `write_pages` and
 `copy_page` update the pool **in place**.
 """
@@ -238,40 +239,57 @@ class PageAllocator:
 
 
 # ----------------------------------------------------------- pool ops
+#
+# A pool is a bare tensor (fp32 pages) or the int8 pool's ``(data, scale)``
+# pair from `quant.kv` (scale drops data's trailing head_dim axis); every
+# op below applies to each tensor of a pair with the same indices.
 
-def write_pages(pool: torch.Tensor, rows: torch.Tensor, page_ids,
-                offset=slice(None), layer=slice(None)) -> torch.Tensor:
+def _leaves(pool):
+    return pool if isinstance(pool, tuple) else (pool,)
+
+
+def write_pages(pool, rows, page_ids, offset=slice(None), layer=slice(None)):
     """Scatter into the pool, in place: ``pool[layer, page_ids, offset] =
     rows``; returns `pool`.
 
-    pool      [L, P, page_tokens, ...]  (page axis = 1)
+    pool      [L, P, page_tokens, ...]  (page axis = 1), or a (data,
+              scale) pair
     rows      [L, W, page_tokens, ...]  whole pages (the defaults), or
               [..., R, ...] single rows when `offset` is an [R] index
-              vector beside [R] `page_ids` (and `layer` one layer or all)
+              vector beside [R] `page_ids` (and `layer` one layer or all);
+              a pair for a pair pool
 
     Duplicate destinations (several padding rows aimed at the null page)
     resolve arbitrarily — by convention only don't-care data is ever
     aimed at a duplicated id.
     """
-    pool[layer, page_ids, offset] = rows
+    if isinstance(pool, tuple) != isinstance(rows, tuple):
+        raise TypeError("write_pages: a (data, scale) pool takes "
+                        "(data, scale) rows, a tensor pool a tensor")
+    for p, r in zip(_leaves(pool), _leaves(rows)):
+        p[layer, page_ids, offset] = r
     return pool
 
 
-def copy_page(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
-    """Copy one page (copy-on-write), in place: pool[:, dst] = pool[:, src].
-    Returns `pool`."""
-    pool[:, int(dst)].copy_(pool[:, int(src)])
+def copy_page(pool, src: int, dst: int):
+    """Copy one page (copy-on-write), in place: pool[:, dst] = pool[:, src]
+    on every tensor of the pool. Returns `pool`."""
+    for p in _leaves(pool):
+        p[:, int(dst)].copy_(p[:, int(src)])
     return pool
 
 
-def gather_pages(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
+def gather_pages(pool, page_ids: torch.Tensor):
     """Gather whole pages into a fresh `[L, *page_ids.shape, page_tokens,
-    ...]` tensor — the read twin of `write_pages`. `page_ids` may be a [W]
-    list or a [B, W] block table; the result shares no storage with the
-    pool."""
-    ids = page_ids.to(pool.device, torch.long)
-    return pool.index_select(1, ids.reshape(-1)).reshape(
-        pool.shape[:1] + tuple(ids.shape) + pool.shape[2:])
+    ...]` tensor (a pair for a pair pool) — the read twin of
+    `write_pages`. `page_ids` may be a [W] list or a [B, W] block table;
+    the result shares no storage with the pool."""
+    out = []
+    for p in _leaves(pool):
+        ids = page_ids.to(p.device, torch.long)
+        out.append(p.index_select(1, ids.reshape(-1)).reshape(
+            p.shape[:1] + tuple(ids.shape) + p.shape[2:]))
+    return tuple(out) if isinstance(pool, tuple) else out[0]
 
 
 __all__ = ["PageAllocator", "PageExhausted", "UNTAGGED", "POOL",

@@ -18,6 +18,15 @@ accepts the JAX arrays in either layout (scan-stacked ``blocks.<name>``
 with a leading [layers] axis, or indexed ``blocks.<i>.<name>``).
 `GPTDecoder` is the same parameters as an `nn.Module`.
 
+int8 serving (the JAX package's `quant/` conventions): a weight quantized
+by `quant.ptq.quantize_params` is an int8 tensor under its own name with
+an fp32 per-output-channel scale under ``name + "::scale"``; `_qmm` sends
+every block matmul whose weight has that sibling through
+`ops.kernels.quant_matmul.int8_weight_matmul`. An int8 KV pool is the
+``(data int8, scale f32)`` pair of `quant.kv`; the pool helpers below
+branch on it, and its attention goes through
+`paged_decode_attention_quant`.
+
 The JAX `gpt_decode_fns` also has a contiguous-cache `decode_step` (TPU
 kernel `_decode_attention_pallas`); the engine does not use it and it is
 not ported. MoE configs raise `NotImplementedError`, as in JAX.
@@ -27,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +44,11 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..memory.page_allocator import gather_pages, write_pages
-from ..ops.kernels.decode_attention import NEG_INF, paged_decode_attention
+from ..ops.kernels.decode_attention import (NEG_INF, paged_decode_attention,
+                                            paged_decode_attention_quant)
+from ..ops.kernels.quant_matmul import int8_weight_matmul
+from ..quant.kv import dequantize_kv, quantize_kv
+from ..quant.ptq import SCALE_SUFFIX, is_quantized
 
 
 @dataclasses.dataclass
@@ -98,13 +111,20 @@ _BLOCK_SHAPES = (          # relative name -> shape as a function of cfg
 )
 
 
-def param_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
-    """Every decode parameter's indexed name -> shape."""
+def param_shapes(cfg: GPTConfig,
+                 quant: Optional[str] = None) -> Dict[str, Tuple[int, ...]]:
+    """Every decode parameter's indexed name -> shape. ``quant="int8"``
+    adds the ``::scale`` sibling ([out]) of each block matmul weight, the
+    weights `quant.ptq.quantize_params` turns into int8."""
+    if quant not in (None, "int8"):
+        raise ValueError(f"quant={quant!r}: expected None or 'int8'")
     out = {"wte.weight": (cfg.vocab_size, cfg.hidden),
            "wpe.weight": (cfg.max_seq_len, cfg.hidden)}
     for i in range(cfg.layers):
         for rel, shape in _BLOCK_SHAPES:
             out[f"blocks.{i}.{rel}"] = shape(cfg)
+            if quant and rel.endswith(".weight") and len(shape(cfg)) == 2:
+                out[f"blocks.{i}.{rel}{SCALE_SUFFIX}"] = shape(cfg)[-1:]
     out["ln_f.weight"] = (cfg.hidden,)
     out["ln_f.bias"] = (cfg.hidden,)
     return out
@@ -132,9 +152,13 @@ def params_from_numpy(cfg: GPTConfig, arrays: Mapping[str, np.ndarray],
 
     `arrays` may use either layout of the JAX package: scan-stacked
     (``blocks.attn.qkv.weight`` with a leading [layers] axis) or indexed
-    (``blocks.3.attn.qkv.weight``). Returns the indexed layout as fp32
-    tensors on `device` (default cuda). Missing or mis-shaped weights
-    raise."""
+    (``blocks.3.attn.qkv.weight``). Returns the indexed layout as tensors
+    on `device` (default cuda): fp32, except the int8 weights of a
+    quantized artifact (one with ``::scale`` keys, stacked ``[L, out]`` or
+    per layer ``[out]``), which stay ``torch.int8`` beside fp32 scales.
+    Missing or mis-shaped weights raise, and so does any weight whose
+    dtype disagrees with the presence of its scale (an int8 weight read
+    as float would give wrong logits without an error)."""
     if cfg.moe_experts > 0:
         raise NotImplementedError("params_from_numpy: MoE blocks have no "
                                   "decode path")
@@ -151,18 +175,29 @@ def params_from_numpy(cfg: GPTConfig, arrays: Mapping[str, np.ndarray],
                 flat[f"blocks.{i}.{rel}"] = v[i]
         else:
             flat[k] = v
-    want = param_shapes(cfg)
+    want = param_shapes(cfg, "int8" if is_quantized(flat) else None)
     missing = sorted(set(want) - set(flat))
     if missing:
         raise KeyError(f"params_from_numpy: missing {missing[:4]}"
                        f"{' ...' if len(missing) > 4 else ''}")
+    stray = sorted(k for k in flat if k.endswith(SCALE_SUFFIX)
+                   and k not in want)
+    if stray:
+        raise KeyError(f"params_from_numpy: scales of no quantizable "
+                       f"weight: {stray[:4]}")
     out = {}
     for name, shape in want.items():
         a = flat[name]
         if tuple(a.shape) != shape:
             raise ValueError(f"params_from_numpy: {name} has shape "
                              f"{tuple(a.shape)}, want {shape}")
-        out[name] = torch.tensor(a, dtype=torch.float32, device=dev)
+        quantized = name + SCALE_SUFFIX in want
+        if not (a.dtype == np.int8 if quantized else a.dtype.kind == "f"):
+            raise TypeError(
+                f"params_from_numpy: {name} is {a.dtype}, want "
+                + ("int8 (it has a scale)" if quantized else "a float"))
+        out[name] = torch.tensor(
+            a, dtype=torch.int8 if quantized else torch.float32, device=dev)
     return out
 
 
@@ -252,10 +287,21 @@ def _pp_ln(x, g, b, eps):
     return (x - mu) / torch.sqrt(var + eps) * g + b
 
 
+def _qmm(bp, name, x):
+    """Weight matmul over a possibly PTQ-quantized block param dict: ``x @
+    w`` when `name` has no ``::scale`` sibling, else the int8-weight matmul
+    (`ops.kernels.quant_matmul`: the kernel on the GPU, the plain version
+    on the CPU)."""
+    s = bp.get(name + SCALE_SUFFIX)
+    if s is None:
+        return x @ bp[name]
+    return int8_weight_matmul(x, bp[name], s)
+
+
 def _ffn(bp, x, eps):
     h2 = _pp_ln(x, bp["ln2.weight"], bp["ln2.bias"], eps)
-    m = torch.nn.functional.gelu(h2 @ bp["fc1.weight"] + bp["fc1.bias"])
-    return x + m @ bp["fc2.weight"] + bp["fc2.bias"]
+    m = torch.nn.functional.gelu(_qmm(bp, "fc1.weight", h2) + bp["fc1.bias"])
+    return x + _qmm(bp, "fc2.weight", m) + bp["fc2.bias"]
 
 
 def _hidden(params, cfg: GPTConfig, eps: float, tokens: torch.Tensor):
@@ -272,7 +318,7 @@ def _hidden(params, cfg: GPTConfig, eps: float, tokens: torch.Tensor):
     ks, vs = [], []
     for bp in blocks:
         h1 = _pp_ln(x, bp["ln1.weight"], bp["ln1.bias"], eps)
-        qkv = h1 @ bp["attn.qkv.weight"] + bp["attn.qkv.bias"]
+        qkv = _qmm(bp, "attn.qkv.weight", h1) + bp["attn.qkv.bias"]
         q, k, v = qkv.split(cfg.hidden, dim=-1)
         q = q.reshape(B, T, nh, D)
         k = k.reshape(B, T, nh, D)
@@ -283,32 +329,53 @@ def _hidden(params, cfg: GPTConfig, eps: float, tokens: torch.Tensor):
         s = s.float().masked_fill(~causal, NEG_INF)
         p = torch.softmax(s, dim=-1).to(v.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, T, -1)
-        x = x + o @ bp["attn.proj.weight"] + bp["attn.proj.bias"]
+        x = x + _qmm(bp, "attn.proj.weight", o) + bp["attn.proj.bias"]
         x = _ffn(bp, x, eps)
     xf = _pp_ln(x, head["ln_f.weight"], head["ln_f.bias"], eps)
     return xf, torch.stack(ks), torch.stack(vs)
 
 
 # An fp32 KV pool is a bare [layers, P, page_tokens, heads, head_dim]
-# tensor (the int8 pool of the JAX package comes in a later slice). Writes
-# go into the pool IN PLACE (index_put_, through the allocator's pool ops),
-# where the JAX versions return a functionally updated, donated buffer.
+# tensor; the int8 pool (quant/kv.py) is the (data int8, scale f32) pair
+# with one scale per (layer, page, row, head). The helpers below branch on
+# the pair, so one decode path serves both pool dtypes. Writes go into the
+# pool IN PLACE (index_put_, through the allocator's pool ops), where the
+# JAX versions return a functionally updated, donated buffer.
 
 def _kv_pool_write(pool, li, page_idx, offset, rows):
-    """Scatter fresh K/V rows at [li, page_idx, offset], in place (`li`
-    may be `slice(None)` for an all-layer scatter)."""
+    """Scatter fresh fp32 K/V rows at [li, page_idx, offset], in place
+    (`li` may be `slice(None)` for an all-layer scatter); an int8 pool
+    quantizes the rows per (row, head) first."""
+    if isinstance(pool, tuple):
+        rows = quantize_kv(rows)
     return write_pages(pool, rows, page_idx, offset=offset, layer=li)
 
 
 def _kv_pool_layer(pool, li):
-    """Layer `li`'s pool view [P, page_tokens, heads, head_dim]."""
+    """Layer `li`'s pool view [P, page_tokens, heads, head_dim], or its
+    (data, scale) pair."""
+    if isinstance(pool, tuple):
+        return pool[0][li], pool[1][li]
     return pool[li]
 
 
 def _kv_pool_take(pool, tables):
-    """Block-table gather of the full pool (`jnp.take(pool, tables,
-    axis=1)`): tables [B, W] -> [L, B, W, page_tokens, heads, head_dim]."""
+    """Block-table gather of the full pool as fp32 rows (`jnp.take(pool,
+    tables, axis=1)`; an int8 pool's gathered panel is dequantized):
+    tables [B, W] -> [L, B, W, page_tokens, heads, head_dim]."""
+    if isinstance(pool, tuple):
+        return dequantize_kv(*gather_pages(pool, tables))
     return gather_pages(pool, tables)
+
+
+def _paged_attend(q, k_layer, v_layer, tables, lengths):
+    """Paged decode attention over one layer's pool view; the int8
+    variant when the pool is a (data, scale) pair."""
+    if isinstance(k_layer, tuple):
+        return paged_decode_attention_quant(
+            q, k_layer[0], k_layer[1], v_layer[0], v_layer[1], tables,
+            lengths)
+    return paged_decode_attention(q, k_layer, v_layer, tables, lengths)
 
 
 def _prefill_fn(cfg: GPTConfig, eps: float):
@@ -337,7 +404,8 @@ def gpt_paged_decode_fns(cfg: GPTConfig, eps: float = 1e-5,
     """`(prefill, paged_step)` over a PAGED KV cache.
 
     paged_step(params,
-               k_pool, v_pool [layers, P, page_tokens, heads, head_dim],
+               k_pool, v_pool [layers, P, page_tokens, heads, head_dim]
+                              (or int8 (data, scale) pairs),
                tables   [B, W] int32 (unused entries -> null page 0),
                last_tok [B] int,
                cache_len [B] int)
@@ -347,8 +415,8 @@ def gpt_paged_decode_fns(cfg: GPTConfig, eps: float = 1e-5,
     cache_len%pt (written into the pools in place; padded batch rows
     carry all-null tables, so their garbage writes fall into the
     reserved null page); attention walks the block table through
-    `ops.kernels.decode_attention.paged_decode_attention` — the CUDA
-    kernel on the GPU, the plain version on the CPU.
+    `ops.kernels.decode_attention.paged_decode_attention` (or its int8
+    variant) — the CUDA kernel on the GPU, the plain version on the CPU.
     """
     if cfg.moe_experts > 0:
         raise NotImplementedError(
@@ -373,17 +441,17 @@ def gpt_paged_decode_fns(cfg: GPTConfig, eps: float = 1e-5,
         lengths = (pos + 1).to(torch.int32)   # the row just written is live
         for i, bp in enumerate(blocks):
             h1 = _pp_ln(x, bp["ln1.weight"], bp["ln1.bias"], eps)
-            qkv = h1 @ bp["attn.qkv.weight"] + bp["attn.qkv.bias"]
+            qkv = _qmm(bp, "attn.qkv.weight", h1) + bp["attn.qkv.bias"]
             q, k_new, v_new = qkv.split(cfg.hidden, dim=-1)
             q = q.reshape(B, nh, D).contiguous()   # the kernel wants dense q
             _kv_pool_write(k_pool, i, page_idx, offset,
                            k_new.reshape(B, nh, D))
             _kv_pool_write(v_pool, i, page_idx, offset,
                            v_new.reshape(B, nh, D))
-            o = paged_decode_attention(
+            o = _paged_attend(
                 q, _kv_pool_layer(k_pool, i), _kv_pool_layer(v_pool, i),
                 tables, lengths).reshape(B, -1)
-            x = x + o @ bp["attn.proj.weight"] + bp["attn.proj.bias"]
+            x = x + _qmm(bp, "attn.proj.weight", o) + bp["attn.proj.bias"]
             x = _ffn(bp, x, eps)
         xf = _pp_ln(x, head["ln_f.weight"], head["ln_f.bias"], eps)
         logits = xf @ embed["wte.weight"].T
@@ -398,7 +466,8 @@ def gpt_paged_prefill_fns(cfg: GPTConfig, eps: float = 1e-5,
     prefill) scattered straight into pool pages, in place.
 
     paged_prefill(params,
-                  k_pool, v_pool [layers, P, page_tokens, heads, head_dim],
+                  k_pool, v_pool [layers, P, page_tokens, heads, head_dim]
+                                 (or int8 (data, scale) pairs),
                   toks   [1, R] int (prompt, possibly padded),
                   tables [1, W] int32 (W >= ceil(n / page_tokens)),
                   n      [1]    int (true prompt length))
@@ -412,7 +481,7 @@ def gpt_paged_prefill_fns(cfg: GPTConfig, eps: float = 1e-5,
 
     @torch.no_grad()
     def paged_prefill(params, k_pool, v_pool, toks, tables, n):
-        dev = k_pool.device
+        dev = params["wte.weight"].device
         R = toks.shape[1]
         tables = tables.to(dev, torch.long)
         W = tables.shape[1]

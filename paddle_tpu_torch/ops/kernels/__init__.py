@@ -2,6 +2,12 @@
 
   * `decode_attention.paged_decode_attention` — CUDA C++
     (`csrc/paged_decode_attention.cu`), replaces paddle_tpu's
-    `ops/pallas/decode_attention.py` `_paged_kernel`.
+    `ops/pallas/decode_attention.py` `_paged_kernel`;
+  * `decode_attention.paged_decode_attention_quant` — CUDA C++
+    (`csrc/paged_decode_attention_int8.cu`), replaces `_paged_quant_kernel`
+    of the same file;
+  * `quant_matmul.int8_weight_matmul` — CUDA C++
+    (`csrc/int8_weight_matmul.cu`), replaces `ops/pallas/quant_matmul.py`
+    `_mm_kernel`.
 
 `_build` compiles the `csrc/` sources with nvcc at first use."""

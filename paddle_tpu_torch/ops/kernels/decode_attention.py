@@ -21,8 +21,14 @@ CUDA tensor launches the hand-written Hopper kernel
 forces the plain version (for tests and for holding the kernel against
 it on the card).
 
-`launches` counts kernel launches made by this module, so a run can show
-that its decode path went through the kernel.
+`paged_decode_attention_quant` is the same attention over an int8 pool
+(`quant/kv.py`: int8 codes ``[P, pt, H, D]`` plus one fp32 scale per
+(page, row, head), ``[P, pt, H]``), with its own plain version and its own
+kernel (`csrc/paged_decode_attention_int8.cu`), under the same dispatch
+rule.
+
+`launches` / `quant_launches` count kernel launches made by this module,
+so a run can show that its decode path went through the kernels.
 """
 from __future__ import annotations
 
@@ -38,8 +44,11 @@ MAX_HEAD_DIM = 128    # the kernel keeps up to 4 floats of a row per lane
 
 #: Kernel launches made by `paged_decode_attention` in this process.
 launches = 0
+#: Kernel launches made by `paged_decode_attention_quant` in this process.
+quant_launches = 0
 
 _FN = None
+_QFN = None
 
 
 def _kernel_fn():
@@ -51,6 +60,18 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _quant_kernel_fn():
+    global _QFN
+    if _QFN is None:
+        fn = _build.load("paged_decode_attention_int8") \
+            .paged_decode_attention_int8
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _QFN = fn
+    return _QFN
 
 
 def decode_attention_reference(q, k, v, lengths):
@@ -80,59 +101,122 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, lengths):
     return decode_attention_reference(q, k, v, lengths)
 
 
-def _check(q, k_pool, v_pool, tables, lengths):
-    dev = q.device
-    for name, t, dtype, ndim in (("q", q, torch.float32, 3),
-                                 ("k_pool", k_pool, torch.float32, 4),
-                                 ("v_pool", v_pool, torch.float32, 4),
-                                 ("tables", tables, torch.int32, 2),
-                                 ("lengths", lengths, torch.int32, 1)):
+def paged_decode_attention_quant_reference(q, k_pool, k_scale, v_pool,
+                                           v_scale, tables, lengths):
+    """The plain version over an int8 pool: gather the table's pages and
+    their scales, dequantize the [B, W*pt, H, D] panel, then the masked
+    softmax of `decode_attention_reference`."""
+    B, W = tables.shape
+    P, pt, H, D = k_pool.shape
+    idx = tables.to(k_pool.device, torch.long)
+    k = k_pool[idx].float() * k_scale[idx][..., None]
+    v = v_pool[idx].float() * v_scale[idx][..., None]
+    return decode_attention_reference(q, k.reshape(B, W * pt, H, D),
+                                      v.reshape(B, W * pt, H, D), lengths)
+
+
+def _check_tensors(what, dev, specs):
+    """Every (name, tensor, dtype, ndim) in `specs` on `dev`, of that
+    dtype and rank, and contiguous; raises otherwise."""
+    for name, t, dtype, ndim in specs:
         if t.device != dev:
-            raise ValueError(f"paged_decode_attention: {name} on {t.device}, "
-                             f"q on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
         if t.dtype != dtype:
-            raise TypeError(f"paged_decode_attention: {name} must be "
-                            f"{dtype}, got {t.dtype}")
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
         if t.dim() != ndim:
-            raise ValueError(f"paged_decode_attention: {name} must have "
-                             f"{ndim} dims, got {tuple(t.shape)}")
+            raise ValueError(f"{what}: {name} must have {ndim} dims, got "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_decode_attention: {name} must be "
-                             f"contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_shapes(what, q, k_pool, v_pool, tables, lengths):
     B, H, D = q.shape
     if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (H, D):
-        raise ValueError(f"paged_decode_attention: pools "
-                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
-                         f"not match q {tuple(q.shape)}")
+        raise ValueError(f"{what}: pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
     if tables.shape[0] != B or lengths.shape[0] != B:
-        raise ValueError(f"paged_decode_attention: tables "
-                         f"{tuple(tables.shape)} / lengths "
+        raise ValueError(f"{what}: tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {B}")
     if D > MAX_HEAD_DIM or D % 2:
-        raise ValueError(f"paged_decode_attention: head_dim {D} must be "
-                         f"even and <= {MAX_HEAD_DIM}")
+        raise ValueError(f"{what}: head_dim {D} must be even and <= "
+                         f"{MAX_HEAD_DIM}")
+
+
+def _check(q, k_pool, v_pool, tables, lengths):
+    what = "paged_decode_attention"
+    _check_tensors(what, q.device, (("q", q, torch.float32, 3),
+                                    ("k_pool", k_pool, torch.float32, 4),
+                                    ("v_pool", v_pool, torch.float32, 4),
+                                    ("tables", tables, torch.int32, 2),
+                                    ("lengths", lengths, torch.int32, 1)))
+    _check_shapes(what, q, k_pool, v_pool, tables, lengths)
+
+
+def _check_quant(q, k_pool, k_scale, v_pool, v_scale, tables, lengths):
+    what = "paged_decode_attention_quant"
+    _check_tensors(what, q.device, (("q", q, torch.float32, 3),
+                                    ("k_pool", k_pool, torch.int8, 4),
+                                    ("k_scale", k_scale, torch.float32, 3),
+                                    ("v_pool", v_pool, torch.int8, 4),
+                                    ("v_scale", v_scale, torch.float32, 3),
+                                    ("tables", tables, torch.int32, 2),
+                                    ("lengths", lengths, torch.int32, 1)))
+    _check_shapes(what, q, k_pool, v_pool, tables, lengths)
+    if k_scale.shape != k_pool.shape[:3] or v_scale.shape != k_pool.shape[:3]:
+        raise ValueError(f"{what}: scales {tuple(k_scale.shape)}/"
+                         f"{tuple(v_scale.shape)} do not match pools "
+                         f"{tuple(k_pool.shape)}")
+
+
+def _run(fn, q, args, W, pt):
+    """Launch `fn` on q's stream over the pointers of `args`, the output,
+    and the shape ints. Returns (output, whether a kernel was launched):
+    an empty batch launches nothing."""
+    B, H, D = q.shape
+    out = torch.empty_like(q)
+    if B == 0 or H == 0 or W == 0:
+        return out, False
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*(t.data_ptr() for t in args), out.data_ptr(),
+                B, H, D, pt, W, 1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: "
+                           f"cudaError {rc}")
+    return out, True
 
 
 def _launch(q, k_pool, v_pool, tables, lengths):
     global launches
     _check(q, k_pool, v_pool, tables, lengths)
-    B, H, D = q.shape
-    pt = k_pool.shape[1]
-    W = tables.shape[1]
-    out = torch.empty_like(q)
-    if B == 0 or H == 0 or W == 0:
-        return out
-    fn = _kernel_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                B, H, D, pt, W, 1.0 / math.sqrt(D), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"cudaError {rc}")
-    launches += 1
+    out, ran = _run(_kernel_fn(), q, (q, k_pool, v_pool, tables, lengths),
+                    tables.shape[1], k_pool.shape[1])
+    launches += int(ran)
     return out
+
+
+def _launch_quant(q, k_pool, k_scale, v_pool, v_scale, tables, lengths):
+    global quant_launches
+    _check_quant(q, k_pool, k_scale, v_pool, v_scale, tables, lengths)
+    out, ran = _run(_quant_kernel_fn(), q,
+                    (q, k_pool, k_scale, v_pool, v_scale, tables, lengths),
+                    tables.shape[1], k_pool.shape[1])
+    quant_launches += int(ran)
+    return out
+
+
+def _dispatch(what, kernel, q, plain, launch):
+    if kernel == "reference":
+        return plain()
+    if kernel is not None:
+        raise ValueError(f"kernel={kernel!r}: expected None or 'reference'")
+    if q.device.type == "cpu":
+        return plain()
+    if q.device.type == "cuda":
+        return launch()
+    raise ValueError(f"{what}: no kernel for device {q.device}")
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths, kernel=None):
@@ -141,15 +225,20 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, kernel=None):
     CPU tensors -> the plain PyTorch version; CUDA tensors -> the Hopper
     kernel, or an error. ``kernel="reference"`` forces the plain version
     on any device."""
-    if kernel == "reference":
-        return paged_decode_attention_reference(q, k_pool, v_pool,
-                                                tables, lengths)
-    if kernel is not None:
-        raise ValueError(f"kernel={kernel!r}: expected None or 'reference'")
-    if q.device.type == "cpu":
-        return paged_decode_attention_reference(q, k_pool, v_pool,
-                                                tables, lengths)
-    if q.device.type == "cuda":
-        return _launch(q, k_pool, v_pool, tables, lengths)
-    raise ValueError(f"paged_decode_attention: no kernel for device "
-                     f"{q.device}")
+    args = (q, k_pool, v_pool, tables, lengths)
+    return _dispatch("paged_decode_attention", kernel, q,
+                     lambda: paged_decode_attention_reference(*args),
+                     lambda: _launch(*args))
+
+
+def paged_decode_attention_quant(q, k_pool, k_scale, v_pool, v_scale,
+                                 tables, lengths, kernel=None):
+    """Paged decode attention over an int8 pool: k_pool/v_pool
+    [P, pt, H, D] int8, k_scale/v_scale [P, pt, H] fp32, the rest as
+    `paged_decode_attention`. Same dispatch rule: CPU tensors -> the plain
+    version, CUDA tensors -> the Hopper kernel or an error,
+    ``kernel="reference"`` -> the plain version."""
+    args = (q, k_pool, k_scale, v_pool, v_scale, tables, lengths)
+    return _dispatch("paged_decode_attention_quant", kernel, q,
+                     lambda: paged_decode_attention_quant_reference(*args),
+                     lambda: _launch_quant(*args))

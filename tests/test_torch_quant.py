@@ -1,0 +1,305 @@
+"""paddle_tpu_torch int8 serving pieces against the JAX package.
+
+The same numpy inputs go through the JAX package's `quant` modules and
+kernels and through the port's:
+
+  * `quant.ptq` weight PTQ (bit-equal, both param layouts, gains fp32);
+  * `quant.kv` row quantization (equal codes and scales on the same rows)
+    and `kv_page_bytes`;
+  * the plain `int8_weight_matmul` against JAX's ``kernel="xla"`` and its
+    Pallas kernel (interpret mode on the CPU), atol 1e-5 — the JAX gate
+    (tests/test_quant.py `test_quant_kernels_match_reference`);
+  * the plain `paged_decode_attention_quant` against JAX's reference and
+    Pallas kernel at atol 5e-5: this XLA build evaluates exp with
+    TPU-profile approximations on the CPU (~3e-5), as in
+    tests/test_torch_paged_attention.py; and against the fp32 attention of
+    the unquantized pools within 0.05 (the documented int8-KV tolerance);
+  * the pool ops on (data, scale) pairs, and the wrappers' checks.
+
+The CUDA kernels run only on a GPU; chip_smoke.py holds them against the
+same plain versions there.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import paddle_tpu as paddle  # noqa: E402
+from paddle_tpu import framework  # noqa: E402
+from paddle_tpu import quant as jquant  # noqa: E402
+from paddle_tpu.inference import decode as jdecode  # noqa: E402
+from paddle_tpu.models import gpt as jgpt  # noqa: E402
+from paddle_tpu.ops.pallas import decode_attention as jda  # noqa: E402
+from paddle_tpu.ops.pallas import quant_matmul as jqm  # noqa: E402
+from paddle_tpu_torch import quant as tquant  # noqa: E402
+from paddle_tpu_torch.inference import decode as tdecode  # noqa: E402
+from paddle_tpu_torch.memory.page_allocator import (  # noqa: E402
+    copy_page, gather_pages, write_pages)
+from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
+from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
+from paddle_tpu_torch.ops.kernels import decode_attention as tda  # noqa: E402
+from paddle_tpu_torch.ops.kernels import quant_matmul as tqm  # noqa: E402
+
+ATOL_MM = 1e-5
+ATOL_ATTN = 5e-5
+INT8_KV_TOL = 0.05
+H = 4
+
+_CFGS = [
+    ("tiny-scan", jgpt.gpt_tiny()),
+    ("small-unrolled", jgpt.GPTConfig(vocab_size=256, max_seq_len=64,
+                                      hidden=32, layers=3, heads=2,
+                                      scan_layers=False)),
+]
+
+
+@pytest.fixture(scope="module")
+def arrays():
+    paddle.seed(17)
+    return {name: {k: np.asarray(v) for k, v in
+                   framework.param_arrays(jgpt.GPT(cfg)).items()}
+            for name, cfg in _CFGS}
+
+
+@pytest.mark.parametrize("name", [n for n, _ in _CFGS])
+def test_quantize_params_is_bit_equal_to_jax(arrays, name):
+    a = arrays[name]
+    want = jquant.quantize_params(a)
+    got = tquant.quantize_params(a)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    stacked = name == "tiny-scan"
+    qkv = "blocks.attn.qkv.weight" if stacked else "blocks.0.attn.qkv.weight"
+    ln = "blocks.ln1.weight" if stacked else "blocks.0.ln1.weight"
+    assert got[qkv].dtype == np.int8
+    assert got[qkv + tquant.SCALE_SUFFIX].shape == a[qkv].shape[:-2] \
+        + a[qkv].shape[-1:]                  # [L, out] stacked, [out]
+    # gains, biases and embeddings stay fp32 (a stacked [L, hidden] gain
+    # is 2-D and must not pick up a scale)
+    for k in (ln, "ln_f.weight", "wte.weight", "wpe.weight"):
+        assert got[k].dtype == np.float32 and k + "::scale" not in got, k
+    assert tquant.is_quantized(got) and not tquant.is_quantized(a)
+    deq_t, deq_j = tquant.dequantize_params(got), \
+        jquant.dequantize_params(want)
+    assert set(deq_t) == set(a)
+    for k in deq_j:
+        np.testing.assert_array_equal(deq_t[k], deq_j[k], err_msg=k)
+    with pytest.raises(ValueError, match="double quantize"):
+        tquant.quantize_params(got)
+
+
+def test_quantize_kv_matches_jax_on_the_same_rows():
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((3, 5, 4, 16), np.float32) * 3
+    rows[0, 0, 0] = 0.0                          # an all-zero row
+    rows[1, 2, 3] = np.arange(16) - 8.0          # exact ties at scale 8/127
+    rows[2, 4, 1, :2] = [127.0, -63.5]           # and a half-way code
+    jq, js = jquant.quantize_kv(jnp.asarray(rows))
+    tq, ts = tquant.quantize_kv(torch.from_numpy(rows))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    assert tq.shape == rows.shape and ts.shape == rows.shape[:-1]
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (tq[0, 0, 0] == 0).all() and np.isfinite(ts.numpy()).all()
+    np.testing.assert_array_equal(
+        tquant.dequantize_kv(tq, ts).numpy(),
+        np.asarray(jquant.dequantize_kv(jq, js)))
+
+
+def test_kv_dtype_pool_zeros_and_page_bytes_match_jax():
+    for v in ("", None, "fp32", "F32", "float32", "int8", " INT8 "):
+        assert tquant.validate_kv_dtype(v) == jquant.validate_kv_dtype(v)
+    with pytest.raises(ValueError):
+        tquant.validate_kv_dtype("int4")
+    shape = (2, 5, 4, 3, 8)
+    data, scale = tquant.kv_pool_zeros(shape, "int8", "cpu")
+    assert data.dtype == torch.int8 and data.shape == shape
+    assert scale.dtype == torch.float32 and scale.shape == shape[:-1]
+    fp = tquant.kv_pool_zeros(shape)
+    assert fp.dtype == torch.float32 and fp.shape == shape
+    assert not fp.any() and not data.any() and not scale.any()
+    for _, cfg in _CFGS + [("124m", jgpt.gpt2_124m())]:
+        pcfg = tgpt.GPTConfig(**dataclasses.asdict(cfg))
+        for pt in (4, 16):
+            for kvd in ("float32", "int8"):
+                assert tdecode.kv_page_bytes(pcfg, pt, kvd) \
+                    == jdecode.kv_page_bytes(cfg, pt, kvd)
+    g = tgpt.gpt2_124m()
+    assert tdecode.kv_page_bytes(g, 16, "int8") == 313344
+    assert tdecode.kv_page_bytes(g, 16) == 1179648
+
+
+# (K, N, x's leading shape, weight std): the JAX gate's own 16 x 8 unit
+# normals, and a wider 96 x 40 weight at GPT's init scale (std 0.02), so
+# the outputs have the magnitude the 1e-5 gate was set for
+@pytest.mark.parametrize("K,N,xshape,std", [(16, 8, (3,), 1.0),
+                                            (16, 8, (2, 3), 1.0),
+                                            (96, 40, (5,), 0.02),
+                                            (96, 40, (2, 7), 0.02)])
+def test_int8_matmul_plain_matches_jax_xla_and_pallas(K, N, xshape, std):
+    rng = np.random.default_rng(K * 100 + N + len(xshape))
+    q = tquant.quantize_params(
+        {"l.weight": rng.standard_normal((K, N), np.float32) * std})
+    wq, s = q["l.weight"], q["l.weight::scale"]
+    x = rng.standard_normal(xshape + (K,), np.float32)
+    got = tqm.int8_weight_matmul(torch.from_numpy(x), torch.from_numpy(wq),
+                                 torch.from_numpy(s)).numpy()
+    jargs = (jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s))
+    want_xla = np.asarray(jqm.int8_weight_matmul(*jargs, kernel="xla"))
+    want_pallas = np.asarray(jqm.int8_weight_matmul(*jargs,
+                                                    kernel="pallas"))
+    assert got.shape == xshape + (N,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want_xla, rtol=0, atol=ATOL_MM)
+    np.testing.assert_allclose(got, want_pallas, rtol=0, atol=ATOL_MM)
+    exact = x @ (wq.astype(np.float32) * s)
+    np.testing.assert_allclose(got, exact, rtol=0, atol=ATOL_MM)
+
+
+def _attn_inputs(seed, B, D, pt, W, lengths, null_rows=()):
+    rng = np.random.default_rng(seed)
+    P = B * W + 1
+    q = rng.standard_normal((B, H, D), np.float32)
+    k = rng.standard_normal((P, pt, H, D), np.float32)
+    v = rng.standard_normal((P, pt, H, D), np.float32)
+    perm = rng.permutation(np.arange(1, P))
+    tables = np.zeros((B, W), np.int32)
+    for b, n in enumerate(lengths):
+        if b not in null_rows:
+            tables[b, :-(-n // pt)] = perm[b * W:b * W - (-n // pt)]
+    kq, ks = (np.array(a) for a in jquant.quantize_kv(jnp.asarray(k)))
+    vq, vs = (np.array(a) for a in jquant.quantize_kv(jnp.asarray(v)))
+    return q, (k, v), (kq, ks, vq, vs), tables, np.asarray(lengths,
+                                                           np.int32)
+
+
+def _attn_cases():
+    out = []
+    for D in (16, 64):
+        for pt in (4, 16):
+            W = 8 if pt == 4 else 4
+            out.append((1, D, pt, W, [2 * pt], ()))            # page boundary
+            out.append((3, D, pt, W, [1, pt + 1, W * pt], ()))  # full table
+            out.append((3, D, pt, W, [1, pt, W * pt - 1], (0,)))  # padded row
+    return out
+
+
+@pytest.mark.parametrize("B,D,pt,W,lengths,null_rows", _attn_cases())
+def test_quant_attention_plain_matches_jax(B, D, pt, W, lengths, null_rows):
+    q, (k, v), quant, tables, lens = _attn_inputs(
+        B * 1000 + D * 10 + pt, B, D, pt, W, lengths, null_rows)
+    got = tda.paged_decode_attention_quant(
+        torch.from_numpy(q), *(torch.from_numpy(a) for a in quant),
+        torch.from_numpy(tables), torch.from_numpy(lens)).numpy()
+    jargs = [jnp.asarray(a) for a in (q, *quant, tables, lens)]
+    want_xla = np.asarray(jda.paged_decode_attention_quant(*jargs,
+                                                           kernel="xla"))
+    want_pallas = np.asarray(jda.paged_decode_attention_quant(
+        *jargs, kernel="pallas"))
+    assert got.shape == (B, H, D) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want_xla, rtol=0, atol=ATOL_ATTN)
+    np.testing.assert_allclose(got, want_pallas, rtol=0, atol=ATOL_ATTN)
+    truth = tda.paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, k, v, tables, lens))).numpy()
+    assert np.abs(got - truth).max() < INT8_KV_TOL
+
+
+def test_pool_ops_on_pairs_and_copy_on_write():
+    data, scale = tquant.kv_pool_zeros((2, 4, 3, 2, 5), "int8")
+    pool = (data, scale)
+    rows = torch.randn(2, 2, 3, 2, 5)
+    out = write_pages(pool, tquant.quantize_kv(rows), torch.tensor([2, 1]))
+    assert out is pool                                     # in place
+    got = tquant.dequantize_kv(*gather_pages(pool, torch.tensor([2, 1])))
+    assert (got - rows).abs().max() <= scale.max() / 2 + 1e-7
+    copy_page(pool, 2, 3)                                  # COW: both leaves
+    torch.testing.assert_close(data[:, 3], data[:, 2], rtol=0, atol=0)
+    torch.testing.assert_close(scale[:, 3], scale[:, 2], rtol=0, atol=0)
+    gd, gs = gather_pages(pool, torch.tensor([[3, 1], [0, 2]]))
+    assert gd.shape == (2, 2, 2, 3, 2, 5) and gs.shape == (2, 2, 2, 3, 2)
+    gd.zero_()                                             # independent copy
+    assert data[:, 3].abs().sum() > 0
+    # single rows of one layer: pool[1, pages, offsets] = rows
+    one = tquant.quantize_kv(torch.full((2, 2, 5), 3.0))
+    write_pages(pool, one, torch.tensor([1, 3]), offset=torch.tensor([0, 2]),
+                layer=1)
+    assert (data[1, 1, 0] == 127).all() and (data[1, 3, 2] == 127).all()
+    assert torch.allclose(scale[1, 1, 0], torch.tensor(3.0 / 127))
+    assert not (data[0, 1, 0] == 127).all()
+    with pytest.raises(TypeError):
+        write_pages(pool, rows, torch.tensor([2, 1]))     # fp32 rows, pair
+    with pytest.raises(TypeError):
+        write_pages(data.float(), one, torch.tensor([1, 3]))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((3, 16), np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, (16, 8)).astype(np.int8))
+    s = torch.rand(8)
+    before = tqm.launches
+    torch.testing.assert_close(
+        tqm.int8_weight_matmul(x, w, s),
+        tqm.int8_weight_matmul(x, w, s, kernel="reference"))
+    assert tqm.launches == before              # CPU tensors launch nothing
+    with pytest.raises(TypeError):
+        tqm.int8_weight_matmul(x, w.float(), s)          # fp32 "int8" weight
+    with pytest.raises(TypeError):
+        tqm.int8_weight_matmul(x.double(), w, s)
+    with pytest.raises(ValueError, match="do not match"):
+        tqm.int8_weight_matmul(x[:, :15], w, s)
+    with pytest.raises(ValueError, match="do not match"):
+        tqm.int8_weight_matmul(x, w, s[:7])
+    with pytest.raises(ValueError, match="on meta"):
+        tqm.int8_weight_matmul(x, w.to("meta"), s)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tqm.int8_weight_matmul(x.to("meta"), w.to("meta"), s.to("meta"))
+    with pytest.raises(ValueError, match="kernel="):
+        tqm.int8_weight_matmul(x, w, s, kernel="pallas")
+
+    q, _, (kq, ks, vq, vs), tables, lens = _attn_inputs(
+        5, 2, 16, 4, 4, [3, 9])
+    args = [torch.from_numpy(a) for a in (q, kq, ks, vq, vs, tables, lens)]
+    before = tda.quant_launches
+    torch.testing.assert_close(
+        tda.paged_decode_attention_quant(*args),
+        tda.paged_decode_attention_quant(*args, kernel="reference"))
+    assert tda.quant_launches == before
+    tda._check_quant(*args)                              # well-formed
+    bad = list(args)
+    bad[1] = args[1].float()                             # fp32 pool
+    with pytest.raises(TypeError):
+        tda._check_quant(*bad)
+    bad = list(args)
+    bad[2] = args[2][:, :2].contiguous()                 # scale shape
+    with pytest.raises(ValueError, match="scales"):
+        tda._check_quant(*bad)
+    bad = list(args)
+    bad[4] = args[4].to("meta")                          # device
+    with pytest.raises(ValueError, match="on meta"):
+        tda._check_quant(*bad)
+    with pytest.raises(ValueError, match="do not match"):
+        tda._check_quant(args[0], *args[1:5], args[5][:1], args[6])
+    with pytest.raises(ValueError, match="kernel="):
+        tda.paged_decode_attention_quant(*args, kernel="pallas")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tda.paged_decode_attention_quant(*(a.to("meta") for a in args))
+
+
+def test_missing_nvcc_raises_for_both_int8_kernels(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(tqm, "_FN", None)
+    monkeypatch.setattr(tda, "_QFN", None)
+    # the CUDA path of each wrapper builds its kernel first: no fallback
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tqm._kernel_fn()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tda._quant_kernel_fn()
+    assert {"int8_weight_matmul", "paged_decode_attention_int8"} \
+        <= set(_build.sources())
