@@ -50,8 +50,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      SIGTERM and a clean drain; (4-int8) the same on the int8 artifact
      with --kv-dtype int8, held to the int8 engine and the int8 launch
      formulas;
-  5. one JSON line {"kernels": [...]} with every kernel's numbers;
-  6. last line {"ok": true, "device": {...}}.
+  5. flash attention forward (5) and backward (5b): the kernels against
+     their plain versions, fp32 with TF32 off at B=2, H=4, T=256, D=64
+     (causal and not; q/k/v as chunks of one qkv tensor and as separate
+     tensors), at ragged shapes and at the main path's B=16, H=12,
+     T=1024, D=64 causal, within the JAX contract (2e-5 forward, 5e-4
+     backward); bf16 at the main path's shapes and at T=2048, against the
+     plain version on the same bf16 tensors, the worst row's RMS error
+     within FLASH_BF16_ROW_REL of that row's RMS, a gate the plain version
+     with one 64-row tile left out must fail; then device times at the
+     main path's shapes (graph replay of the forward, the backward and
+     each backward kernel alone; eager), the bound, the plain versions
+     and PyTorch's flash attention forward (scaled_dot_product_attention)
+     and backward (aten._scaled_dot_product_flash_attention_backward) as
+     the library yardsticks, and the kernels against the composition sdpa
+     takes below the threshold at T=512 and T=1024;
+  6. training parity on the card: a narrow GPT (hidden 128, 2 layers, 2
+     heads, V=512, T=512) in fp32 with TF32 off against the port on the
+     CPU from the same numpy weights (loss within 1e-5, every gradient
+     within 1e-4 of its largest value), one launch of each flash kernel
+     per layer;
+  7. training, full width: GPT-2 124M on the seed-0 numpy weights, driven
+     as bench.py drives the JAX package (Model.prepare(Adam(1e-4),
+     strategy=amp + use_pure_bf16) then Model.fit at B=16, T=1024): fp32
+     parameters and Adam moments, bf16 into attention, every loss finite,
+     launch counts of 12 x steps per flash kernel over the timed fits,
+     the loss falling on one repeated batch; ms per step (bench.py's
+     marginal estimate and CUDA events), tokens/s, MFU against 989
+     TFLOP/s, peak memory, and one step's device time by kernel;
+  8. one JSON line {"kernels": [...]} with every kernel's numbers;
+  9. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -84,6 +112,25 @@ INT8_KV_TOL = 0.05              # int8 attention vs fp32 (docs/serving.md)
 INT8_LOGIT_TOL = 2 * INT8_KV_TOL
 MATMULS = ("attn.qkv.weight", "attn.proj.weight", "fc1.weight",
            "fc2.weight")
+# the kernels the decode server counts (its DECODE STATS line)
+DECODE_KERNELS = ("paged_decode_attention", "paged_decode_attention_int8",
+                  "int8_weight_matmul")
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 dense tensor-core peak
+FLASH_F32_FWD_TOL = 2e-5        # the JAX contract, test_pallas_kernels.py:38
+FLASH_F32_BWD_TOL = 5e-4        # test_pallas_kernels.py:60
+# bf16 kernels against the plain version run on the same bf16 tensors,
+# which rounds the scaled q, P and dS to bf16 where the kernels do. What
+# is left between them: fp32 summation order (~1e-6 relative), which now
+# and then moves an output across a bf16 rounding boundary (one ulp, at
+# most 2^-7 of that element), and the forward's P, rounded against the
+# running max where the plain version uses the final one (2^-9 relative
+# per term, averaged over the row's keys). The gate is per row (each
+# [D] vector of O, dq, dk, dv): the RMS of the error over the RMS of the
+# plain row, at most 2^-6, twice what a row has when every element of it
+# is one ulp off. Leaving out one 64-key tile moves a row by ~0.25 of its
+# RMS; phase 5 measures that and requires it above the gate. lse is fp32
+# from the same rounded operands and keeps the fp32 gate.
+FLASH_BF16_ROW_REL = 2.0 ** -6
 
 
 def log(msg):
@@ -487,28 +534,37 @@ def teacher_forced(torch, model, prompt, out):
 def kernel_counts():
     """Every kernel wrapper's launch count, by kernel name."""
     from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     return {"paged_decode_attention": da.launches,
             "paged_decode_attention_int8": da.quant_launches,
-            "int8_weight_matmul": qm.launches}
+            "int8_weight_matmul": qm.launches,
+            "flash_attention_fwd": fa.fwd_launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.bwd_launches}
 
 
 def zero_counts():
     from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     da.launches = da.quant_launches = qm.launches = 0
+    fa.fwd_launches = fa.dq_launches = fa.bwd_launches = 0
 
 
 def expected_counts(cfg, steps, prefills, int8):
-    """Launches a run must show: one attention launch per layer per decode
-    step (the int8 kernel on int8 pages), and on int8 weights one matmul
-    launch per block matmul per step and per prefill."""
+    """Launches a decode run must show: one attention launch per layer per
+    decode step (the int8 kernel on int8 pages), on int8 weights one matmul
+    launch per block matmul per step and per prefill, and no flash
+    attention (a training kernel)."""
     attn = cfg.layers * steps
     return {"paged_decode_attention": 0 if int8 else attn,
             "paged_decode_attention_int8": attn if int8 else 0,
             "int8_weight_matmul":
                 len(MATMULS) * cfg.layers * (steps + prefills) if int8
-                else 0}
+                else 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
 
 def phase_engine(torch, np, power, cfg, eng, oracle, tol, tag, int8):
@@ -805,8 +861,10 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, oracle_params, tol,
                            + "\n".join(out_log[-40:]))
     kv = dict(f.split("=", 1) for f in stats[0].split()[2:])
     srv_steps, srv_prefills = int(kv["steps"]), int(kv["prefills"])
-    srv_counts = {k: int(kv[f"{k}_launches"]) for k in kernel_counts()}
-    want = expected_counts(cfg, srv_steps, srv_prefills, int8)
+    srv_counts = {k: int(kv[f"{k}_launches"]) for k in DECODE_KERNELS}
+    want = {k: v for k, v in expected_counts(cfg, srv_steps, srv_prefills,
+                                             int8).items()
+            if k in DECODE_KERNELS}
     if not kv["device"].startswith("cuda") or srv_steps == 0 \
             or srv_counts != want \
             or kv["kv_dtype"] != ("int8" if int8 else "float32"):
@@ -837,6 +895,551 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, oracle_params, tol,
         f"steps={srv_steps} prefills={srv_prefills} "
         f"kernel_launches={srv_counts} (= {want}), "
         f"SIGTERM -> DRAINED ok=True rc=0")
+
+
+# ------------------------------------------------------------ phase 5
+
+def flash_inputs(torch, B, T, H, D, dtype, seed, fused=True):
+    """q, k, v [B, T, H, D] (the chunks of one fused qkv tensor, as the
+    model hands them to attention, when `fused`) and dO, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if fused:
+        qkv = torch.randn((B, T, 3 * H * D), generator=g, device="cuda")
+        q, k, v = (t.reshape(B, T, H, D).to(dtype)
+                   for t in qkv.split(H * D, dim=-1))
+    else:
+        q, k, v = (torch.randn((B, T, H, D), generator=g,
+                               device="cuda").to(dtype) for _ in range(3))
+    do = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def flash_pairs(T, causal):
+    """Live (q, k) pairs of one head: what the work depends on."""
+    return T * (T + 1) // 2 if causal else T * T
+
+
+def rel_err(got, want):
+    """Max abs error and the reference's largest magnitude."""
+    return ((got.float() - want.float()).abs().max().item(),
+            want.float().abs().max().item())
+
+
+def row_rel_err(got, want):
+    """The worst row (last dim) of `want`: RMS of the error over the RMS
+    of the row, or over 2^-10 of the whole tensor's RMS where the row is
+    smaller (the causal dq of row 0 is zero)."""
+    err = (got.float() - want.float()).pow(2).mean(-1)
+    ref = want.float().pow(2).mean(-1)
+    ref = ref.clamp_min(ref.mean().item() * 2.0 ** -20)
+    return (err / ref).max().sqrt().item()
+
+
+def check_flash(torch, fa, B, T, H, D, dtype, causal, tag, fused=True,
+                seed=0):
+    """The kernels against the plain versions on the same inputs in
+    `dtype`: the forward, and the backward of both from the plain
+    forward's (o, lse). Raises unless every output passes its gate: in
+    fp32 the max abs error within the JAX contract, in bf16 `row_rel_err`
+    within FLASH_BF16_ROW_REL (lse by the fp32 gate). Returns ({output:
+    (gated error, max abs error)}, the inputs, the plain (o, lse, dv))."""
+    q, k, v, do = flash_inputs(torch, B, T, H, D, dtype, seed, fused)
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    ro, rlse = fa.flash_attention_forward(q, k, v, causal, kernel="reference")
+    got = fa.flash_attention_backward(q, k, v, ro, rlse, do, causal)
+    want = fa.flash_attention_backward(q, k, v, ro, rlse, do, causal,
+                                       kernel="reference")
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse) + got,
+                          (ro, rlse) + want):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"{tag}: {name} non-finite")
+        err = rel_err(a, b)[0]
+        if dtype == torch.float32 or name == "lse":
+            gated = err
+            tol = FLASH_F32_FWD_TOL if name in ("o", "lse") \
+                else FLASH_F32_BWD_TOL
+        else:
+            gated, tol = row_rel_err(a, b), FLASH_BF16_ROW_REL
+        if not gated <= tol:
+            raise RuntimeError(f"{tag}: {name} error {gated} > {tol}")
+        out[name] = (gated, err)
+    return out, (q, k, v, do), (ro, rlse, want[2])
+
+
+def dropped_tile_errs(fa, inputs, plain, tile=64):
+    """How far the bf16 gate reaches: `row_rel_err` of the plain version
+    with one tile left out, against the whole plain version. O of the
+    last `tile` rows without keys [0, tile) (the causal attention of the
+    sequence less its first tile), and dv of keys [T - 2 tile, T - tile)
+    without the last `tile` query rows (the sequence less its last tile,
+    whose earlier rows are unchanged under the causal mask)."""
+    q, k, v, do = inputs
+    ro, rlse, rdv = plain
+    T = q.shape[1]
+    o_cut, _ = fa.flash_attention_forward(q[:, tile:], k[:, tile:],
+                                          v[:, tile:], True,
+                                          kernel="reference")
+    e_o = row_rel_err(o_cut[:, -tile:], ro[:, -tile:])
+    head = slice(0, T - tile)
+    _, _, dv_cut = fa.flash_attention_backward(
+        q[:, head], k[:, head], v[:, head], ro[:, head],
+        rlse[:, head].contiguous(), do[:, head], True, kernel="reference")
+    keys = slice(T - 2 * tile, T - tile)
+    return {"o": e_o, "dv": row_rel_err(dv_cut[:, keys], rdv[:, keys])}
+
+
+def profile_kernels(torch, fn, calls):
+    """Device microseconds per call of `fn`, by kernel name
+    (torch.profiler, device-side events only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            out[ev.key] = (us / calls, ev.count / calls)
+    return out
+
+
+def phase_flash(torch, power):
+    """Phases 5 and 5b: the flash kernels against their plain versions
+    (fp32 with TF32 off at B=2, H=4, T=256, D=64, causal and not, at ragged
+    T and D, and at the main path's B=16, H=12, T=1024, D=64 causal; bf16
+    at the main path's shapes and at T=2048, where the TPU's backward took
+    two passes) and their device times at the main path's shapes beside
+    the bound, the plain versions and PyTorch's attention. Returns the
+    three kernel records."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_composed
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    cases = [(f"fp32 causal={c} fused_qkv={f}", 2, 256, 4, 64, torch.float32,
+              c, f, 1) for c in (True, False) for f in (True, False)]
+    cases += [("fp32 ragged T=200 D=128 causal=True", 1, 200, 2, 128,
+               torch.float32, True, True, 2),
+              ("fp32 ragged T=70 D=16 causal=False", 1, 70, 2, 16,
+               torch.float32, False, True, 3),
+              ("fp32 main B=16 T=1024 H=12 D=64 causal", 16, 1024, 12, 64,
+               torch.float32, True, True, 8),
+              ("bf16 main B=16 T=1024 H=12 D=64 causal", 16, 1024, 12, 64,
+               torch.bfloat16, True, True, 4),
+              ("bf16 B=4 T=2048 H=12 D=64 causal", 4, 2048, 12, 64,
+               torch.bfloat16, True, True, 5)]
+    errs = {}
+    for tag, B, T, H, D, dtype, causal, fused, seed in cases:
+        errs[tag], inputs, plain = check_flash(
+            torch, fa, B, T, H, D, dtype, causal, f"flash {tag}", fused, seed)
+        if tag.startswith("bf16 main"):
+            reach = dropped_tile_errs(fa, inputs, plain)
+        del inputs, plain
+        torch.cuda.empty_cache()
+    for tag, e in errs.items():
+        gated = "max abs err" if tag.startswith("fp32") \
+            else "worst row RMS err / row RMS (lse: max abs err)"
+        log(f"PHASE 5 flash check {tag}: " + " ".join(
+            f"{n}={g:.3e}" for n, (g, _) in e.items()) + f" ({gated}); "
+            "max abs err " + " ".join(f"{n}={m:.3e}"
+                                      for n, (_, m) in e.items()))
+    if min(reach.values()) <= FLASH_BF16_ROW_REL:
+        raise RuntimeError(f"flash bf16 gate {FLASH_BF16_ROW_REL} would "
+                           f"pass a dropped tile: {reach}")
+    log(f"PHASE 5 flash bf16 gate {FLASH_BF16_ROW_REL:.3e} against one "
+        f"64-row tile left out of the plain version at T=1024: o (last "
+        f"rows, first key tile out) {reach['o']:.3e}, dv (keys before the "
+        f"last tile, last query tile out) {reach['dv']:.3e}")
+    main = errs["bf16 main B=16 T=1024 H=12 D=64 causal"]
+
+    # timings at the main path's shapes
+    B, T, H, D = 16, 1024, 12, 64
+    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, 6)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    t = timings(
+        torch, lambda _: fa.flash_attention_forward(q, k, v, True),
+        lambda _: fa.flash_attention_forward(q, k, v, True,
+                                             kernel="reference"),
+        lambda _: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        20)
+    lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = rel_err(lib_o.transpose(1, 2), o)[0]
+    pairs = B * H * flash_pairs(T, True)
+    elems = B * T * H * D
+    nbytes = 4 * 2 * elems + 4 * B * H * T
+    flops = 4 * D * pairs
+    fwd_rec = kernel_record(
+        "flash_attention_fwd", "flash_attention_fwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:109",
+        main["o"][1], t["ms"], t["plain_ms"], t["library_ms"], nbytes,
+        flops, BF16_FLOPS_PER_S)
+    log(f"PHASE 5 flash_attention_fwd [{power}] B={B} T={T} H={H} D={D} "
+        f"bf16 causal: kernel_ms={t['ms']:.6f} (graph replay; eager "
+        f"{t['eager_ms']:.6f}) plain_ms={t['plain_ms']:.6f} "
+        f"library_ms={t['library_ms']:.6f} (torch sdpa; vs kernel "
+        f"{lib_err:.3e}) bound_ms={fwd_rec['bound_ms']:.6f} "
+        f"({fwd_rec['bound_by']}, {nbytes} bytes, {flops} flops) "
+        f"kernel_over_bound={t['ms'] / fwd_rec['bound_ms']:.2f}x")
+
+    # phase 5b: the backward, and each of its two kernels
+    bwd_ms = graph_ms(torch, lambda _: fa.flash_attention_backward(
+        q, k, v, o, lse, do, True), 10)
+    bwd_eager = cuda_ms(torch, lambda _: fa.flash_attention_backward(
+        q, k, v, o, lse, do, True), 10)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    dq_ms = graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+        q, k, v, o, do, lse, True), 10)
+    dkv_ms = graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, True), 10)
+    plain_dq = graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+        q, k, v, o, do, lse, True, kernel="reference"), 2)
+    plain_dkv = graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, True, kernel="reference"), 2)
+    # library yardstick for the whole backward: PyTorch's flash attention
+    # backward op on the outputs of its forward op, by graph replay
+    aten = torch.ops.aten
+    qc, kc, vc, doc = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lib_out = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0, True)
+    lib_args = (doc, qc, kc, vc) + tuple(lib_out[:6]) + (0.0, True) \
+        + tuple(lib_out[6:8])
+    lib_dq = aten._scaled_dot_product_flash_attention_backward(*lib_args)[0]
+    lib_bwd_err = rel_err(lib_dq.transpose(1, 2), fa.flash_attention_backward(
+        q, k, v, o, lse, do, True)[0])[0]
+    lib_bwd = graph_ms(torch, lambda _: (
+        aten._scaled_dot_product_flash_attention_backward(*lib_args)), 10)
+    dq_bytes = 5 * 2 * elems + 4 * B * H * T + 2 * elems + 4 * B * H * T
+    dkv_bytes = 4 * 2 * elems + 2 * 4 * B * H * T + 2 * 2 * elems
+    dq_rec = kernel_record(
+        "flash_attention_bwd_dq", "flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:201",
+        main["dq"][1], dq_ms, plain_dq, None, dq_bytes, 6 * D * pairs,
+        BF16_FLOPS_PER_S)
+    dkv_rec = kernel_record(
+        "flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:245",
+        max(main["dk"][1], main["dv"][1]), dkv_ms, plain_dkv, None,
+        dkv_bytes, 8 * D * pairs, BF16_FLOPS_PER_S)
+    all_bytes = 5 * 2 * elems + 4 * B * H * T + 3 * 2 * elems
+    all_bound = max(all_bytes / HBM_BYTES_PER_S,
+                    10 * D * pairs / BF16_FLOPS_PER_S) * 1e3
+    log(f"PHASE 5b flash backward [{power}] B={B} T={T} H={H} D={D} bf16 "
+        f"causal: dq+dkv kernel_ms={bwd_ms:.6f} (graph replay; eager "
+        f"{bwd_eager:.6f}; each kernel by graph replay: dq {dq_ms:.6f}, "
+        f"dkv {dkv_ms:.6f}) plain_ms={plain_dq + plain_dkv:.6f} (dq "
+        f"{plain_dq:.6f} + dkv {plain_dkv:.6f}) library_ms={lib_bwd:.6f} "
+        f"(aten._scaled_dot_product_flash_attention_backward, graph replay;"
+        f" its dq vs the kernel's {lib_bwd_err:.3e}) "
+        f"bound_ms={all_bound:.6f} (10 D flops per "
+        f"pair, {all_bytes} bytes) kernel_over_bound="
+        f"{bwd_ms / all_bound:.2f}x; dq bound {dq_rec['bound_ms']:.6f} "
+        f"({dq_rec['bound_by']}), dkv bound {dkv_rec['bound_ms']:.6f} "
+        f"({dkv_rec['bound_by']})")
+    del qc, kc, vc, doc, lib_out, lib_args, lib_dq
+    torch.cuda.empty_cache()
+
+    # kernels against the composition sdpa takes below the threshold, at
+    # T=512 and T=1024: forward + backward through autograd
+    for Tc in (512, 1024):
+        qc, kc, vc, doc = flash_inputs(torch, 16, Tc, 12, 64, torch.bfloat16,
+                                       7)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (qc, kc, vc)]
+
+        def run(attn):
+            def go(_):
+                out = attn(*leaves)
+                torch.autograd.grad(out, leaves, doc)
+            return go
+
+        flash_t = cuda_ms(torch, run(lambda a, b, c: fa.flash_attention(
+            a, b, c, causal=True)), 5)
+        comp_t = cuda_ms(torch, run(lambda a, b, c: _sdpa_composed(
+            a, b, c, None, 0.0, True, None)), 5)
+        lib_t = cuda_ms(torch, run(lambda a, b, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True).transpose(1, 2)), 5)
+        log(f"PHASE 5 attention fwd+bwd at T={Tc} [{power}] B=16 H=12 D=64 "
+            f"bf16 causal (eager CUDA events): flash kernels "
+            f"{flash_t:.6f} ms, composition (_sdpa_composed) {comp_t:.6f} "
+            f"ms, torch sdpa {lib_t:.6f} ms")
+        del qc, kc, vc, doc, leaves
+        torch.cuda.empty_cache()
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return fwd_rec, dq_rec, dkv_rec
+
+
+def kernel_record(name, src, replaces, err, ms, plain_ms, library_ms, nbytes,
+                  flops, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {"name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{src}",
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+# ------------------------------------------------------------ phase 6
+
+TRAIN_LOSS_TOL = 1e-5      # fp32 loss, card vs CPU (summation order only)
+TRAIN_GRAD_REL = 1e-4      # each gradient, as a fraction of its largest
+
+
+def phase_train_parity(torch, np):
+    """A narrow GPT (hidden 128, 2 layers, 2 heads of 64, V=512, T=512, so
+    sdpa routes to the flash kernels) on the card in fp32 with TF32 off
+    against the port on the CPU from the same numpy weights: the loss and
+    every gradient, and one launch of each flash kernel per layer."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, init_params_numpy
+
+    cfg = GPTConfig(vocab_size=512, max_seq_len=512, hidden=128, layers=2,
+                    heads=2)
+    arrays = init_params_numpy(cfg, seed=1)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, cfg.vocab_size, (2, 512), dtype=np.int32)
+    labels = np.concatenate([ids[:, 1:], ids[:, :1]], axis=1)
+    ptt.set_device("cuda")
+    gpu = GPT(cfg).load_numpy(arrays)
+    ptt.set_device("cpu")
+    cpu = GPT(cfg).load_numpy(arrays)
+    ptt.set_device("cuda")
+    zero_counts()
+    loss_gpu = gpu.loss(ids, labels)
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    loss_cpu = cpu.loss(ids, labels)
+    loss_cpu.backward()
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_fwd": cfg.layers,
+                 "flash_attention_bwd_dq": cfg.layers,
+                 "flash_attention_bwd_dkv": cfg.layers})
+    if counts != want:
+        raise RuntimeError(f"phase 6 launches {counts} != {want}")
+    dl = abs(loss_gpu.item() - loss_cpu.item())
+    worst = (0.0, "")
+    for (name, pg), (_, pc) in zip(gpu.named_parameters(),
+                                   cpu.named_parameters()):
+        err, ref = rel_err(pg.grad.cpu(), pc.grad)
+        worst = max(worst, (err / max(ref, 1e-12), name))
+    if dl > TRAIN_LOSS_TOL or worst[0] > TRAIN_GRAD_REL:
+        raise RuntimeError(f"phase 6: loss diff {dl} (gate {TRAIN_LOSS_TOL}),"
+                           f" worst gradient {worst} (gate {TRAIN_GRAD_REL})")
+    log(f"PHASE 6 training parity: GPT hidden=128 layers=2 heads=2 V=512 "
+        f"T=512 B=2 fp32 (TF32 off), cuda vs cpu from one set of numpy "
+        f"weights: loss {loss_gpu.item():.7f} vs {loss_cpu.item():.7f} "
+        f"(diff {dl:.3e}, gate {TRAIN_LOSS_TOL}); worst gradient "
+        f"{worst[1]} at {worst[0]:.3e} of its largest (gate "
+        f"{TRAIN_GRAD_REL}); launches {counts}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 7
+
+def phase_train(torch, np, power, records):
+    """GPT-2 124M trained through Model.prepare(strategy=AMP O2) +
+    Model.fit as bench.py drives it (B=16, T=1024, Adam 1e-4), on the
+    seed-0 numpy weights; fills in the flash records' launch counts."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi import callbacks as hapi_cbks
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.models.gpt import init_params_numpy
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.nn.functional import attention as attn_mod
+    from paddle_tpu_torch.static import InputSpec
+
+    t_setup = time.perf_counter()
+    cfg = GPTConfig()
+    B, T, n_short, n_long = 16, 1024, 2, 8
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    gpt = GPT(cfg).load_numpy(init_params_numpy(cfg, seed=0))
+
+    class _LMLoss(nn.Layer):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ids, labels):
+            return self.m.loss(ids, labels)
+
+    net = _LMLoss(gpt)
+    net.train()
+    model = Model(net, inputs=[InputSpec([None, T], "int32"),
+                               InputSpec([None, T], "int32")])
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs.use_pure_bf16 = True
+    adam = opt.Adam(learning_rate=1e-4, parameters=model.parameters())
+    model.prepare(adam, strategy=s)
+    rng = np.random.default_rng(0)
+
+    def dataset(n_batches):
+        ids = rng.integers(0, cfg.vocab_size, (n_batches * B, T),
+                           dtype=np.int32)
+        labels = np.concatenate([ids[:, 1:], ids[:, :1]], axis=1)
+        return TensorDataset([ids, labels])
+
+    class _Losses(hapi_cbks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    def fit(ds):
+        """One epoch through Model.fit; the closing float() reads the last
+        on-device loss: the epoch's one host sync."""
+        cb = _Losses()
+        t0 = time.perf_counter()
+        model.fit(ds, batch_size=B, epochs=1, verbose=0, shuffle=False,
+                  log_freq=10 ** 9, callbacks=[cb])
+        last = float(cb.losses[-1])
+        return time.perf_counter() - t0, last, cb.losses
+
+    log(f"PHASE 7 setup: GPT-2 124M ({gpt.num_params()} params) + seed-0 "
+        f"numpy weights + prepare {time.perf_counter() - t_setup:.3f}s")
+    # warm-up, and the dtypes: fp32 params and Adam moments, bf16 into
+    # attention (recorded on one extra step)
+    fit(dataset(2))
+    seen = []
+    real = attn_mod.flash_attention
+    attn_mod.flash_attention = lambda q, k, v, **kw: (
+        seen.append((q.dtype, k.dtype, v.dtype)) or real(q, k, v, **kw))
+    try:
+        fit(dataset(1))
+    finally:
+        attn_mod.flash_attention = real
+    pdt = {p.dtype for p in gpt.parameters()}
+    mdt = {adam.state(p)[m].dtype for p in gpt.parameters()
+           for m in ("moment1", "moment2")}
+    adt = {d for tri in seen for d in tri}
+    if pdt != {torch.float32} or mdt != {torch.float32} \
+            or adt != {torch.bfloat16} or len(seen) != cfg.layers:
+        raise RuntimeError(f"phase 7 dtypes: params {pdt}, moments {mdt}, "
+                           f"attention inputs {adt} over {len(seen)} calls")
+
+    # the main path: count launches over the timed fits only
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    estimates, losses, steps = [], [], 0
+    ev = []
+    for _ in range(2):
+        dt_short, _, ls = fit(dataset(n_short))
+        losses += ls
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dt_long, _, ll = fit(dataset(n_long))
+        end.record()
+        torch.cuda.synchronize()
+        ev.append(start.elapsed_time(end) / n_long)
+        losses += ll
+        steps += n_short + n_long
+        delta = (dt_long - dt_short) / (n_long - n_short)
+        if delta > 0:
+            estimates.append(delta)
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in vals) or len(vals) != steps:
+        raise RuntimeError(f"phase 7: losses {vals}")
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_fwd": cfg.layers * steps,
+                 "flash_attention_bwd_dq": cfg.layers * steps,
+                 "flash_attention_bwd_dkv": cfg.layers * steps})
+    if counts != want:
+        raise RuntimeError(f"phase 7 launches {counts} != {want} "
+                           f"({steps} forward calls and steps)")
+    step_s = min(estimates) if estimates else dt_long / n_long
+    tokens_s = B * T / step_s
+    mfu = tokens_s * gpt.flops_per_token(T) / BF16_FLOPS_PER_S
+    log(f"PHASE 7 training [{power}] GPT-2 124M B={B} T={T} AMP O2 bf16 "
+        f"Model.fit: {steps} steps, losses {[round(x, 4) for x in vals]}; "
+        f"ms_per_step marginal (bench.py's estimate) {step_s * 1e3:.3f} "
+        f"(estimates {[round(e * 1e3, 3) for e in estimates]}), CUDA "
+        f"events over the long fits {[round(e, 3) for e in ev]}; "
+        f"tokens_per_s {tokens_s:.1f}; MFU {mfu:.4f} (x "
+        f"flops_per_token(1024)={gpt.flops_per_token(T)} / 989e12); "
+        f"max_memory_allocated {peak} B; launches {counts} "
+        f"(= 12 x {steps})")
+
+    # one repeated batch: the loss goes down
+    one = dataset(1)
+    rep = TensorDataset([np.tile(t, (8, 1)) for t in one.tensors])
+    _, _, rl = fit(rep)
+    rl = [float(x) for x in rl]
+    if not rl[-1] < rl[0]:
+        raise RuntimeError(f"phase 7: the loss on one repeated batch did "
+                           f"not fall: {rl}")
+    log(f"PHASE 7 one batch eight times: losses {rl}")
+
+    # where one step's device time goes
+    ids, labels = (t[:B] for t in dataset(1).tensors)
+    prof = profile_kernels(torch, lambda: model.train_batch(
+        [ids, labels], sync=False), 3)
+    total = sum(us for us, _ in prof.values())
+    groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
+              "flash_attention_bwd_dkv": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, (us, _) in prof.items():
+        if "flash_fwd_kernel" in name:
+            groups["flash_attention_fwd"] += us
+        elif "flash_bwd_dq_kernel" in name:
+            groups["flash_attention_bwd_dq"] += us
+        elif "flash_bwd_dkv_kernel" in name:
+            groups["flash_attention_bwd_dkv"] += us
+        elif any(w in name.lower() for w in ("gemm", "xmma", "cutlass",
+                                              "nvjet")):
+            groups["gemm"] += us
+        else:
+            groups["other"] += us
+    top = "; ".join(f"{n[:70]} {us:.1f}us x{c:g}" for n, (us, c) in sorted(
+        prof.items(), key=lambda kv: -kv[1][0])[:12])
+    # the LM head (linear_cross_entropy forward + backward) alone, at the
+    # step's shapes and dtypes
+    x = torch.randn((B * T, cfg.hidden), device="cuda").bfloat16() \
+        .requires_grad_(True)
+    w = (torch.randn((cfg.vocab_size, cfg.hidden), device="cuda") * 0.02) \
+        .bfloat16().requires_grad_(True)
+    lab = torch.from_numpy(labels.reshape(-1)).cuda()
+
+    def head(_):
+        rows = TF.linear_cross_entropy(x, w, lab, reduction="none")
+        torch.autograd.grad(rows.sum(), (x, w))
+
+    head_ms = cuda_ms(torch, head, 3)
+    flash_ms = sum(v for k, v in groups.items() if k.startswith("flash")) / 1e3
+    log(f"PHASE 7 step breakdown [{power}]: device_ms_per_step "
+        f"{total / 1e3:.3f} of which " + ", ".join(
+            f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+        + f"; LM head (linear_cross_entropy fwd+bwd, fp32 logits) alone "
+        f"{head_ms:.3f} ms; the rest of the step (less the flash kernels "
+        f"and the LM head) {total / 1e3 - flash_ms - head_ms:.3f} ms; top "
+        f"kernels per step: {top}")
+    for rec in records:
+        rec["launches"] = counts[rec["name"]]
+    del model, net, gpt, adam, x, w
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -934,6 +1537,20 @@ def main():
                  "PHASE 4", int8=False)
     phase_server(torch, np, cfg, qarrays, prompts8, outs8, deq,
                  INT8_LOGIT_TOL, "PHASE 4-int8", int8=True)
+    del eng, eng8, params, deq
+    torch.cuda.empty_cache()
+
+    # phases 5-7: the training path
+    t0 = time.perf_counter()
+    flash_records = phase_flash(torch, power)
+    log(f"PHASE 5/5b took {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    phase_train_parity(torch, np)
+    log(f"PHASE 6 took {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    phase_train(torch, np, power, flash_records)
+    log(f"PHASE 7 took {time.perf_counter() - t0:.3f}s")
+    records += list(flash_records)
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

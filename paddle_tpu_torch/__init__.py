@@ -1,21 +1,37 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
 
 The JAX package (`paddle_tpu`) is the reference; this package re-implements
-its serving path on PyTorch for an NVIDIA Hopper GPU, one slice at a time.
-Module names follow the JAX package so each counterpart is easy to find:
+it on PyTorch for an NVIDIA Hopper GPU, one slice at a time. Module names
+follow the JAX package so each counterpart is easy to find:
 
-  * `models.gpt`            GPT configs, the paged decode forward, weights
+  * `models.gpt`            GPT configs; the paged decode forward; the
+                            training `GPT`; weights carried from JAX
   * `memory.page_allocator` refcounted KV page bookkeeping + pool ops
   * `ops.kernels`           hand-written CUDA kernels and their plain
                             PyTorch versions (`decode_attention`,
-                            `quant_matmul`)
+                            `quant_matmul`, `flash_attention`)
+  * `ops.basic`             the generic tensor ops of the training path
   * `quant`                 int8 PTQ of decode weights, int8 KV pages
   * `inference.decode`      the paged-KV continuous-batching DecodeEngine
   * `inference.serve`       the PDI1/PDI2 decode server
+  * `nn`, `amp`, `optimizer`, `io`, `static`, `distributed.fleet`, `hapi`
+                            the training slice: layers and functionals,
+                            op-by-op AMP, Adam, datasets, the strategy and
+                            its single-device train step, `Model.fit`
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a GPU they raise instead of carrying on on the CPU. This package
-imports neither `jax` nor `paddle_tpu`.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(or calls ``set_device("cpu")``); without a GPU they raise instead of
+carrying on on the CPU. This package imports neither `jax` nor
+`paddle_tpu`.
 """
 
+from . import amp, distributed, hapi, io, models, nn, optimizer, static
+from .core.device import get_device, set_device
+from .core.flags import get_flags, set_flags
+from .core.random import seed
+
 __version__ = "0.1.0"
+
+__all__ = ["amp", "distributed", "hapi", "io", "models", "nn", "optimizer",
+           "static", "seed", "set_device", "get_device", "get_flags",
+           "set_flags"]

@@ -1,15 +1,76 @@
-"""The subset of paddle_tpu's PADDLE_TPU_* environment-flag catalog that
-the port reads, with the same names, defaults and parsing.
+"""The subset of paddle_tpu's flags that the port reads, with the same
+names, defaults and parsing, in the JAX package's two kinds:
 
-`env_value(name)` returns the parsed value of a catalogued flag; an unset,
-empty or unparsable variable yields the default, and an uncatalogued name
-raises, exactly as in the JAX package's `core/flags.py`.
+  * process-global ``FLAGS_*`` (`define_flag`, `get_flags`, `set_flags`):
+    each has a default that the environment variable ``FLAGS_<name>``
+    overrides when the flag is defined, and `set_flags` changes later;
+  * the PADDLE_TPU_* environment-flag catalog (`env_value(name)`): an
+    unset, empty or unparsable variable yields the default, and an
+    uncatalogued name raises, exactly as in the JAX package's
+    `core/flags.py`.
 """
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
+
+
+@dataclass
+class _Flag:
+    name: str
+    default: Any
+    doc: str
+    parser: Callable[[str], Any]
+    value: Any
+
+
+_REGISTRY: Dict[str, _Flag] = {}
+_LOCK = threading.Lock()
+
+
+def _parser_for(default):
+    if isinstance(default, bool):
+        return _parse_bool
+    if isinstance(default, int):
+        return int
+    if isinstance(default, float):
+        return float
+    return str
+
+
+def define_flag(name, default, doc=""):
+    """Declare one FLAGS_<name> (default, doc); the environment variable
+    FLAGS_<name>, read now, overrides the default."""
+    parser = _parser_for(default)
+    env = os.environ.get("FLAGS_" + name)
+    value = parser(env) if env is not None else default
+    with _LOCK:
+        _REGISTRY[name] = _Flag(name, default, doc, parser, value)
+    return value
+
+
+def _key(n):
+    key = n[6:] if n.startswith("FLAGS_") else n
+    if key not in _REGISTRY:
+        raise KeyError(f"Flag {n!r} is not defined")
+    return key
+
+
+def get_flags(flags):
+    """paddle.get_flags: a name (-> its value) or a list of names (-> a
+    {name: value} dict); the ``FLAGS_`` prefix is optional."""
+    if isinstance(flags, str):
+        return _REGISTRY[_key(flags)].value
+    return {n: _REGISTRY[_key(n)].value for n in flags}
+
+
+def set_flags(flags: Dict[str, Any]):
+    """paddle.set_flags: string values are parsed as the environment's."""
+    for n, v in flags.items():
+        f = _REGISTRY[_key(n)]
+        f.value = f.parser(v) if isinstance(v, str) else v
 
 
 @dataclass
@@ -31,16 +92,8 @@ def _parse_bool(s):
 
 def define_env_flag(name, default, doc, parser=None):
     """Declare one PADDLE_TPU_* environment knob (name, default, doc)."""
-    if parser is None:
-        if isinstance(default, bool):
-            parser = _parse_bool
-        elif isinstance(default, int):
-            parser = int
-        elif isinstance(default, float):
-            parser = float
-        else:
-            parser = str
-    _ENV_REGISTRY[name] = _EnvFlag(name, default, doc, parser)
+    _ENV_REGISTRY[name] = _EnvFlag(name, default, doc,
+                                   parser or _parser_for(default))
 
 
 def env_value(name) -> Any:
@@ -87,3 +140,14 @@ define_env_flag(
 define_env_flag(
     "PADDLE_TPU_SERVE_REQUEST_TIMEOUT", 120.0,
     "Server-side per-request deadline in seconds (inference/serve.py).")
+
+define_flag("use_pallas_attention", True,
+            "Route qualifying scaled_dot_product_attention calls (no mask, "
+            "no dropout, seq_len >= pallas_attention_min_seq) to the flash "
+            "attention kernels.")
+define_flag("pallas_attention_min_seq", 512,
+            "Route sdpa to the flash kernels only at seq_len >= this. The "
+            "value is the JAX package's, kept so the routing matches it; it "
+            "was chosen on a TPU and has not been re-measured on the GPU.")
+define_flag("amp_dtype", "bfloat16",
+            "Reduced precision dtype for AMP (amp.auto_cast's default).")

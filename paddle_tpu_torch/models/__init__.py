@@ -1,1 +1,4 @@
-"""Model families (GPT decode side)."""
+"""Model families (GPT)."""
+from .gpt import GPT, GPTConfig, gpt2_124m, gpt_tiny
+
+__all__ = ["GPT", "GPTConfig", "gpt2_124m", "gpt_tiny"]

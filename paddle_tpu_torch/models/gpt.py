@@ -1,10 +1,16 @@
-"""GPT decoder language model, decode side, in PyTorch.
+"""GPT decoder language model in PyTorch: the decode side and the
+training side.
 
-Port of the decode half of paddle_tpu's `models/gpt.py`: the configs, the
-prefill forward, the paged decode step and the fused prefill-into-pages,
-with the same math and op order (pre-LN blocks, `_pp_ln`'s
+Port of paddle_tpu's `models/gpt.py`. Decode: the configs, the prefill
+forward, the paged decode step and the fused prefill-into-pages, with the
+same math and op order (pre-LN blocks, `_pp_ln`'s
 mean / centred variance / sqrt(var + eps), f32 scores, a -1e30 causal mask,
 exact gelu, tied LM head), so the same weights give the same logits.
+Training: `GPT` (an `nn.Layer` of `Block`s) with `loss` through
+`masked_linear_ce`, built from the port's `nn` layers so that AMP casts op
+by op as in the JAX package, and attention through
+`F.scaled_dot_product_attention` (the flash-attention kernels at
+seq_len >= pallas_attention_min_seq).
 
 Weights stay ``[in, out]`` (the JAX package's nn/layer/common.py layout):
 every matmul is ``x @ w``, and `torch.nn.Linear` (``[out, in]``) is not
@@ -44,6 +50,10 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..memory.page_allocator import gather_pages, write_pages
+from ..nn import functional as F
+from ..nn import initializer as I
+from ..nn.layer import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
+from ..ops import basic as ops
 from ..ops.kernels.decode_attention import (NEG_INF, paged_decode_attention,
                                             paged_decode_attention_quant)
 from ..ops.kernels.quant_matmul import int8_weight_matmul
@@ -499,7 +509,130 @@ def gpt_paged_prefill_fns(cfg: GPTConfig, eps: float = 1e-5,
     return paged_prefill
 
 
+# ------------------------------------------------------------ training
+
+def masked_linear_ce(h, weight, labels, ignore_index=-100, fused=None):
+    """Tied-head CE through `F.linear_cross_entropy` (the [tokens, vocab]
+    logits are never kept for the backward), masked as F.cross_entropy's
+    ignore_index: ignored rows add 0 to the sum and leave the mean's
+    denominator; an all-ignored batch gives 0. The float ops go through
+    `ops.basic`, so under AMP O2 they cast as the JAX package's do."""
+    C = h.shape[-1]
+    lab = labels.reshape(-1)
+    valid = lab != ignore_index
+    safe = torch.where(valid, lab, torch.zeros_like(lab))
+    rows = F.linear_cross_entropy(ops.reshape(h, [-1, C]), weight, safe,
+                                  fused=fused, reduction="none")
+    rows = ops.where(valid, rows, ops.zeros_like(rows))
+    n_valid = ops.sum(ops.cast(valid, torch.float32))
+    n_valid = ops.maximum(n_valid, ops.ones_like(n_valid))
+    return ops.divide(ops.sum(rows), n_valid)
+
+
+class CausalSelfAttention(Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.qkv = Linear(cfg.hidden, 3 * cfg.hidden)
+        self.proj = Linear(cfg.hidden, cfg.hidden)
+        self.drop = Dropout(cfg.dropout)
+
+    def forward(self, x):
+        B, T, C = x.shape
+        H, D = self.cfg.heads, self.cfg.head_dim
+        q, k, v = (ops.reshape(t, [B, T, H, D])
+                   for t in ops.chunk(self.qkv(x), 3, axis=-1))
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             training=self.training)
+        return self.drop(self.proj(ops.reshape(out, [B, T, C])))
+
+
+class Block(Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln1 = LayerNorm(cfg.hidden)
+        self.attn = CausalSelfAttention(cfg)
+        self.ln2 = LayerNorm(cfg.hidden)
+        self.fc1 = Linear(cfg.hidden, cfg.ffn_mult * cfg.hidden)
+        self.fc2 = Linear(cfg.ffn_mult * cfg.hidden, cfg.hidden)
+        self.drop = Dropout(cfg.dropout)
+
+    def forward(self, x):
+        x = ops.add(x, self.attn(self.ln1(x)))
+        h = self.fc2(F.gelu(self.fc1(self.ln2(x))))
+        return ops.add(x, self.drop(h))
+
+
+class GPT(Layer):
+    """Pre-LN GPT decoder LM, training side (port of the JAX package's
+    `GPT`). forward(ids [B, T]) -> logits [B, T, V]; loss(ids, labels) ->
+    the masked tied-head CE. Parameters are created on the default device
+    (`set_device`; cuda unless asked otherwise).
+
+    `cfg.scan_layers` is accepted and the blocks always run as a Python
+    loop: the JAX package's scan only changes its compile, and its
+    `state_dict()` expands the stacked layout to the same per-block names
+    this model has. MoE configs raise `NotImplementedError`."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("GPT: MoE blocks are not ported to "
+                                      "paddle_tpu_torch")
+        self.cfg = cfg
+        emb_init = I.Normal(0.0, 0.02)                     # GPT-2 init
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden, weight_attr=emb_init)
+        self.wpe = Embedding(cfg.max_seq_len, cfg.hidden, weight_attr=emb_init)
+        self.drop = Dropout(cfg.dropout)
+        self.blocks = LayerList(Block(cfg) for _ in range(cfg.layers))
+        self.ln_f = LayerNorm(cfg.hidden)
+
+    def forward_hidden(self, idx):
+        """Final-LayerNorm hidden states [B, T, C]: everything but the
+        tied LM head."""
+        idx = torch.as_tensor(idx, device=self.wte.weight.device).long()
+        T = idx.shape[1]
+        pos = torch.arange(T, device=idx.device)[None]
+        x = self.drop(ops.add(self.wte(idx), self.wpe(pos)))
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+    def forward(self, idx):
+        x = self.forward_hidden(idx)
+        return F.linear(x, ops.transpose(self.wte.weight, [1, 0]))
+
+    def loss(self, idx, labels):
+        labels = torch.as_tensor(labels, device=self.wte.weight.device)
+        return masked_linear_ce(self.forward_hidden(idx), self.wte.weight,
+                                labels, fused=self.cfg.fused_head_ce)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len=None) -> int:
+        """Train-step (fwd + bwd) FLOPs per token: 6N for the parameter
+        matmuls plus 12 * layers * hidden * seq for attention's scores and
+        values."""
+        c = self.cfg
+        return 6 * self.num_params() \
+            + 12 * c.layers * c.hidden * (seq_len or c.max_seq_len)
+
+    def load_numpy(self, arrays: Mapping[str, np.ndarray]):
+        """Load the JAX GPT's `state_dict()` as numpy arrays (indexed or
+        scan-stacked keys) through `params_from_numpy`, the one function
+        that reads the JAX package's layouts. Returns self."""
+        dev = self.wte.weight.device
+        params = params_from_numpy(self.cfg, arrays, device=dev)
+        missing, unexpected = self.set_state_dict(params)
+        if missing or unexpected:
+            raise KeyError(f"GPT.load_numpy: missing {missing[:4]}, "
+                           f"unexpected {unexpected[:4]}")
+        return self
+
+
 __all__ = ["GPTConfig", "gpt_tiny", "gpt2_124m", "gpt2_345m", "gpt3_1p3b",
            "GPTDecoder", "init_params_numpy", "params_from_numpy",
            "param_shapes", "split_decode_params", "gpt_paged_decode_fns",
-           "gpt_paged_prefill_fns"]
+           "gpt_paged_prefill_fns", "GPT", "Block", "CausalSelfAttention",
+           "masked_linear_ce"]

@@ -1,0 +1,7 @@
+"""paddle.nn for the training slice: `Layer` and the layers GPT is built
+from, `functional`, `initializer`."""
+from . import functional, initializer
+from .layer import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
+
+__all__ = ["Layer", "Linear", "Embedding", "Dropout", "LayerNorm",
+           "LayerList", "functional", "initializer"]

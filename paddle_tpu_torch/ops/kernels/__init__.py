@@ -8,6 +8,11 @@
     of the same file;
   * `quant_matmul.int8_weight_matmul` — CUDA C++
     (`csrc/int8_weight_matmul.cu`), replaces `ops/pallas/quant_matmul.py`
-    `_mm_kernel`.
+    `_mm_kernel`;
+  * `flash_attention.flash_attention` — CUDA C++
+    (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`, sharing
+    `csrc/flash_attention_common.cuh`), replaces
+    `ops/pallas/flash_attention.py` `_fwd_kernel`, `_bwd_dq_kernel` and
+    `_bwd_dkv_kernel` (two-pass and fused).
 
 `_build` compiles the `csrc/` sources with nvcc at first use."""

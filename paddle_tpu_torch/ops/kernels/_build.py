@@ -4,8 +4,9 @@ Each source `csrc/<name>.cu` exports a plain C interface and is compiled
 with ``nvcc`` into its own shared library, then loaded with `ctypes` —
 no PyTorch headers, so a build takes seconds. Libraries land in
 ``build/paddle_tpu_torch/<key>/`` at the root of the checkout, where
-``<key>`` hashes the source, the flags and the compiler, so an unchanged
-tree never rebuilds and a changed one never loads a stale library.
+``<key>`` hashes the source, the shared ``csrc/*.cuh`` headers, the flags
+and the compiler, so an unchanged tree never rebuilds and a changed one
+never loads a stale library.
 
 Nothing here runs at import: the first `load` builds. A missing ``nvcc``
 or a failed build raises; there is no fallback.
@@ -47,6 +48,8 @@ def nvcc_path() -> str:
 def _lib_path(name: str, nvcc: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by several sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc.encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"

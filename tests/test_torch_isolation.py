@@ -100,3 +100,34 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path):
                    .result(timeout=60)) == 2
     finally:
         eng.stop()
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    """GPT(cfg), set_device() and Model.prepare use the GPU unless told
+    otherwise, and raise without one; set_device("cpu") opens the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import device as device_mod
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import GPT, gpt_tiny
+    from paddle_tpu_torch.optimizer import Adam
+
+    monkeypatch.setattr(device_mod, "_DEFAULT", [None])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPT(gpt_tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ptt.set_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ptt.set_device("gpu:0")
+    assert device_mod._DEFAULT == [None]        # a failed call changes nothing
+    assert ptt.set_device("cpu") == torch.device("cpu")
+    net = GPT(gpt_tiny())
+    assert net.wte.weight.device.type == "cpu"
+    model = Model(net)
+    adam = Adam(parameters=model.parameters())
+    monkeypatch.setattr(device_mod, "_DEFAULT", [None])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.prepare(adam)
+    ptt.set_device("cpu")
+    model.prepare(adam)
