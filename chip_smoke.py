@@ -78,8 +78,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      the loss falling on one repeated batch; ms per step (bench.py's
      marginal estimate and CUDA events), tokens/s, MFU against 989
      TFLOP/s, peak memory, and one step's device time by kernel;
-  8. one JSON line {"kernels": [...]} with every kernel's numbers;
-  9. last line {"ok": true, "device": {...}}.
+  8. the fused linear-CE kernels (forward, dx, dW) against their plain
+     versions at the slice's LM head, N=8192, H=2048, V=50304: fp32 with
+     TF32 off within the JAX contract (rtol/atol 1e-4 for loss, lse and
+     lab; rtol 2e-3, atol 1e-5 for dx and dW), bf16 against the plain
+     version on the same bf16 tensors by the worst row's RMS error
+     (CE_BF16_ROW_REL), a gate the plain version with one 32-wide tile
+     left out must fail, and a ragged N=200, H=96, V=700 in both; device
+     times by graph replay beside the bound and the plain versions, and
+     the head's forward + backward as the fused kernels, the unfused head
+     (`fused_head_ce=None`) and the library composition (F.linear bf16 +
+     F.cross_entropy fp32), with their peak memory;
+ 8b. the flash kernels at the slice's attention shape, B=4, T=2048, H=16,
+     D=128 causal: fp32 within the JAX contract, bf16 to phase 5's row
+     gate with its left-out tile, device times by graph replay;
+  9. recompute on the card: a narrow GPT (hidden 128, 2 layers, V=512,
+     T=512, fused head) in fp32 whose loss and every gradient with
+     per-block recompute (dots_saveable, nothing_saveable) equal those
+     without, bit for bit, with 2 x layers flash forward launches against
+     layers for dq and dk/dv, and one launch of each fused-CE kernel;
+ 10. the slice, benchmarks/run.py config 5's sequence: GPT-3 1.3B (seed-0
+     weights built on the card, 1,315,819,520 parameters) `.bfloat16()`,
+     `strategy.recompute`, Momentum(1e-4, 0.9),
+     `compile_train_step(loss_method="loss")`, `prog._put_data`,
+     `prog.step(ids, ids)` at B=4, T=2048: finite losses falling on the
+     repeated batch, launches per step of flash forward 48, dq 24, dk/dv
+     24 and each fused-CE kernel 1, bf16 parameters, gradients and
+     velocities; ms per step (run.py's `_timed_steps(n_short=1,
+     n_long=5)`), tokens/s, MFU against 989 TFLOP/s, peak memory, the
+     device time by kernel, and two steps with `fused_head_ce=None`
+     beside them;
+ 11. one JSON line {"kernels": [...]} with every kernel's numbers;
+ 12. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -535,21 +565,27 @@ def kernel_counts():
     """Every kernel wrapper's launch count, by kernel name."""
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as fce
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     return {"paged_decode_attention": da.launches,
             "paged_decode_attention_int8": da.quant_launches,
             "int8_weight_matmul": qm.launches,
             "flash_attention_fwd": fa.fwd_launches,
             "flash_attention_bwd_dq": fa.dq_launches,
-            "flash_attention_bwd_dkv": fa.bwd_launches}
+            "flash_attention_bwd_dkv": fa.bwd_launches,
+            "fused_linear_ce_fwd": fce.fwd_launches,
+            "fused_linear_ce_bwd_dx": fce.dx_launches,
+            "fused_linear_ce_bwd_dw": fce.dw_launches}
 
 
 def zero_counts():
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as fce
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     da.launches = da.quant_launches = qm.launches = 0
     fa.fwd_launches = fa.dq_launches = fa.bwd_launches = 0
+    fce.fwd_launches = fce.dx_launches = fce.dw_launches = 0
 
 
 def expected_counts(cfg, steps, prefills, int8):
@@ -564,7 +600,8 @@ def expected_counts(cfg, steps, prefills, int8):
                 len(MATMULS) * cfg.layers * (steps + prefills) if int8
                 else 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dkv": 0, "fused_linear_ce_fwd": 0,
+            "fused_linear_ce_bwd_dx": 0, "fused_linear_ce_bwd_dw": 0}
 
 
 def phase_engine(torch, np, power, cfg, eng, oracle, tol, tag, int8):
@@ -1020,7 +1057,8 @@ def phase_flash(torch, power):
     at the main path's shapes and at T=2048, where the TPU's backward took
     two passes) and their device times at the main path's shapes beside
     the bound, the plain versions and PyTorch's attention. Returns the
-    three kernel records."""
+    kernel records: forward, dq, dk/dv, and the two backward kernels as
+    the TPU's fused backward (row 8 of PERF.md's table)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.nn.functional.attention import _sdpa_composed
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -1176,7 +1214,15 @@ def phase_flash(torch, power):
         torch.cuda.empty_cache()
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
-    return fwd_rec, dq_rec, dkv_rec
+    # the TPU's fused backward (emit_dq=True) runs here as the dq kernel
+    # then the dk/dv kernel: its record is the pair's, one per backward
+    bwd_rec = kernel_record(
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:468",
+        max(main["dq"][1], main["dk"][1], main["dv"][1]), bwd_ms,
+        plain_dq + plain_dkv, lib_bwd, all_bytes, 10 * D * pairs,
+        BF16_FLOPS_PER_S)
+    return fwd_rec, dq_rec, dkv_rec, bwd_rec
 
 
 def kernel_record(name, src, replaces, err, ms, plain_ms, library_ms, nbytes,
@@ -1436,10 +1482,524 @@ def phase_train(torch, np, power, records):
         f"{head_ms:.3f} ms; the rest of the step (less the flash kernels "
         f"and the LM head) {total / 1e3 - flash_ms - head_ms:.3f} ms; top "
         f"kernels per step: {top}")
-    for rec in records:
-        rec["launches"] = counts[rec["name"]]
+    for rec in records:       # the pair's record: one per dq launch
+        rec["launches"] = counts[rec["name"] if rec["name"] in counts
+                                 else "flash_attention_bwd_dq"]
     del model, net, gpt, adam, x, w
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 8
+
+# the LM head of the slice: GPT-3 1.3B at B=4, T=2048 (N = B T rows)
+CE_N, CE_H, CE_V = 8192, 2048, 50304
+CE_LOSS_TOL = (1e-4, 1e-4)   # rtol, atol: tests/test_pallas_kernels.py:199
+CE_GRAD_TOL = (2e-3, 1e-5)   # rtol, atol: tests/test_pallas_kernels.py:206
+CE_TILE = 32                 # the kernels' streamed tile (rows of W or x)
+# bf16 kernels against the plain version run on the same bf16 tensors,
+# which rounds dlg and the outputs to bf16 where the kernels do. What is
+# left between them: fp32 summation order (~1e-6 relative) in the logits
+# and the products, which now and then moves a dlg entry or an output
+# across a bf16 rounding boundary (one ulp, at most 2^-7 of that element).
+# The gate is per row (each [H] row of dx and of dW): the RMS of the error
+# over the RMS of the plain row, at most 2^-6, twice what a row has when
+# every element of it is one ulp off, as phase 5's gate for attention.
+# Leaving out one 32-wide vocab tile (dx) or one 32-row tile of x (dW)
+# from the plain version must fail it: phase 8 measures that. lse, lab and
+# the loss are fp32 from the same operands and keep the fp32 contract.
+CE_BF16_ROW_REL = 2.0 ** -6
+
+
+def close_err(got, want, rtol, atol):
+    """assert_allclose's rule as one number: the largest |got - want| -
+    rtol |want| (the check passes when it is <= atol), and the max abs
+    error."""
+    d = (got.float() - want.float()).abs()
+    return ((d - rtol * want.float().abs()).max().item(), d.max().item())
+
+
+def ce_inputs(torch, N, H, V, dtype, seed):
+    """x [N, H] ~ N(0, 1) (a LayerNorm's output), W [V, H] ~ N(0, 0.02)
+    (the GPT init), labels [N] int64, the loss gradient g [N] ~ N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((N, H), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((V, H), generator=g, device="cuda") * 0.02).to(dtype)
+    lab = torch.randint(0, V, (N,), generator=g, device="cuda")
+    gg = torch.randn((N,), generator=g, device="cuda")
+    return x, w, lab, gg
+
+
+def check_ce(torch, fce, N, H, V, dtype, tag, seed):
+    """The three kernels against the plain versions on the same inputs in
+    `dtype` (the backward from the plain forward's lse). Raises unless
+    every output passes its gate: loss, lse and lab by the fp32 contract;
+    dx and dW by it in fp32 and by `row_rel_err` within CE_BF16_ROW_REL in
+    bf16. Returns ({output: (gated error, max abs error)}, the inputs, the
+    plain (dx, dW))."""
+    x, w, lab, gg = ce_inputs(torch, N, H, V, dtype, seed)
+    lse, lb = fce.fused_ce_forward(x, w, lab)
+    rlse, rlb = fce.fused_ce_forward(x, w, lab, kernel="reference")
+    got = (fce.fused_ce_bwd_dx(x, w, lab, rlse, gg),
+           fce.fused_ce_bwd_dw(x, w, lab, rlse, gg))
+    want = (fce.fused_ce_bwd_dx(x, w, lab, rlse, gg, kernel="reference"),
+            fce.fused_ce_bwd_dw(x, w, lab, rlse, gg, kernel="reference"))
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b in zip(("loss", "lse", "lab", "dx", "dw"),
+                          (lse - lb, lse, lb) + got,
+                          (rlse - rlb, rlse, rlb) + want):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"{tag}: {name} non-finite")
+        if name in ("loss", "lse", "lab"):
+            gated, err = close_err(a, b, *CE_LOSS_TOL)
+            tol = CE_LOSS_TOL[1]
+        elif dtype == torch.float32:
+            gated, err = close_err(a, b, *CE_GRAD_TOL)
+            tol = CE_GRAD_TOL[1]
+        else:
+            gated, err = row_rel_err(a, b), rel_err(a, b)[0]
+            tol = CE_BF16_ROW_REL
+        if not gated <= tol:
+            raise RuntimeError(f"{tag}: {name} error {gated} > {tol}")
+        out[name] = (gated, err)
+    return out, (x, w, lab, gg, rlse), want
+
+
+def ce_dropped_tile_errs(torch, fce, inputs, plain):
+    """How far the bf16 gate reaches: `row_rel_err` of the plain dx with
+    the 32-wide vocab tile that holds row 0's label left out, and of the
+    plain dW with the first 32 rows of x left out, against the whole plain
+    versions."""
+    x, w, lab, gg, lse = inputs
+    rdx, rdw = plain
+    v0 = int(lab[0]) // CE_TILE * CE_TILE
+    dlg = fce.dlogits_reference(x, w, lab, lse, gg)
+    cut = dlg.clone()
+    cut[:, v0:v0 + CE_TILE] = 0
+    e_dx = row_rel_err(torch.matmul(cut.float(), w.float()).to(x.dtype), rdx)
+    cut.copy_(dlg)
+    cut[:CE_TILE] = 0
+    e_dw = row_rel_err(torch.matmul(cut.float().t(), x.float()).to(w.dtype),
+                       rdw)
+    return {"dx": e_dx, "dw": e_dw}
+
+
+def phase_fused_ce(torch, power):
+    """Phase 8: the fused linear-CE kernels against their plain versions
+    (fp32 with TF32 off and bf16 at the slice's N=8192, H=2048, V=50304;
+    a ragged N=200, H=96, V=700 in both), the bf16 gate's reach, and
+    device times by graph replay beside the bound, the plain versions,
+    the unfused head and the nearest library composition. Returns the
+    three kernel records."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.nn.functional.loss import _LinearCrossEntropy
+    from paddle_tpu_torch.ops.kernels import fused_ce as fce
+
+    N, H, V = CE_N, CE_H, CE_V
+    cases = [("fp32 ragged N=200 H=96 V=700", 200, 96, 700, torch.float32,
+              21),
+             ("bf16 ragged N=200 H=96 V=700", 200, 96, 700, torch.bfloat16,
+              22),
+             (f"fp32 main N={N} H={H} V={V}", N, H, V, torch.float32, 23),
+             (f"bf16 main N={N} H={H} V={V}", N, H, V, torch.bfloat16, 24)]
+    errs = {}
+    for tag, n, h, v, dtype, seed in cases:
+        errs[tag], inputs, plain = check_ce(torch, fce, n, h, v, dtype,
+                                            f"fused CE {tag}", seed)
+        if tag.startswith("bf16 main"):
+            reach = ce_dropped_tile_errs(torch, fce, inputs, plain)
+        del inputs, plain
+        torch.cuda.empty_cache()
+    for tag, e in errs.items():
+        gated = "assert_allclose excess, pass <= atol" if tag.startswith(
+            "fp32") else "dx/dw: worst row RMS err / row RMS; loss/lse/lab: " \
+            "assert_allclose excess"
+        log(f"PHASE 8 fused CE check {tag}: " + " ".join(
+            f"{n}={g:.3e}" for n, (g, _) in e.items()) + f" ({gated}); "
+            "max abs err " + " ".join(f"{n}={m:.3e}"
+                                      for n, (_, m) in e.items()))
+    if min(reach.values()) <= CE_BF16_ROW_REL:
+        raise RuntimeError(f"fused CE bf16 gate {CE_BF16_ROW_REL} would pass "
+                           f"a dropped tile: {reach}")
+    log(f"PHASE 8 fused CE bf16 gate {CE_BF16_ROW_REL:.3e} against one "
+        f"{CE_TILE}-wide tile left out of the plain version: dx (the vocab "
+        f"tile of row 0's label) {reach['dx']:.3e}, dw (the first "
+        f"{CE_TILE} rows of x) {reach['dw']:.3e}")
+    main = errs[f"bf16 main N={N} H={H} V={V}"]
+
+    # timings at the slice's shapes, bf16
+    x, w, lab, gg = ce_inputs(torch, N, H, V, torch.bfloat16, 25)
+    lse, _ = fce.fused_ce_forward(x, w, lab)
+    t = {}
+    for name, kern in (
+            ("fwd", lambda k: fce.fused_ce_forward(x, w, lab, kernel=k)),
+            ("dx", lambda k: fce.fused_ce_bwd_dx(x, w, lab, lse, gg,
+                                                 kernel=k)),
+            ("dw", lambda k: fce.fused_ce_bwd_dw(x, w, lab, lse, gg,
+                                                 kernel=k))):
+        t[name] = graph_ms(torch, lambda _: kern(None), 3)
+        t[name + "_plain"] = graph_ms(torch, lambda _: kern("reference"), 1)
+        t[name + "_eager"] = cuda_ms(torch, lambda _: kern(None), 2, warm=1)
+    xl = x.detach().requires_grad_(True)
+    wl = w.detach().requires_grad_(True)
+
+    def unfused(_):
+        rows = _LinearCrossEntropy.apply(xl, wl, lab)
+        torch.autograd.grad(rows, (xl, wl), gg)
+
+    def library(_):
+        rows = F.cross_entropy(F.linear(xl, wl).float(), lab,
+                               reduction="none")
+        torch.autograd.grad(rows, (xl, wl), gg)
+
+    def fused(_):
+        rows = fce.fused_linear_cross_entropy(xl, wl, lab)
+        torch.autograd.grad(rows, (xl, wl), gg)
+
+    heads = {}
+    for name, fn in (("fused", fused), ("unfused", unfused),
+                     ("library", library)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(0)
+        torch.cuda.synchronize()
+        heads[name] = (graph_ms(torch, fn, 2),
+                       torch.cuda.max_memory_allocated() - base)
+    lib_rows = F.cross_entropy(F.linear(x, w).float(), lab, reduction="none")
+    ker_rows = fce.fused_linear_cross_entropy(x, w, lab)
+    lib_err = rel_err(lib_rows, ker_rows)[0]
+    in_bytes = 2 * N * H + 2 * V * H + 8 * N
+    prod = 2 * N * H * V
+    recs = (kernel_record(
+                "fused_linear_ce_fwd", "fused_linear_ce_fwd.cu",
+                "paddle_tpu/ops/pallas/fused_ce.py:66",
+                max(main["lse"][1], main["lab"][1]), t["fwd"],
+                t["fwd_plain"], None, in_bytes + 8 * N, prod,
+                BF16_FLOPS_PER_S),
+            kernel_record(
+                "fused_linear_ce_bwd_dx", "fused_linear_ce_bwd.cu",
+                "paddle_tpu/ops/pallas/fused_ce.py:148", main["dx"][1],
+                t["dx"], t["dx_plain"], None, in_bytes + 8 * N + 2 * N * H,
+                2 * prod, BF16_FLOPS_PER_S),
+            kernel_record(
+                "fused_linear_ce_bwd_dw", "fused_linear_ce_bwd.cu",
+                "paddle_tpu/ops/pallas/fused_ce.py:178", main["dw"][1],
+                t["dw"], t["dw_plain"], None, in_bytes + 8 * N + 2 * V * H,
+                2 * prod, BF16_FLOPS_PER_S))
+    for rec, name in zip(recs, ("fwd", "dx", "dw")):
+        log(f"PHASE 8 {rec['name']} [{power}] N={N} H={H} V={V} bf16: "
+            f"kernel_ms={rec['ms']:.6f} (graph replay; eager "
+            f"{t[name + '_eager']:.6f}) plain_ms={rec['plain_ms']:.6f} "
+            f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
+            f"kernel_over_bound={rec['ms'] / rec['bound_ms']:.2f}x "
+            f"achieved_tflops={(2 if name != 'fwd' else 1) * prod / rec['ms'] / 1e9:.3f}")
+    log(f"PHASE 8 LM head forward + backward [{power}] N={N} H={H} V={V} "
+        f"bf16 (graph replay; peak bytes above the inputs): fused kernels "
+        f"{heads['fused'][0]:.6f} ms {heads['fused'][1]} B; unfused "
+        f"_LinearCrossEntropy (fused=None at this V) {heads['unfused'][0]:.6f}"
+        f" ms {heads['unfused'][1]} B; library F.linear bf16 + "
+        f"F.cross_entropy fp32 {heads['library'][0]:.6f} ms "
+        f"{heads['library'][1]} B (its loss vs the kernels' {lib_err:.3e}); "
+        f"fused over unfused {heads['fused'][0] / heads['unfused'][0]:.2f}x, "
+        f"over library {heads['fused'][0] / heads['library'][0]:.2f}x")
+    del x, w, lab, gg, lse, xl, wl, lib_rows, ker_rows
+    torch.cuda.empty_cache()
+    return recs, heads
+
+
+# ----------------------------------------------------------- phase 8b
+
+def phase_flash_1p3b(torch, power):
+    """Phase 8b: the flash kernels at the slice's attention shape, B=4,
+    T=2048, H=16, D=128 causal: fp32 (TF32 off) within the JAX contract,
+    bf16 to phase 5's row gate (with its left-out tile), and device times
+    by graph replay. Returns the times."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, T, H, D = 4, 2048, 16, 128
+    errs = {}
+    for tag, dtype, seed in (("fp32", torch.float32, 31),
+                             ("bf16", torch.bfloat16, 32)):
+        errs[tag], inputs, plain = check_flash(
+            torch, fa, B, T, H, D, dtype, True, f"flash 1.3B {tag}",
+            True, seed)
+        if dtype == torch.bfloat16:
+            reach = dropped_tile_errs(fa, inputs, plain)
+        del inputs, plain
+        torch.cuda.empty_cache()
+    if min(reach.values()) <= FLASH_BF16_ROW_REL:
+        raise RuntimeError(f"flash bf16 gate {FLASH_BF16_ROW_REL} would pass "
+                           f"a dropped tile at D=128: {reach}")
+    for tag, e in errs.items():
+        log(f"PHASE 8b flash check {tag} B={B} T={T} H={H} D={D} causal: "
+            + " ".join(f"{n}={g:.3e}" for n, (g, _) in e.items())
+            + " (gated: fp32 max abs err; bf16 worst row RMS err / row RMS,"
+            " lse max abs err); max abs err "
+            + " ".join(f"{n}={m:.3e}" for n, (_, m) in e.items()))
+    log(f"PHASE 8b flash bf16 gate {FLASH_BF16_ROW_REL:.3e} against a left-"
+        f"out 64-row tile: o {reach['o']:.3e}, dv {reach['dv']:.3e}")
+    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, 33)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    t = {"fwd": graph_ms(torch, lambda _: fa.flash_attention_forward(
+             q, k, v, True), 10),
+         "dq": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+             q, k, v, o, do, lse, True), 5),
+         "dkv": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+             q, k, v, do, lse, delta, True), 5),
+         "fwd_plain": graph_ms(torch, lambda _: fa.flash_attention_forward(
+             q, k, v, True, kernel="reference"), 1),
+         "sdpa": graph_ms(torch, lambda _: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True), 10)}
+    pairs = B * H * flash_pairs(T, True)
+    elems = B * T * H * D
+    fwd_bound = max(4 * 2 * elems / HBM_BYTES_PER_S,
+                    4 * D * pairs / BF16_FLOPS_PER_S) * 1e3
+    bwd_bound = max(8 * 2 * elems / HBM_BYTES_PER_S,
+                    10 * D * pairs / BF16_FLOPS_PER_S) * 1e3
+    log(f"PHASE 8b flash [{power}] B={B} T={T} H={H} D={D} bf16 causal "
+        f"(graph replay): fwd {t['fwd']:.6f} ms (bound {fwd_bound:.6f}, "
+        f"{t['fwd'] / fwd_bound:.2f}x; plain {t['fwd_plain']:.6f}, torch "
+        f"sdpa {t['sdpa']:.6f}); dq {t['dq']:.6f} + dkv {t['dkv']:.6f} = "
+        f"{t['dq'] + t['dkv']:.6f} ms (bound {bwd_bound:.6f}, "
+        f"{(t['dq'] + t['dkv']) / bwd_bound:.2f}x); per 1.3B step (24 "
+        f"layers, forward twice under recompute) "
+        f"{48 * t['fwd'] + 24 * (t['dq'] + t['dkv']):.3f} ms")
+    del q, k, v, do, o, lse, delta, qt, kt, vt
+    torch.cuda.empty_cache()
+    return t
+
+
+# ------------------------------------------------------------ phase 9
+
+def phase_recompute(torch, np):
+    """Phase 9: a narrow GPT (hidden 128, 2 layers, 2 heads of 64, V=512,
+    T=512, fused_head_ce=True) on the card in fp32 with TF32 off: the loss
+    and every gradient with per-block recompute under each policy equal
+    those without, bit for bit, and the launch counts show the recomputed
+    flash forwards (2 x layers forward launches against layers for dq and
+    for dk/dv) and one launch of each fused-CE kernel."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, init_params_numpy
+
+    cfg = GPTConfig(vocab_size=512, max_seq_len=512, hidden=128, layers=2,
+                    heads=2, fused_head_ce=True)
+    arrays = init_params_numpy(cfg, seed=3)
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, cfg.vocab_size, (2, 512))
+    labels = np.roll(ids, -1, axis=1)
+    ptt.set_device("cuda")
+    out = {}
+    for policy in ("off", "dots_saveable", "nothing_saveable"):
+        model = GPT(cfg).load_numpy(arrays)
+        if policy != "off":
+            model.enable_block_recompute(True, policy)
+        zero_counts()
+        loss = model.loss(ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        model.enable_block_recompute(False)
+        out[policy] = (loss.detach(), [p.grad for p in model.parameters()],
+                       kernel_counts())
+    base_loss, base_grads, base_counts = out["off"]
+    for policy, (loss, grads, counts) in out.items():
+        want = {k: 0 for k in counts}
+        want.update({"flash_attention_fwd": cfg.layers * (
+                         1 if policy == "off" else 2),
+                     "flash_attention_bwd_dq": cfg.layers,
+                     "flash_attention_bwd_dkv": cfg.layers,
+                     "fused_linear_ce_fwd": 1, "fused_linear_ce_bwd_dx": 1,
+                     "fused_linear_ce_bwd_dw": 1})
+        if counts != want:
+            raise RuntimeError(f"phase 9 {policy}: launches {counts} != "
+                               f"{want}")
+        diff = max([(loss - base_loss).abs().item()]
+                   + [(a - b).abs().max().item()
+                      for a, b in zip(grads, base_grads)])
+        if diff != 0.0:
+            raise RuntimeError(f"phase 9 {policy}: recompute moved the loss "
+                               f"or a gradient by {diff}")
+    log(f"PHASE 9 recompute on the card: GPT hidden=128 layers=2 heads=2 "
+        f"V=512 T=512 B=2 fp32 fused_head_ce=True: loss "
+        f"{base_loss.item():.7f} and every gradient equal bit for bit with "
+        f"recompute under dots_saveable and nothing_saveable; launches "
+        f"without {base_counts}; with {out['dots_saveable'][2]}")
+    del out
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------- phase 10
+
+def timed_steps(step, n_short=1, n_long=5):
+    """benchmarks/run.py's `_timed_steps`: one warm step, then twice a
+    window of n_short and one of n_long chained steps, each ended by one
+    host read of its last loss; the marginal step seconds (the smaller of
+    (long - short) / (n_long - n_short)) and the step count."""
+    def run(n):
+        t0 = time.perf_counter()
+        out = None
+        for _ in range(n):
+            out = step()
+        float(out)
+        return time.perf_counter() - t0
+    run(1)
+    estimates, dl = [], None
+    for _ in range(2):
+        ds = run(n_short)
+        dl = run(n_long)
+        if dl > ds:
+            estimates.append((dl - ds) / (n_long - n_short))
+    secs = min(estimates) if estimates else dl / n_long
+    return secs, estimates, 1 + 2 * (n_short + n_long)
+
+
+def phase_slice(torch, np, power, ce_records):
+    """Phase 10, the slice: benchmarks/run.py config 5's single-chip
+    sequence (run.py:240-297) against paddle_tpu_torch: GPT-3 1.3B with
+    seed-0 weights built on the card, pure bf16, per-block recompute,
+    Momentum(1e-4, 0.9), compile_train_step(loss_method="loss"),
+    _put_data, prog.step(ids, ids) at B=4, T=2048. Gates: finite losses
+    falling on the repeated batch, per-step launches (flash forward 48, dq
+    24, dk/dv 24, each fused-CE kernel 1), bf16 parameters, gradients and
+    velocities. Prints ms per step, tokens/s, MFU, peak memory and the
+    device time by kernel; then two steps with fused_head_ce=None beside
+    them. Fills in the fused-CE records' launch counts."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.distributed.fleet.compiler import compile_train_step
+    from paddle_tpu_torch.distributed.fleet.strategy import \
+        DistributedStrategy
+    from paddle_tpu_torch.models import GPT, gpt3_1p3b
+
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = GPT(gpt3_1p3b(fused_head_ce=True)).bfloat16()
+    model.eval()
+    s = DistributedStrategy()
+    s.recompute = True
+    mom = opt.Momentum(learning_rate=1e-4, momentum=0.9,
+                       parameters=list(model.parameters()))
+    prog = compile_train_step(model, mom, s, loss_method="loss")
+    rng = np.random.default_rng(0)
+    B, T = 4, 2048
+    ids = prog._put_data(
+        rng.integers(0, model.cfg.vocab_size, (B, T)).astype(np.int64))
+    torch.cuda.synchronize()
+    log(f"PHASE 10 setup: GPT-3 1.3B ({model.num_params()} params, bf16) "
+        f"on the card + Momentum + compile_train_step "
+        f"{time.perf_counter() - t0:.3f}s")
+    losses = []
+
+    def step():
+        loss = prog.step(ids, ids)
+        losses.append(loss)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_s, estimates, n = timed_steps(step)
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [float(x) for x in losses]
+    if len(vals) != n or not all(math.isfinite(x) for x in vals) \
+            or not vals[-1] < vals[0]:
+        raise RuntimeError(f"phase 10: losses {vals} over {n} steps")
+    L = model.cfg.layers
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_fwd": 2 * L * n,
+                 "flash_attention_bwd_dq": L * n,
+                 "flash_attention_bwd_dkv": L * n,
+                 "fused_linear_ce_fwd": n, "fused_linear_ce_bwd_dx": n,
+                 "fused_linear_ce_bwd_dw": n})
+    if counts != want:
+        raise RuntimeError(f"phase 10 launches {counts} != {want} ({n} "
+                           f"steps)")
+    dts = {"params": {p.dtype for p in model.parameters()},
+           "grads": {p.grad.dtype for p in model.parameters()},
+           "velocity": {mom.state(p)["velocity"].dtype
+                        for p in model.parameters()}}
+    if any(d != {torch.bfloat16} for d in dts.values()):
+        raise RuntimeError(f"phase 10 dtypes {dts}")
+    tokens_s = B * T / step_s
+    fpt = model.flops_per_token(T)
+    log(f"PHASE 10 slice [{power}] GPT-3 1.3B B={B} T={T} pure bf16, "
+        f"recompute (dots_saveable), Momentum 1e-4, fused_head_ce=True: {n} "
+        f"steps on one repeated batch, losses {vals}; ms_per_step marginal "
+        f"(run.py's _timed_steps(n_short=1, n_long=5)) {step_s * 1e3:.3f} "
+        f"(estimates {[round(e * 1e3, 3) for e in estimates]}); tokens_per_s"
+        f" {tokens_s:.1f}; MFU {tokens_s * fpt / BF16_FLOPS_PER_S:.4f} (x "
+        f"flops_per_token(2048)={fpt} / 989e12); max_memory_allocated "
+        f"{peak} B; launches {counts} (= per step x {n}); dtypes of params, "
+        f"grads, velocities: bf16")
+
+    # where one step's device time goes
+    prof = profile_kernels(torch, step, 2)
+    total = sum(us for us, _ in prof.values())
+    groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
+              "flash_attention_bwd_dkv": 0.0, "fused_linear_ce_fwd": 0.0,
+              "fused_linear_ce_bwd_dx": 0.0, "fused_linear_ce_bwd_dw": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for name, (us, _) in prof.items():
+        if "flash_fwd_kernel" in name:
+            groups["flash_attention_fwd"] += us
+        elif "flash_bwd_dq_kernel" in name:
+            groups["flash_attention_bwd_dq"] += us
+        elif "flash_bwd_dkv_kernel" in name:
+            groups["flash_attention_bwd_dkv"] += us
+        elif "lce_fwd_kernel" in name:
+            groups["fused_linear_ce_fwd"] += us
+        elif "lce_bwd_kernel" in name:
+            groups["fused_linear_ce_bwd_dw" if "true" in name
+                   else "fused_linear_ce_bwd_dx"] += us
+        elif any(w in name.lower() for w in ("gemm", "xmma", "cutlass",
+                                              "nvjet")):
+            groups["gemm"] += us
+        else:
+            groups["other"] += us
+    top = "; ".join(f"{k[:70]} {us:.1f}us x{c:g}" for k, (us, c) in sorted(
+        prof.items(), key=lambda kv: -kv[1][0])[:12])
+    flash_ms = sum(v for k, v in groups.items() if k.startswith("flash"))
+    head_ms = sum(v for k, v in groups.items() if k.startswith("fused"))
+    log(f"PHASE 10 step breakdown [{power}] (torch.profiler, 2 steps): "
+        f"device_ms_per_step {total / 1e3:.3f} of which " + ", ".join(
+            f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+        + f"; flash kernels {flash_ms / 1e3:.3f} ({flash_ms / total:.3f}), "
+        f"fused-CE kernels {head_ms / 1e3:.3f} ({head_ms / total:.3f}); "
+        f"top kernels per step: {top}")
+
+    # the unfused head (fused_head_ce=None: V=50304 < FUSED_MIN_VOCAB)
+    model.cfg.fused_head_ce = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    float(step())
+    t1 = time.perf_counter()
+    for _ in range(2):
+        out = step()
+    float(out)
+    unf_s = (time.perf_counter() - t1) / 2
+    unf_peak = torch.cuda.max_memory_allocated()
+    unf_counts = kernel_counts()
+    model.cfg.fused_head_ce = True
+    if unf_counts["fused_linear_ce_fwd"] != 0 \
+            or not all(math.isfinite(float(x)) for x in losses[-3:]):
+        raise RuntimeError(f"phase 10 unfused: launches {unf_counts}, "
+                           f"losses {[float(x) for x in losses[-3:]]}")
+    log(f"PHASE 10 fused_head_ce=None [{power}]: ms_per_step "
+        f"{unf_s * 1e3:.3f} (host clock over 2 steps after 1) vs fused "
+        f"{step_s * 1e3:.3f}; tokens_per_s {B * T / unf_s:.1f}; MFU "
+        f"{B * T / unf_s * fpt / BF16_FLOPS_PER_S:.4f}; "
+        f"max_memory_allocated {unf_peak} B vs fused {peak} B; losses "
+        f"{[float(x) for x in losses[-3:]]}")
+    for rec in ce_records:
+        rec["launches"] = counts[rec["name"]]
+    del model, mom, prog, ids, losses
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main():
@@ -1551,6 +2111,21 @@ def main():
     phase_train(torch, np, power, flash_records)
     log(f"PHASE 7 took {time.perf_counter() - t0:.3f}s")
     records += list(flash_records)
+
+    # phases 8-10: the GPT-3 1.3B slice (benchmarks/run.py config 5)
+    t0 = time.perf_counter()
+    ce_records, _ = phase_fused_ce(torch, power)
+    log(f"PHASE 8 took {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    phase_flash_1p3b(torch, power)
+    log(f"PHASE 8b took {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    phase_recompute(torch, np)
+    log(f"PHASE 9 took {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    phase_slice(torch, np, power, ce_records)
+    log(f"PHASE 10 took {time.perf_counter() - t0:.3f}s")
+    records += list(ce_records)
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

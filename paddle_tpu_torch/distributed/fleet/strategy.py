@@ -1,15 +1,20 @@
 """DistributedStrategy (port of paddle_tpu's `distributed/fleet/
 strategy.py`), with the same field names. The port trains on one device:
-`amp` with `amp_configs.use_pure_bf16` is what runs, and every toggle that
-needs a mesh or a rewritten step (dp > 1, sharding, tensor / sequence /
-expert / pipeline parallelism, recompute, gradient merge, localsgd, dgc,
-lars, lamb, ...) raises `NotImplementedError` from `check_ported`, which
-`compile_train_step` calls when the model is prepared."""
+`amp` with `amp_configs.use_pure_bf16`, and `recompute` with
+`recompute_configs.policy` ("dots_saveable", "nothing_saveable" or None)
+are what run; every toggle that needs a mesh or a rewritten step (dp > 1,
+sharding, tensor / sequence / expert / pipeline parallelism, gradient
+merge, localsgd, dgc, lars, lamb, ...), recompute checkpoints and any
+other recompute policy raise `NotImplementedError` from `check_ported`,
+which `compile_train_step` calls when the model is prepared."""
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["DistributedStrategy", "AMPConfig", "HybridConfig"]
+from .utils import RECOMPUTE_POLICIES
+
+__all__ = ["DistributedStrategy", "AMPConfig", "HybridConfig",
+           "RecomputeConfig"]
 
 
 @dataclasses.dataclass
@@ -20,6 +25,15 @@ class HybridConfig:
     sharding_degree: int = 1
     sep_degree: int = 1          # sequence parallel
     ep_degree: int = 1           # expert parallel
+
+
+@dataclasses.dataclass
+class RecomputeConfig:
+    """The JAX package's fields: `policy` names a checkpoint policy (here
+    "dots_saveable", "nothing_saveable" or None); named `checkpoints`
+    (segment boundaries) are not ported and raise at prepare."""
+    checkpoints: list = dataclasses.field(default_factory=list)
+    policy: str = "dots_saveable"
 
 
 @dataclasses.dataclass
@@ -35,7 +49,7 @@ class AMPConfig:
 
 
 # toggles of the JAX strategy the port does not run; each False by default
-_UNPORTED = ("recompute", "sharding", "pipeline", "gradient_merge",
+_UNPORTED = ("sharding", "pipeline", "gradient_merge",
              "tensor_parallel", "sequence_parallel", "expert_parallel",
              "localsgd", "adaptive_localsgd", "dgc", "fp16_allreduce",
              "lars", "lamb")
@@ -47,6 +61,8 @@ class DistributedStrategy:
     def __init__(self):
         self.amp = False
         self.amp_configs = AMPConfig()
+        self.recompute = False
+        self.recompute_configs = RecomputeConfig()
         for name in _UNPORTED:
             setattr(self, name, False)
         self.hybrid_configs = HybridConfig()
@@ -62,12 +78,20 @@ class DistributedStrategy:
         on += [f"amp_configs.{k}" for k in ("custom_white_list",
                                             "custom_black_list")
                if getattr(self.amp_configs, k)]
+        if self.recompute and self.recompute_configs.checkpoints:
+            on.append("recompute_configs.checkpoints")
+        if self.recompute and (self.recompute_configs.policy
+                               not in RECOMPUTE_POLICIES):
+            on.append(f"recompute_configs.policy="
+                      f"{self.recompute_configs.policy!r}")
         if on:
             raise NotImplementedError(
                 f"DistributedStrategy: {', '.join(on)} not ported to "
-                f"paddle_tpu_torch (single-device training: amp and "
-                f"amp_configs.use_pure_bf16 only)")
+                f"paddle_tpu_torch (single-device training: amp, "
+                f"amp_configs.use_pure_bf16 and per-block recompute with "
+                f"policy in {RECOMPUTE_POLICIES} only)")
 
     def __repr__(self):
-        on = [k for k in ("amp",) + _UNPORTED if getattr(self, k)]
+        on = [k for k in ("amp", "recompute") + _UNPORTED
+              if getattr(self, k)]
         return f"DistributedStrategy(enabled={on}, hybrid={self.hybrid_configs})"

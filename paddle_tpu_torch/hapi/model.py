@@ -105,7 +105,7 @@ class Model:
         self._n_inputs = n_in
         adapter = _LossAdapter(self.network, loss, n_in)
         self._prog = compile_train_step(adapter, optimizer, self._strategy,
-                                        device)
+                                        device=device)
 
     def train_batch(self, inputs, labels=None, sync=True):
         """One optimizer step on a batch; returns [loss] as a float, or

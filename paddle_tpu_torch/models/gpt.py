@@ -49,6 +49,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed.fleet.utils import recompute
 from ..memory.page_allocator import gather_pages, write_pages
 from ..nn import functional as F
 from ..nn import initializer as I
@@ -586,6 +587,18 @@ class GPT(Layer):
         self.drop = Dropout(cfg.dropout)
         self.blocks = LayerList(Block(cfg) for _ in range(cfg.layers))
         self.ln_f = LayerNorm(cfg.hidden)
+        self.enable_block_recompute(False)
+
+    def enable_block_recompute(self, flag=True, policy=None):
+        """Per-block activation recomputation (the strategy compiler's
+        protocol): with the flag on, each block runs under
+        `distributed.fleet.utils.recompute` with `policy` (a name of
+        `RECOMPUTE_POLICIES`), so the backward keeps one block's
+        activations at a time; the final LayerNorm and the head stay
+        outside. The compiler sets the flag around its forward only."""
+        self._recompute_blocks = bool(flag)
+        self._recompute_policy = policy
+        return self
 
     def forward_hidden(self, idx):
         """Final-LayerNorm hidden states [B, T, C]: everything but the
@@ -595,7 +608,8 @@ class GPT(Layer):
         pos = torch.arange(T, device=idx.device)[None]
         x = self.drop(ops.add(self.wte(idx), self.wpe(pos)))
         for blk in self.blocks:
-            x = blk(x)
+            x = (recompute(blk, x, checkpoint_policy=self._recompute_policy)
+                 if self._recompute_blocks else blk(x))
         return self.ln_f(x)
 
     def forward(self, idx):

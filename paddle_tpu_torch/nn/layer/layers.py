@@ -14,6 +14,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ...amp import _dtype
 from ...core.device import get_device
 from .. import initializer as I
 
@@ -45,6 +46,14 @@ class Layer(torch.nn.Module):
             prefix=prefix,
             recurse=include_sublayers if recurse is None else recurse,
             remove_duplicate=remove_duplicate))
+
+    def astype(self, dtype):
+        """Cast every floating parameter and buffer to `dtype` (a torch
+        dtype or paddle's name, "float32" / "bfloat16" / "float16") in
+        place and return self, as the JAX package's `Layer.astype`.
+        `float()`, `bfloat16()` and `half()` are torch's own, which do the
+        same."""
+        return self.to(dtype=_dtype(dtype))
 
     def set_state_dict(self, state_dict) -> Tuple[List[str], List[str]]:
         """Copy `state_dict` (tensors or numpy arrays, by name) into the

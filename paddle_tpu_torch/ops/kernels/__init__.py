@@ -13,6 +13,10 @@
     (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`, sharing
     `csrc/flash_attention_common.cuh`), replaces
     `ops/pallas/flash_attention.py` `_fwd_kernel`, `_bwd_dq_kernel` and
-    `_bwd_dkv_kernel` (two-pass and fused).
+    `_bwd_dkv_kernel` (two-pass and fused);
+  * `fused_ce.fused_linear_cross_entropy` — CUDA C++
+    (`csrc/fused_linear_ce_fwd.cu`, `csrc/fused_linear_ce_bwd.cu`, sharing
+    `csrc/fused_linear_ce_common.cuh`), replaces `ops/pallas/fused_ce.py`
+    `_fwd_kernel`, `_bwd_dx_kernel` and `_bwd_dw_kernel`.
 
 `_build` compiles the `csrc/` sources with nvcc at first use."""

@@ -1,5 +1,5 @@
-"""paddle.optimizer for the training slice: `Adam`."""
+"""paddle.optimizer for the training slices: `Momentum` and `Adam`."""
 from .optimizer import Optimizer
-from .optimizers import Adam
+from .optimizers import Adam, Momentum
 
-__all__ = ["Optimizer", "Adam"]
+__all__ = ["Optimizer", "Momentum", "Adam"]

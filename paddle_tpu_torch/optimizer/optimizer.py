@@ -29,6 +29,11 @@ class Optimizer:
     def get_lr(self) -> float:
         return self._learning_rate
 
+    def state(self, p):
+        """The optimizer's state of parameter `p` (Adam's moments and beta
+        powers, Momentum's velocity)."""
+        return self._state[id(p)]
+
     def _params_with_grads(self):
         if self._parameter_list is None:
             raise ValueError("Optimizer created without a parameter list; "

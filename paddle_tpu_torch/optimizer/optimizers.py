@@ -1,5 +1,20 @@
-"""Adam (port of paddle_tpu's `optimizer/optimizers.py` `Adam`): the same
-update, in fp32,
+"""Momentum and Adam (port of paddle_tpu's `optimizer/optimizers.py`).
+
+Momentum: the same update, in the parameter's type,
+
+    v = momentum v + g          p -= lr (g + momentum v)  if use_nesterov
+                                p -= lr v                 otherwise
+
+with the velocity `v` a tensor of the parameter's dtype beside it (bf16
+for a `.bfloat16()` model, as the JAX package's `zeros_like` gives). Each
+op rounds to that dtype where the JAX op does: `momentum v` and the sum
+with g are two roundings; `p - lr update` is one, computed in fp32 (JAX
+multiplies the bf16 update by its fp32 lr). Parameters and velocities are
+updated in place with `torch._foreach_*`, so a bf16 parameter stays bf16
+(the JAX step returns the fp32 result of that last op as the new
+parameter, see ROADMAP.md queue 3).
+
+Adam: the same update, in fp32,
 
     m = b1 m + (1 - b1) g          v = b2 v + (1 - b2) g g
     b1p *= b1                      b2p *= b2
@@ -21,7 +36,35 @@ import torch
 
 from .optimizer import Optimizer
 
-__all__ = ["Adam"]
+__all__ = ["Momentum", "Adam"]
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        if multi_precision:
+            raise NotImplementedError("Momentum(multi_precision=True) is "
+                                      "not ported to paddle_tpu_torch")
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+
+    def _update(self, lr):
+        ps = self._params_with_grads()
+        for p in ps:
+            if id(p) not in self._state:
+                self._state[id(p)] = {"velocity": torch.zeros_like(p)}
+        vs = [self._state[id(p)]["velocity"] for p in ps]
+        gs = [p.grad.to(p.dtype) for p in ps]
+        torch._foreach_mul_(vs, self._momentum)
+        torch._foreach_add_(vs, gs)
+        update = vs
+        if self._nesterov:
+            update = torch._foreach_add(gs, torch._foreach_mul(
+                vs, self._momentum))
+        torch._foreach_add_(ps, update, alpha=-lr)
 
 
 class Adam(Optimizer):
@@ -41,10 +84,6 @@ class Adam(Optimizer):
                 "moment2": torch.zeros_like(p, dtype=torch.float32),
                 "beta1_pow": np.float32(1.0), "beta2_pow": np.float32(1.0)}
         return st
-
-    def state(self, p):
-        """The Adam state of parameter `p` (moments and beta powers)."""
-        return self._state[id(p)]
 
     def _update(self, lr):
         b1, b2 = self._beta1, self._beta2

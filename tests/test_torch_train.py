@@ -152,12 +152,13 @@ def test_linear_cross_entropy_matches_lce_xla(N, H, V):
 
 
 def test_linear_cross_entropy_fused_off_cpu_raises():
-    """fused=True asks for the unported streaming CE kernels: off the CPU
-    it raises (naming the ROADMAP queue); on the CPU it is the plain path,
-    as in the JAX package off the TPU."""
+    """fused=True runs the fused-CE kernels on a CUDA tensor and their
+    plain versions on a CPU tensor (tests/test_torch_fused_ce.py holds
+    them to the JAX package's Pallas kernels); a device with neither
+    (meta) raises."""
     x, w = torch.zeros(4, 8), torch.zeros(16, 8)
     lab = torch.zeros(4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         TF.linear_cross_entropy(x.to("meta"), w.to("meta"), lab.to("meta"),
                                 fused=True)
     assert torch.isfinite(TF.linear_cross_entropy(x, w, lab, fused=True))
@@ -368,11 +369,19 @@ def test_o2_dtypes_along_the_gpt_path(monkeypatch):
 # ------------------------------------------------------ (vii) strategy
 
 @pytest.mark.parametrize("toggle", list(_UNPORTED) + [
-    "dp_degree", "mp_degree", "sharding_degree", "custom_white_list",
-    "custom_black_list"])
+    "recompute", "recompute_policy", "dp_degree", "mp_degree",
+    "sharding_degree", "custom_white_list", "custom_black_list"])
 def test_unported_strategy_toggles_raise_at_prepare(toggle):
+    """Recompute runs per block with the dots_saveable / nothing_saveable
+    policies; named checkpoints and other policies raise."""
     s = DistributedStrategy()
-    if toggle.endswith("_degree"):
+    if toggle == "recompute":
+        s.recompute = True
+        s.recompute_configs.checkpoints = ["blocks.0"]
+    elif toggle == "recompute_policy":
+        s.recompute = True
+        s.recompute_configs.policy = "everything_saveable"
+    elif toggle.endswith("_degree"):
         setattr(s.hybrid_configs, toggle, 2)
     elif toggle.startswith("custom_"):
         setattr(s.amp_configs, toggle, ["gelu"])
