@@ -24,6 +24,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode step's 48 block matmuls of the seed-0 GPT-2 weights quantized
      by quantize_params, at M=8 and M=512 (<= 1e-4 against its plain
      version; library = torch.matmul on the fp32 weights);
+ 2c. the contiguous-cache decode attention kernel (row 3) against its
+     plain version, <= 1e-5 with TF32 off, at the contiguous decode path's
+     B=8, H=12, D=64, cap=1024 (lengths over 1..1024), at GPT-3 1.3B's
+     head shape (H=16, D=128, cap=2048), at the edge lengths 0, 1, cap
+     and cap+5, and at a ragged B=3, cap=32, H=4, D=16; kernel, plain and
+     library (scaled_dot_product_attention over the [B, H, cap, D] views
+     with a boolean mask of the live rows) device times by graph replay,
+     eager beside them, and the bound, at the path's shape and the 1.3B
+     shape;
   3. the main path: GPT-2 124M (random weights from seed 0) served by the
      paged DecodeEngine, 8 greedy requests (two sharing a 64-token head),
      every stream done, each token checked against a full forward
@@ -43,6 +52,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      matmul), page bytes against fp32, and phase 3b's step profile on
      the int8 path; (3c) the host cost of one eager call of what the int8
      step adds (the matmul wrapper beside torch.matmul, quantize_kv);
+  3-contig. the contiguous-cache decode path, a user's own generate loop
+     over `gpt_decode_fns`: GPT-2 124M on the seed-0 weights, 8 prompts
+     of 7-900 tokens padded to the 1024 rung, prefill, then 32 greedy
+     decode_steps; every token checked against a full forward (within
+     1e-4 of the max logit), the kernel's launch count equal to layers x
+     steps, the caches written in place (same shape, same storage); then
+     the same on int8 block weights (quantize_params; fp32 caches), held
+     to a full forward over the dequantized weights within 1e-4 and to
+     4 x layers x (steps + 1) int8-matmul launches (the prefill's
+     matmuls go through the kernel too); one decode_step of a port
+     GPT(gpt_tiny()) fed through framework.param_arrays against the
+     layer's own forward; and (3b-contig) phase 3b's step breakdown on
+     this path (B=8, 512 tokens per sequence, cap 1024);
   4. the decode server: a save_for_decode artifact served by
      `python -m paddle_tpu_torch.inference.serve --decode` in a
      subprocess, 4 concurrent wire requests compared with phase 3, its
@@ -108,7 +130,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      n_long=5)`), tokens/s, MFU against 989 TFLOP/s, peak memory, the
      device time by kernel, and two steps with `fused_head_ce=None`
      beside them;
- 11. one JSON line {"kernels": [...]} with every kernel's numbers;
+ 11. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+     records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
+     fused backward);
  12. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
@@ -546,6 +570,116 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
     return out[8]
 
 
+# ----------------------------------------------------------- phase 2c
+
+def contiguous_attention_inputs(torch, g, L, lengths, cap, H, D):
+    """Random q [L, B, H, D] and contiguous caches k, v [L, B, cap, H, D]
+    (one per layer), and the lengths as int32."""
+    B = len(lengths)
+    q = torch.randn((L, B, H, D), generator=g, device="cuda")
+    k = torch.randn((L, B, cap, H, D), generator=g, device="cuda")
+    v = torch.randn((L, B, cap, H, D), generator=g, device="cuda")
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def phase_decode_attention(torch, np):
+    """Row 3's kernel (contiguous-cache decode attention) against its
+    plain version at the contiguous decode path's shape, GPT-3 1.3B's head
+    shape, the edge lengths 0, 1, cap and cap + 5, and a ragged small
+    case; then its times at the path's shape, and the 1.3B shape's."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+    B, H, D, cap, L = 8, 12, 64, 1024, 12
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    main_len = [int(x) for x in rng.integers(1, cap + 1, size=B)]
+    big_len = [int(x) for x in rng.integers(1, 2048 + 1, size=B)]
+    cases = (("gpt2", main_len, cap, H, D),
+             ("gpt2-edges", [0, 1, cap, cap + 5], cap, H, D),
+             ("1p3b", big_len, 2048, 16, 128),
+             ("1p3b-edges", [0, 1, 2048, 2048 + 5], 2048, 16, 128),
+             ("ragged", [1, 17, 32], 32, 4, 16))
+    errs = {}
+    for tag, lens, c, h, d in cases:
+        q, k, v, lengths = contiguous_attention_inputs(torch, g, 2, lens, c,
+                                                       h, d)
+        err = 0.0
+        for li in range(2):
+            got = da.decode_attention(q[li], k[li], v[li], lengths)
+            want = da.decode_attention(q[li], k[li], v[li], lengths,
+                                       kernel="reference")
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"decode_attention {tag}: non-finite")
+            err = max(err, (got - want).abs().max().item())
+        errs[tag] = err
+        del q, k, v
+    err = max(errs.values())
+    if err > KERNEL_TOL:
+        raise RuntimeError(f"decode_attention max abs err {errs} > "
+                           f"{KERNEL_TOL}")
+
+    def timed(lens, c, h, d, layers):
+        """Times over `layers` caches in turn (past the 50 MB L2, as a
+        decode step's layer loop finds them), and the bound."""
+        q, k, v, lengths = contiguous_attention_inputs(torch, g, layers,
+                                                       lens, c, h, d)
+        live = (torch.arange(c, device="cuda")[None, :]
+                < lengths[:, None].long())[:, None, None, :]   # [B,1,1,c]
+
+        def kernel(i):
+            li = i % layers
+            return da.decode_attention(q[li], k[li], v[li], lengths)
+
+        def plain(i):
+            li = i % layers
+            return da.decode_attention(q[li], k[li], v[li], lengths,
+                                       kernel="reference")
+
+        def library(i):
+            li = i % layers
+            return F.scaled_dot_product_attention(
+                q[li][:, :, None], k[li].transpose(1, 2),
+                v[li].transpose(1, 2), attn_mask=live)[:, :, 0]
+
+        lib_err = (library(0) - plain(0)).abs().max().item()
+        t = timings(torch, kernel, plain, library, 240)
+        rows = sum(min(n, c) for n in lens)
+        nbytes = 4 * (2 * len(lens) * h * d    # q in, out
+                      + 2 * rows * h * d       # live K and V rows
+                      + len(lens))             # lengths
+        flops = 4 * rows * h * d               # q.k and p.v, 2 flops each
+        del q, k, v
+        torch.cuda.empty_cache()
+        return t, lib_err, nbytes, flops
+
+    t, lib_err, nbytes, flops = timed(main_len, cap, H, D, L)
+    rec = kernel_record(
+        "decode_attention", "decode_attention.cu",
+        "paddle_tpu/ops/pallas/decode_attention.py:68", err, t["ms"],
+        t["plain_ms"], t["library_ms"], nbytes, flops, FP32_FLOPS_PER_S)
+    by_case = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+    log(f"PHASE 2c decode_attention B={B} H={H} D={D} cap={cap} "
+        f"lengths={main_len} max_abs_err={err:.3e} ({by_case}; gate "
+        f"{KERNEL_TOL}) "
+        f"kernel_ms={t['ms']:.6f} (graph replay; eager launches "
+        f"{t['eager_ms']:.6f}) plain_ms={t['plain_ms']:.6f} "
+        f"library_ms={t['library_ms']:.6f} (sdpa with a boolean mask; "
+        f"library vs plain err {lib_err:.3e}) bound_ms="
+        f"{rec['bound_ms']:.6f} ({rec['bound_by']}, {nbytes} bytes, {flops} "
+        f"flops) kernel_over_bound={t['ms'] / rec['bound_ms']:.2f}x")
+    t, lib_err, nbytes, _ = timed(big_len, 2048, 16, 128, 4)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"PHASE 2c decode_attention at GPT-3 1.3B's head shape B=8 H=16 "
+        f"D=128 cap=2048 lengths={big_len}: kernel_ms={t['ms']:.6f} "
+        f"(graph replay; eager {t['eager_ms']:.6f}) plain_ms="
+        f"{t['plain_ms']:.6f} library_ms={t['library_ms']:.6f} (library vs "
+        f"plain err {lib_err:.3e}) bound_ms={b_ms:.6f} (bytes) "
+        f"kernel_over_bound={t['ms'] / b_ms:.2f}x")
+    return rec
+
+
 # ------------------------------------------------------------ phase 3
 
 def teacher_forced(torch, model, prompt, out):
@@ -567,7 +701,8 @@ def kernel_counts():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_ce as fce
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
-    return {"paged_decode_attention": da.launches,
+    return {"decode_attention": da.contig_launches,
+            "paged_decode_attention": da.launches,
             "paged_decode_attention_int8": da.quant_launches,
             "int8_weight_matmul": qm.launches,
             "flash_attention_fwd": fa.fwd_launches,
@@ -583,25 +718,25 @@ def zero_counts():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_ce as fce
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
-    da.launches = da.quant_launches = qm.launches = 0
+    da.contig_launches = da.launches = da.quant_launches = qm.launches = 0
     fa.fwd_launches = fa.dq_launches = fa.bwd_launches = 0
     fce.fwd_launches = fce.dx_launches = fce.dw_launches = 0
 
 
-def expected_counts(cfg, steps, prefills, int8):
+def expected_counts(cfg, steps, prefills, int8, contig=False):
     """Launches a decode run must show: one attention launch per layer per
-    decode step (the int8 kernel on int8 pages), on int8 weights one matmul
-    launch per block matmul per step and per prefill, and no flash
-    attention (a training kernel)."""
-    attn = cfg.layers * steps
-    return {"paged_decode_attention": 0 if int8 else attn,
-            "paged_decode_attention_int8": attn if int8 else 0,
-            "int8_weight_matmul":
-                len(MATMULS) * cfg.layers * (steps + prefills) if int8
-                else 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0, "fused_linear_ce_fwd": 0,
-            "fused_linear_ce_bwd_dx": 0, "fused_linear_ce_bwd_dw": 0}
+    decode step (the contiguous kernel on the contiguous path, else the
+    paged one, int8 on int8 pages), on int8 weights one matmul launch per
+    block matmul per step and per prefill, and no other kernel."""
+    want = {k: 0 for k in kernel_counts()}
+    attn = ("decode_attention" if contig
+            else "paged_decode_attention_int8" if int8
+            else "paged_decode_attention")
+    want[attn] = cfg.layers * steps
+    if int8:
+        want["int8_weight_matmul"] = \
+            len(MATMULS) * cfg.layers * (steps + prefills)
+    return want
 
 
 def phase_engine(torch, np, power, cfg, eng, oracle, tol, tag, int8):
@@ -707,9 +842,6 @@ def phase_step_profile(torch, np, cfg, params, power, kv_dtype, tag):
     logits out, as the engine runs it) and traced with torch.profiler
     for device time by kernel. `params` and `kv_dtype` pick the fp32 or
     the int8 path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from paddle_tpu_torch.models.gpt import gpt_paged_decode_fns
     from paddle_tpu_torch.quant.kv import kv_pool_zeros
 
@@ -731,6 +863,17 @@ def phase_step_profile(torch, np, cfg, params, power, kv_dtype, tag):
     def one():
         logits, _, _ = step(params, kpool, vpool, tables, ltok, clen)
         return logits.float().cpu()
+
+    step_breakdown(torch, one, power, tag,
+                   f"gpt2_124m kv_dtype={kv_dtype} B={B} len={n}")
+
+
+def step_breakdown(torch, one, power, tag, what):
+    """Time the decode step `one` (inputs in, logits out) on the host clock
+    (two readings) and trace it with torch.profiler for its device time by
+    kernel; log both under `tag`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         one()
@@ -763,8 +906,7 @@ def phase_step_profile(torch, np, cfg, params, power, kv_dtype, tag):
     dev_ms = sum(r[0] for r in rows) / 1e3
     top = "; ".join(f"{name[:60]} {us:.1f}us x{cnt:g}"
                     for us, cnt, name in rows[:8])
-    log(f"{tag} step breakdown [{power}]: gpt2_124m kv_dtype={kv_dtype} "
-        f"B={B} len={n} "
+    log(f"{tag} step breakdown [{power}]: {what} "
         f"host_ms_per_step={host_ms:.6f} (readings "
         f"{', '.join(f'{h:.6f}' for h in host)}) "
         f"device_ms_per_step={dev_ms if rows else 'not measured'} "
@@ -806,6 +948,132 @@ def phase_host_costs(torch, power):
         + " ".join(f"{k}={v:.3f}" for k, v in costs.items())
         + " (M=8, K=N=768; quantize_kv of [8, 12, 64] rows, twice per "
           "layer per int8 step)")
+
+
+# ------------------------------------------------------- phase 3-contig
+
+def phase_contiguous_decode(torch, np, cfg, params, oracle, tag, int8):
+    """The contiguous-cache decode path as a user's own generate loop
+    drives it: `gpt_decode_fns`' prefill over 8 prompts of distinct
+    lengths padded to their capacity rung, then 32 greedy decode_steps.
+    Every token held to the full forward of `oracle` (teacher-forced,
+    within LOGIT_TOL of the max logit), the launch counts to
+    `expected_counts` (one prefill), and the caches written in place."""
+    from paddle_tpu_torch.inference.decode import kv_capacity_ladder
+    from paddle_tpu_torch.models.gpt import gpt_decode_fns
+
+    rng = np.random.default_rng(3)
+    lens = (7, 16, 100, 255, 300, 511, 700, 900)
+    steps = 32
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in lens]
+    cap = min(r for r in kv_capacity_ladder(cfg.max_seq_len)
+              if r >= max(lens) + steps)
+    toks = torch.zeros((len(lens), cap), dtype=torch.long)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = torch.tensor(p)
+    prefill, step = gpt_decode_fns(cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, k, v = prefill(params, toks.cuda(), torch.tensor(lens).cuda())
+    shape, ptrs = tuple(k.shape), (k.data_ptr(), v.data_ptr())
+    clen = torch.tensor(lens, device="cuda")
+    tok = logits.argmax(-1)
+    chosen = [tok]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        logits, k2, v2 = step(params, k, v, tok, clen)
+        if k2 is not k or v2 is not v:
+            raise RuntimeError(f"{tag}: decode_step returned new caches")
+        tok = logits.argmax(-1)
+        chosen.append(tok)
+        clen += 1
+    outs = torch.stack(chosen, 1).tolist()          # synchronises
+    t2 = time.perf_counter()
+    counts = kernel_counts()
+    if tuple(k.shape) != shape or (k.data_ptr(), v.data_ptr()) != ptrs:
+        raise RuntimeError(f"{tag}: caches moved: {tuple(k.shape)} vs "
+                           f"{shape}")
+    want = expected_counts(cfg, steps, 1, int8, contig=True)
+    if counts != want:
+        raise RuntimeError(f"{tag}: kernel launches {counts} != {want}")
+    if not torch.isfinite(logits).all():
+        raise RuntimeError(f"{tag}: non-finite logits")
+    gaps = [teacher_forced(torch, oracle, p, o)
+            for p, o in zip(prompts, outs)]
+    if max(gaps) > LOGIT_TOL:
+        raise RuntimeError(f"{tag}: teacher-forced check failed: gaps "
+                           f"{gaps} (gate {LOGIT_TOL})")
+    log(f"{tag} gpt_decode_fns gpt2_124m weights="
+        f"{'int8' if int8 else 'fp32'} kv=fp32 B={len(lens)} "
+        f"prompt_lens={list(lens)} cap={cap} steps={steps} "
+        f"tokens_per_stream={len(outs[0])} caches {list(shape)} written in "
+        f"place kernel_launches={counts} teacher_forced_max_gap="
+        f"{max(gaps):.3e} (gate {LOGIT_TOL}) prefill_s={t1 - t0:.6f} "
+        f"ms_per_step={(t2 - t1) / steps * 1e3:.6f} (host clock, greedy "
+        f"loop with argmax on the card)")
+    del k, v, k2, v2
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_port_gpt_step(torch, np):
+    """One decode_step of a port `GPT(gpt_tiny())` fed through
+    `framework.param_arrays`, against that layer's own full forward."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models.gpt import GPT, gpt_decode_fns, gpt_tiny
+
+    ptt.seed(0)
+    model = GPT(gpt_tiny())
+    model.eval()
+    params = framework.param_arrays(model)
+    prefill, step = gpt_decode_fns(model.cfg, eps=model.ln_f._epsilon)
+    rng = np.random.default_rng(4)
+    toks = [int(t) for t in rng.integers(0, model.cfg.vocab_size, 9)]
+    padded = torch.zeros((1, 32), dtype=torch.long, device="cuda")
+    padded[0, :9] = torch.tensor(toks)
+    logits, k, v = prefill(params, padded, torch.tensor([9], device="cuda"))
+    last = int(logits[0].argmax())
+    zero_counts()
+    logits, k, v = step(params, k, v, torch.tensor([last], device="cuda"),
+                        torch.tensor([9], device="cuda"))
+    counts = kernel_counts()
+    with torch.no_grad():
+        want = model(torch.tensor([toks + [last]], device="cuda"))[0, -1]
+    err = (logits[0] - want).abs().max().item()
+    if counts["decode_attention"] != model.cfg.layers or err > LOGIT_TOL:
+        raise RuntimeError(f"PHASE 3-contig port GPT: logits err {err} "
+                           f"(gate {LOGIT_TOL}), launches {counts}")
+    log(f"PHASE 3-contig port GPT(gpt_tiny()) through "
+        f"framework.param_arrays: one decode_step vs the layer's forward, "
+        f"max abs logit err {err:.3e} (gate {LOGIT_TOL}), decode_attention "
+        f"launches {counts['decode_attention']}")
+
+
+def phase_contiguous_step_profile(torch, np, cfg, params, power):
+    """Phase 3b's measurement on the contiguous path: the 12-layer
+    decode_step at B=8, every sequence 512 tokens long in a cache of the
+    1024 rung."""
+    from paddle_tpu_torch.models.gpt import gpt_decode_fns
+
+    B, cap, n = 8, 1024, 512
+    _, step = gpt_decode_fns(cfg)
+    shape = (cfg.layers, B, cap, cfg.heads, cfg.head_dim)
+    k = torch.zeros(shape, device="cuda")
+    v = torch.zeros(shape, device="cuda")
+    rng = np.random.default_rng(2)
+    ltok = torch.from_numpy(rng.integers(0, cfg.vocab_size, B))
+    clen = torch.full((B,), n, dtype=torch.long)
+
+    def one():
+        logits, _, _ = step(params, k, v, ltok, clen)
+        return logits.float().cpu()
+
+    step_breakdown(torch, one, power, "PHASE 3b-contig",
+                   f"gpt2_124m contiguous cache B={B} cap={cap} len={n}")
 
 
 # ------------------------------------------------------------ phase 4
@@ -2044,6 +2312,7 @@ def main():
     log(f"PHASE 2b setup: seed-0 weights + quantize_params "
         f"{time.perf_counter() - t0:.3f}s")
     records.append(phase_int8_matmul(torch, np, cfg, qarrays, arrays))
+    records.append(phase_decode_attention(torch, np))
 
     # phase 3: the fp32 path
     t0 = time.perf_counter()
@@ -2092,6 +2361,22 @@ def main():
     phase_step_profile(torch, np, cfg, eng8.params, power, "int8",
                        "PHASE 3b-int8")
     phase_host_costs(torch, power)
+
+    # phase 3-contig: the contiguous-cache decode path (gpt_decode_fns),
+    # fp32 weights, then int8 block weights (fp32 caches in both)
+    t0 = time.perf_counter()
+    oracle = GPTDecoder(cfg, device="cuda")
+    oracle.load_state_dict(params)
+    counts_c = phase_contiguous_decode(torch, np, cfg, params, oracle,
+                                       "PHASE 3-contig", int8=False)
+    records[3]["launches"] = counts_c["decode_attention"]
+    oracle.load_state_dict(deq)
+    phase_contiguous_decode(torch, np, cfg, eng8.params, oracle,
+                            "PHASE 3-contig-int8", int8=True)
+    del oracle
+    phase_port_gpt_step(torch, np)
+    phase_contiguous_step_profile(torch, np, cfg, params, power)
+    log(f"PHASE 3-contig took {time.perf_counter() - t0:.3f}s")
 
     phase_server(torch, np, cfg, arrays, prompts, outs, params, LOGIT_TOL,
                  "PHASE 4", int8=False)

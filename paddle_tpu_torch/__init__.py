@@ -4,8 +4,11 @@ The JAX package (`paddle_tpu`) is the reference; this package re-implements
 it on PyTorch for an NVIDIA Hopper GPU, one slice at a time. Module names
 follow the JAX package so each counterpart is easy to find:
 
-  * `models.gpt`            GPT configs; the paged decode forward; the
-                            training `GPT`; weights carried from JAX
+  * `models.gpt`            GPT configs; the contiguous and paged decode
+                            forwards; the training `GPT`; weights
+                            carried from JAX
+  * `framework`             `param_arrays` / `state_arrays`: a layer's
+                            tensors as the flat dicts the decode fns take
   * `memory.page_allocator` refcounted KV page bookkeeping + pool ops
   * `ops.kernels`           hand-written CUDA kernels and their plain
                             PyTorch versions (`decode_attention`,
@@ -25,13 +28,14 @@ carrying on on the CPU. This package imports neither `jax` nor
 `paddle_tpu`.
 """
 
-from . import amp, distributed, hapi, io, models, nn, optimizer, static
+from . import (amp, distributed, framework, hapi, io, models, nn, optimizer,
+               static)
 from .core.device import get_device, set_device
 from .core.flags import get_flags, set_flags
 from .core.random import seed
 
 __version__ = "0.1.0"
 
-__all__ = ["amp", "distributed", "hapi", "io", "models", "nn", "optimizer",
-           "static", "seed", "set_device", "get_device", "get_flags",
-           "set_flags"]
+__all__ = ["amp", "distributed", "framework", "hapi", "io", "models", "nn",
+           "optimizer", "static", "seed", "set_device", "get_device",
+           "get_flags", "set_flags"]

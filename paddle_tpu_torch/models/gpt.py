@@ -2,7 +2,8 @@
 training side.
 
 Port of paddle_tpu's `models/gpt.py`. Decode: the configs, the prefill
-forward, the paged decode step and the fused prefill-into-pages, with the
+forward, the contiguous-cache decode step (`gpt_decode_fns`), the paged
+decode step and the fused prefill-into-pages, with the
 same math and op order (pre-LN blocks, `_pp_ln`'s
 mean / centred variance / sqrt(var + eps), f32 scores, a -1e30 causal mask,
 exact gelu, tied LM head), so the same weights give the same logits.
@@ -33,9 +34,7 @@ every block matmul whose weight has that sibling through
 branch on it, and its attention goes through
 `paged_decode_attention_quant`.
 
-The JAX `gpt_decode_fns` also has a contiguous-cache `decode_step` (TPU
-kernel `_decode_attention_pallas`); the engine does not use it and it is
-not ported. MoE configs raise `NotImplementedError`, as in JAX.
+MoE configs raise `NotImplementedError`, as in JAX.
 """
 from __future__ import annotations
 
@@ -55,7 +54,8 @@ from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
 from ..ops import basic as ops
-from ..ops.kernels.decode_attention import (NEG_INF, paged_decode_attention,
+from ..ops.kernels.decode_attention import (NEG_INF, decode_attention,
+                                            paged_decode_attention,
                                             paged_decode_attention_quant)
 from ..ops.kernels.quant_matmul import int8_weight_matmul
 from ..quant.kv import dequantize_kv, quantize_kv
@@ -389,6 +389,37 @@ def _paged_attend(q, k_layer, v_layer, tables, lengths):
     return paged_decode_attention(q, k_layer, v_layer, tables, lengths)
 
 
+def _embed_step(params, cfg: GPTConfig, last_tok, cache_len):
+    """One decode step's fresh rows: (x [B, C], pos [B] long), the token
+    and position embeddings at positions cache_len, clamped to
+    max_seq_len - 1 as in JAX."""
+    wte = params["wte.weight"]
+    pos = cache_len.to(wte.device, torch.long).clamp(0, cfg.max_seq_len - 1)
+    x = wte[last_tok.to(wte.device, torch.long)] + params["wpe.weight"][pos]
+    return x, pos
+
+
+def _step_blocks(params, cfg: GPTConfig, eps: float, x, attend):
+    """Every block, the final LayerNorm and the tied head over one decode
+    step's fresh rows x [B, C] -> logits [B, V]. `attend(i, q, k_new,
+    v_new)` (each [B, heads, head_dim], q dense as the kernels take it)
+    writes layer i's new K/V row into the cache and returns the
+    attention output."""
+    embed, blocks, head = split_decode_params(params, cfg)
+    B = x.shape[0]
+    shape = (B, cfg.heads, cfg.head_dim)
+    for i, bp in enumerate(blocks):
+        h1 = _pp_ln(x, bp["ln1.weight"], bp["ln1.bias"], eps)
+        qkv = _qmm(bp, "attn.qkv.weight", h1) + bp["attn.qkv.bias"]
+        q, k_new, v_new = (t.reshape(shape)
+                           for t in qkv.split(cfg.hidden, dim=-1))
+        o = attend(i, q.contiguous(), k_new, v_new).reshape(B, -1)
+        x = x + _qmm(bp, "attn.proj.weight", o) + bp["attn.proj.bias"]
+        x = _ffn(bp, x, eps)
+    xf = _pp_ln(x, head["ln_f.weight"], head["ln_f.bias"], eps)
+    return xf @ embed["wte.weight"].T
+
+
 def _prefill_fn(cfg: GPTConfig, eps: float):
     """prefill(params, tokens [B,T], lens [B])
         -> (logits [B,V] at each row's position lens-1,
@@ -408,6 +439,44 @@ def _prefill_fn(cfg: GPTConfig, eps: float):
         return xl @ embed.T, k, v
 
     return prefill
+
+
+def gpt_decode_fns(cfg: GPTConfig, eps: float = 1e-5):
+    """`(prefill, decode_step)` over a contiguous KV cache.
+
+    prefill(params, tokens [B,T], lens [B])
+        -> (logits [B,V] at each row's position lens-1,
+            k, v [layers, B, T, heads, head_dim])
+    decode_step(params, k, v, last_tok [B] int, cache_len [B] int)
+        -> (logits [B,V], k, v)
+
+    The prefill's panel length T is the cache capacity `cap` of every
+    later step: a caller pads prompts to a rung of
+    `inference.decode.kv_capacity_ladder`. decode_step writes the new
+    token's K/V at row cache_len of each sequence, IN PLACE (JAX returns
+    updated arrays; here the same tensors come back), then attends rows
+    0..cache_len through `ops.kernels.decode_attention.decode_attention`
+    (the CUDA kernel on the GPU, the plain version on the CPU). As in JAX,
+    cache_len is clamped to max_seq_len - 1 first, and a row at or past
+    cap lands on row cap - 1, where XLA's dynamic_update_slice clamps its
+    start; the attention then counts every row live. MoE configs raise
+    (in `_prefill_fn`), as in JAX.
+    """
+    @torch.no_grad()
+    def decode_step(params, k_cache, v_cache, last_tok, cache_len):
+        x, pos = _embed_step(params, cfg, last_tok, cache_len)
+        rows = (torch.arange(pos.shape[0], device=pos.device),
+                pos.clamp(max=k_cache.shape[2] - 1))
+        lengths = (pos + 1).to(torch.int32)   # the row just written is live
+
+        def attend(i, q, k_new, v_new):
+            k_cache[i][rows] = k_new
+            v_cache[i][rows] = v_new
+            return decode_attention(q, k_cache[i], v_cache[i], lengths)
+
+        return _step_blocks(params, cfg, eps, x, attend), k_cache, v_cache
+
+    return _prefill_fn(cfg, eps), decode_step
 
 
 def gpt_paged_decode_fns(cfg: GPTConfig, eps: float = 1e-5,
@@ -432,41 +501,25 @@ def gpt_paged_decode_fns(cfg: GPTConfig, eps: float = 1e-5,
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             "gpt_paged_decode_fns: MoE blocks have no KV-decode path yet")
-    D = cfg.head_dim
-    nh = cfg.heads
     pt = int(page_tokens)
 
     @torch.no_grad()
     def paged_step(params, k_pool, v_pool, tables, last_tok, cache_len):
-        embed, blocks, head = split_decode_params(params, cfg)
-        dev = embed["wte.weight"].device
-        tables = tables.to(dev, torch.int32)
-        last_tok = last_tok.to(dev, torch.long)
-        B = last_tok.shape[0]
+        x, pos = _embed_step(params, cfg, last_tok, cache_len)
+        tables = tables.to(pos.device, torch.int32)
         W = tables.shape[1]
-        pos = cache_len.to(dev, torch.long).clamp(0, cfg.max_seq_len - 1)
-        x = embed["wte.weight"][last_tok] + embed["wpe.weight"][pos]
         page_idx = tables.gather(
             1, torch.clamp(pos // pt, max=W - 1)[:, None])[:, 0].long()
         offset = pos % pt
         lengths = (pos + 1).to(torch.int32)   # the row just written is live
-        for i, bp in enumerate(blocks):
-            h1 = _pp_ln(x, bp["ln1.weight"], bp["ln1.bias"], eps)
-            qkv = _qmm(bp, "attn.qkv.weight", h1) + bp["attn.qkv.bias"]
-            q, k_new, v_new = qkv.split(cfg.hidden, dim=-1)
-            q = q.reshape(B, nh, D).contiguous()   # the kernel wants dense q
-            _kv_pool_write(k_pool, i, page_idx, offset,
-                           k_new.reshape(B, nh, D))
-            _kv_pool_write(v_pool, i, page_idx, offset,
-                           v_new.reshape(B, nh, D))
-            o = _paged_attend(
-                q, _kv_pool_layer(k_pool, i), _kv_pool_layer(v_pool, i),
-                tables, lengths).reshape(B, -1)
-            x = x + _qmm(bp, "attn.proj.weight", o) + bp["attn.proj.bias"]
-            x = _ffn(bp, x, eps)
-        xf = _pp_ln(x, head["ln_f.weight"], head["ln_f.bias"], eps)
-        logits = xf @ embed["wte.weight"].T
-        return logits, k_pool, v_pool
+
+        def attend(i, q, k_new, v_new):
+            _kv_pool_write(k_pool, i, page_idx, offset, k_new)
+            _kv_pool_write(v_pool, i, page_idx, offset, v_new)
+            return _paged_attend(q, _kv_pool_layer(k_pool, i),
+                                 _kv_pool_layer(v_pool, i), tables, lengths)
+
+        return _step_blocks(params, cfg, eps, x, attend), k_pool, v_pool
 
     return _prefill_fn(cfg, eps), paged_step
 
@@ -647,6 +700,7 @@ class GPT(Layer):
 
 __all__ = ["GPTConfig", "gpt_tiny", "gpt2_124m", "gpt2_345m", "gpt3_1p3b",
            "GPTDecoder", "init_params_numpy", "params_from_numpy",
-           "param_shapes", "split_decode_params", "gpt_paged_decode_fns",
+           "param_shapes", "split_decode_params", "gpt_decode_fns",
+           "gpt_paged_decode_fns",
            "gpt_paged_prefill_fns", "GPT", "Block", "CausalSelfAttention",
            "masked_linear_ce"]

@@ -1,9 +1,20 @@
-"""Single-token (q_len == 1) paged decode attention.
+"""Single-token (q_len == 1) decode attention, over a contiguous cache
+or a paged one.
 
-Port of the paged half of paddle_tpu's `ops/pallas/decode_attention.py`.
-Every decode step of the engine attends one fresh query row per sequence
-against that sequence's cached K/V, which lives in a shared page pool
-addressed through a per-sequence block table:
+Port of paddle_tpu's `ops/pallas/decode_attention.py`. Every decode step
+attends one fresh query row per sequence against that sequence's cached
+K/V. `decode_attention` takes the cache as one contiguous panel per
+sequence (`gpt_decode_fns`' decode_step):
+
+    q        [B, H, D]          fresh query row per sequence (fp32)
+    k, v     [B, cap, H, D]     cache panels (rows >= length are garbage)
+    lengths  [B] int32          valid prefix per sequence; clamped to
+                                [0, cap], and 0 masks every row (the
+                                softmax is then uniform over all cap rows)
+    out      [B, H, D]
+
+`paged_decode_attention` takes it from a shared page pool addressed
+through a per-sequence block table (the engine's step):
 
     q        [B, H, D]          fresh query row per sequence (fp32)
     k_pool   [P, pt, H, D]      one layer's page pool (pt = page tokens)
@@ -14,12 +25,13 @@ addressed through a per-sequence block table:
     lengths  [B] int32          valid prefix per sequence, 1..W*pt
     out      [B, H, D]
 
-`paged_decode_attention` dispatches on the tensors' device: a CPU tensor
-takes the plain PyTorch version (`paged_decode_attention_reference`), a
-CUDA tensor launches the hand-written Hopper kernel
-(`csrc/paged_decode_attention.cu`) or raises. ``kernel="reference"``
+Each entry point dispatches on the tensors' device: a CPU tensor takes
+the plain PyTorch version (`decode_attention_reference`,
+`paged_decode_attention_reference`), a CUDA tensor launches the
+hand-written Hopper kernel (`csrc/decode_attention.cu`,
+`csrc/paged_decode_attention.cu`) or raises. ``kernel="reference"``
 forces the plain version (for tests and for holding the kernel against
-it on the card).
+it on the card); any other value raises.
 
 `paged_decode_attention_quant` is the same attention over an int8 pool
 (`quant/kv.py`: int8 codes ``[P, pt, H, D]`` plus one fp32 scale per
@@ -27,8 +39,9 @@ it on the card).
 kernel (`csrc/paged_decode_attention_int8.cu`), under the same dispatch
 rule.
 
-`launches` / `quant_launches` count kernel launches made by this module,
-so a run can show that its decode path went through the kernels.
+`contig_launches` / `launches` / `quant_launches` count kernel launches
+made by this module, so a run can show that its decode path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -42,13 +55,27 @@ from . import _build
 NEG_INF = -1e30       # the JAX package's mask constant (_common.py NEG_INF)
 MAX_HEAD_DIM = 128    # the kernel keeps up to 4 floats of a row per lane
 
+#: Kernel launches made by `decode_attention` in this process.
+contig_launches = 0
 #: Kernel launches made by `paged_decode_attention` in this process.
 launches = 0
 #: Kernel launches made by `paged_decode_attention_quant` in this process.
 quant_launches = 0
 
+_CFN = None
 _FN = None
 _QFN = None
+
+
+def _contig_kernel_fn():
+    global _CFN
+    if _CFN is None:
+        fn = _build.load("decode_attention").decode_attention_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _CFN = fn
+    return _CFN
 
 
 def _kernel_fn():
@@ -130,6 +157,12 @@ def _check_tensors(what, dev, specs):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def _check_head_dim(what, D):
+    if D > MAX_HEAD_DIM or D % 2:
+        raise ValueError(f"{what}: head_dim {D} must be even and <= "
+                         f"{MAX_HEAD_DIM}")
+
+
 def _check_shapes(what, q, k_pool, v_pool, tables, lengths):
     B, H, D = q.shape
     if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (H, D):
@@ -139,9 +172,26 @@ def _check_shapes(what, q, k_pool, v_pool, tables, lengths):
     if tables.shape[0] != B or lengths.shape[0] != B:
         raise ValueError(f"{what}: tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {B}")
-    if D > MAX_HEAD_DIM or D % 2:
-        raise ValueError(f"{what}: head_dim {D} must be even and <= "
-                         f"{MAX_HEAD_DIM}")
+    _check_head_dim(what, D)
+
+
+def _check_contig(q, k, v, lengths):
+    what = "decode_attention"
+    _check_tensors(what, q.device, (("q", q, torch.float32, 3),
+                                    ("k", k, torch.float32, 4),
+                                    ("v", v, torch.float32, 4),
+                                    ("lengths", lengths, torch.int32, 1)))
+    B, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
+        raise ValueError(f"{what}: caches {tuple(k.shape)}/"
+                         f"{tuple(v.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if lengths.shape[0] != B:
+        raise ValueError(f"{what}: lengths {tuple(lengths.shape)} do not "
+                         f"match batch {B}")
+    if k.shape[1] == 0:
+        raise ValueError(f"{what}: the cache has no rows (cap 0)")
+    _check_head_dim(what, D)
 
 
 def _check(q, k_pool, v_pool, tables, lengths):
@@ -170,29 +220,37 @@ def _check_quant(q, k_pool, k_scale, v_pool, v_scale, tables, lengths):
                          f"{tuple(k_pool.shape)}")
 
 
-def _run(fn, q, args, W, pt):
+def _run(fn, q, args, *dims):
     """Launch `fn` on q's stream over the pointers of `args`, the output,
-    and the shape ints. Returns (output, whether a kernel was launched):
-    an empty batch launches nothing."""
+    B, H, D and the kernel's further shape ints `dims`. Returns (output,
+    whether a kernel was launched): an empty batch launches nothing."""
     B, H, D = q.shape
     out = torch.empty_like(q)
-    if B == 0 or H == 0 or W == 0:
+    if B == 0 or H == 0 or 0 in dims:
         return out, False
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*(t.data_ptr() for t in args), out.data_ptr(),
-                B, H, D, pt, W, 1.0 / math.sqrt(D), stream)
+                B, H, D, *dims, 1.0 / math.sqrt(D), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: "
                            f"cudaError {rc}")
     return out, True
 
 
+def _launch_contig(q, k, v, lengths):
+    global contig_launches
+    _check_contig(q, k, v, lengths)
+    out, ran = _run(_contig_kernel_fn(), q, (q, k, v, lengths), k.shape[1])
+    contig_launches += int(ran)
+    return out
+
+
 def _launch(q, k_pool, v_pool, tables, lengths):
     global launches
     _check(q, k_pool, v_pool, tables, lengths)
     out, ran = _run(_kernel_fn(), q, (q, k_pool, v_pool, tables, lengths),
-                    tables.shape[1], k_pool.shape[1])
+                    k_pool.shape[1], tables.shape[1])
     launches += int(ran)
     return out
 
@@ -202,7 +260,7 @@ def _launch_quant(q, k_pool, k_scale, v_pool, v_scale, tables, lengths):
     _check_quant(q, k_pool, k_scale, v_pool, v_scale, tables, lengths)
     out, ran = _run(_quant_kernel_fn(), q,
                     (q, k_pool, k_scale, v_pool, v_scale, tables, lengths),
-                    tables.shape[1], k_pool.shape[1])
+                    k_pool.shape[1], tables.shape[1])
     quant_launches += int(ran)
     return out
 
@@ -217,6 +275,20 @@ def _dispatch(what, kernel, q, plain, launch):
     if q.device.type == "cuda":
         return launch()
     raise ValueError(f"{what}: no kernel for device {q.device}")
+
+
+def decode_attention(q, k, v, lengths, kernel=None):
+    """Decode attention over contiguous cache panels (see module docstring
+    for shapes).
+
+    CPU tensors -> the plain PyTorch version; CUDA tensors -> the Hopper
+    kernel, or an error. ``kernel="reference"`` forces the plain version
+    on any device. The JAX package's ``pallas`` / ``xla`` switch is not
+    carried over: any other `kernel` raises `ValueError`."""
+    args = (q, k, v, lengths)
+    return _dispatch("decode_attention", kernel, q,
+                     lambda: decode_attention_reference(*args),
+                     lambda: _launch_contig(*args))
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths, kernel=None):
