@@ -72,15 +72,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      SIGTERM and a clean drain; (4-int8) the same on the int8 artifact
      with --kv-dtype int8, held to the int8 engine and the int8 launch
      formulas;
-  5. flash attention forward (5) and backward (5b): the kernels against
-     their plain versions, fp32 with TF32 off at B=2, H=4, T=256, D=64
-     (causal and not; q/k/v as chunks of one qkv tensor and as separate
-     tensors), at ragged shapes and at the main path's B=16, H=12,
-     T=1024, D=64 causal, within the JAX contract (2e-5 forward, 5e-4
-     backward); bf16 at the main path's shapes and at T=2048, against the
-     plain version on the same bf16 tensors, the worst row's RMS error
-     within FLASH_BF16_ROW_REL of that row's RMS, a gate the plain version
-     with one 64-row tile left out must fail; then device times at the
+  5. flash attention forward (5) and backward (5b): first the count of
+     HMMA/HGMMA instructions in the SASS of each bf16 (tensor-core) flash
+     kernel (cuobjdump -sass on the built library; 0 fails), with each
+     kernel's registers and spills from the build's -Xptxas -v log; then
+     the kernels against their plain versions, fp32 (the SIMT kernels)
+     with TF32 off at B=2, H=4, T=256, D=64 (causal and not; q/k/v as
+     chunks of one qkv tensor and as separate tensors), at ragged shapes
+     (T=200, D=128 causal and not; T=70, D=16) and at the main path's
+     B=16, H=12, T=1024, D=64 causal, within the JAX contract (2e-5
+     forward, 5e-4 backward); bf16 (the tensor-core kernels) at the same
+     small and ragged shapes, at T=70, D=20 (zero-padded to 24 by the
+     wrapper), at the main path's shapes and at T=2048, against the plain
+     version on the same bf16 tensors, the worst row's RMS error within
+     FLASH_BF16_ROW_REL of that row's RMS, a gate the plain version with
+     one 64-row tile left out must fail; two runs of the bf16 kernels at
+     the main path's shape equal bit for bit; then device times at the
      main path's shapes (graph replay of the forward, the backward and
      each backward kernel alone; eager), the bound, the plain versions
      and PyTorch's flash attention forward (scaled_dot_product_attention)
@@ -113,7 +120,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      F.cross_entropy fp32), with their peak memory;
  8b. the flash kernels at the slice's attention shape, B=4, T=2048, H=16,
      D=128 causal: fp32 within the JAX contract, bf16 to phase 5's row
-     gate with its left-out tile, device times by graph replay;
+     gate with its left-out tile, device times by graph replay of the
+     forward, dq and dk/dv beside their bounds and plain versions, torch
+     sdpa's forward and aten._scaled_dot_product_flash_attention_backward;
   9. recompute on the card: a narrow GPT (hidden 128, 2 layers, V=512,
      T=512, fused head) in fp32 whose loss and every gradient with
      per-block recompute (dots_saveable, nothing_saveable) equal those
@@ -143,6 +152,7 @@ import json
 import math
 import os
 import queue
+import re
 import signal
 import socket
 import subprocess
@@ -1295,6 +1305,17 @@ def dropped_tile_errs(fa, inputs, plain, tile=64):
     return {"o": e_o, "dv": row_rel_err(dv_cut[:, keys], rdv[:, keys])}
 
 
+def flash_group(name):
+    """The flash wrapper whose kernel a profiled kernel name is (the fp32
+    SIMT or the bf16 tensor-core route), or None."""
+    for group, stem in (("flash_attention_fwd", "flash_fwd"),
+                        ("flash_attention_bwd_dq", "flash_bwd_dq"),
+                        ("flash_attention_bwd_dkv", "flash_bwd_dkv")):
+        if re.search(stem + r"(_mma)?_kernel", name):
+            return group
+    return None
+
+
 def profile_kernels(torch, fn, calls):
     """Device microseconds per call of `fn`, by kernel name
     (torch.profiler, device-side events only)."""
@@ -1318,12 +1339,92 @@ def profile_kernels(torch, fn, calls):
     return out
 
 
+# the bf16 (tensor-core) flash kernels, by library: phase 5 requires HMMA
+# or HGMMA instructions in the SASS of each instantiation (D <= 64, 128)
+FLASH_TC_KERNELS = {"flash_attention_fwd": ("flash_fwd_mma_kernel",),
+                    "flash_attention_bwd": ("flash_bwd_dq_mma_kernel",
+                                            "flash_bwd_dkv_mma_kernel")}
+
+
+def ptxas_by_kernel(text):
+    """{entry function: {registers, spill_stores, spill_loads, smem}} from
+    an nvcc ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_mma_counts(lib):
+    """{kernel function: count of HMMA and HGMMA instructions} in the SASS
+    of a built library (cuobjdump -sass, from the toolkit beside nvcc)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHG?MMA\.", ln):
+            counts[name] += 1
+    return counts
+
+
+def flash_tensor_cores(tag):
+    """Raises unless every bf16 flash kernel instantiation runs HMMA/HGMMA
+    instructions; logs each one's count, registers and spills (and the
+    fp32 kernels' counts beside them)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    libs = _build.build(sorted(FLASH_TC_KERNELS))
+    for lib, kernels in sorted(FLASH_TC_KERNELS.items()):
+        counts = sass_mma_counts(libs[lib])
+        logf = libs[lib].with_suffix(".log")
+        ptxas = ptxas_by_kernel(logf.read_text()) if logf.is_file() else {}
+        for fn, n in sorted(counts.items()):
+            tc = any(kn in fn for kn in kernels)
+            res = ptxas.get(fn, {})
+            log(f"{tag} SASS {lib} {fn}: {n} HMMA/HGMMA "
+                f"({'bf16 tensor-core route' if tc else 'fp32 SIMT route'})"
+                f"; registers {res.get('registers', '?')}, spill stores "
+                f"{res.get('spill_stores', '?')} B, spill loads "
+                f"{res.get('spill_loads', '?')} B, static smem "
+                f"{res.get('smem', '?')} B")
+        for kn in kernels:
+            found = [n for fn, n in counts.items() if kn in fn]
+            if len(found) != 2 or min(found) == 0:
+                raise RuntimeError(f"{lib}: {kn} instantiations with tensor-"
+                                   f"core instructions: {found} (want two, "
+                                   f"each > 0)")
+
+
 def phase_flash(torch, power):
-    """Phases 5 and 5b: the flash kernels against their plain versions
-    (fp32 with TF32 off at B=2, H=4, T=256, D=64, causal and not, at ragged
-    T and D, and at the main path's B=16, H=12, T=1024, D=64 causal; bf16
-    at the main path's shapes and at T=2048, where the TPU's backward took
-    two passes) and their device times at the main path's shapes beside
+    """Phases 5 and 5b: the bf16 kernels' tensor-core instructions, the
+    flash kernels against their plain versions (fp32 with TF32 off and
+    bf16 at B=2, H=4, T=256, D=64, causal and not, and at ragged T and D;
+    fp32 at the main path's B=16, H=12, T=1024, D=64 causal; bf16 at the
+    main path's shapes and at T=2048, where the TPU's backward took two
+    passes) and their device times at the main path's shapes beside
     the bound, the plain versions and PyTorch's attention. Returns the
     kernel records: forward, dq, dk/dv, and the two backward kernels as
     the TPU's fused backward (row 8 of PERF.md's table)."""
@@ -1331,12 +1432,21 @@ def phase_flash(torch, power):
     from paddle_tpu_torch.nn.functional.attention import _sdpa_composed
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    cases = [(f"fp32 causal={c} fused_qkv={f}", 2, 256, 4, 64, torch.float32,
-              c, f, 1) for c in (True, False) for f in (True, False)]
-    cases += [("fp32 ragged T=200 D=128 causal=True", 1, 200, 2, 128,
-               torch.float32, True, True, 2),
-              ("fp32 ragged T=70 D=16 causal=False", 1, 70, 2, 16,
-               torch.float32, False, True, 3),
+    flash_tensor_cores("PHASE 5")
+    # every small case in both types: fp32 takes the SIMT kernels, bf16
+    # the tensor-core ones (D=20 takes the wrapper's zero padding to 24)
+    cases = []
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cases += [(f"{name} causal={c} fused_qkv={f}", 2, 256, 4, 64, dtype,
+                   c, f, 1) for c in (True, False) for f in (True, False)]
+        cases += [(f"{name} ragged T=200 D=128 causal=True", 1, 200, 2, 128,
+                   dtype, True, True, 2),
+                  (f"{name} ragged T=200 D=128 causal=False", 1, 200, 2,
+                   128, dtype, False, True, 10),
+                  (f"{name} ragged T=70 D=16 causal=False", 1, 70, 2, 16,
+                   dtype, False, True, 3)]
+    cases += [("bf16 ragged T=70 D=20 causal=True, D padded to 24", 1, 70,
+               2, 20, torch.bfloat16, True, False, 9),
               ("fp32 main B=16 T=1024 H=12 D=64 causal", 16, 1024, 12, 64,
                torch.float32, True, True, 8),
               ("bf16 main B=16 T=1024 H=12 D=64 causal", 16, 1024, 12, 64,
@@ -1372,6 +1482,15 @@ def phase_flash(torch, power):
     q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, 6)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     o, lse = fa.flash_attention_forward(q, k, v, True)
+    # no atomics anywhere (the dq / dk-dv split): runs repeat bit for bit
+    again = fa.flash_attention_forward(q, k, v, True) \
+        + fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    first = (o, lse) + fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise RuntimeError("flash bf16: two runs of the kernels differ")
+    log(f"PHASE 5 flash bf16 B={B} T={T} H={H} D={D} causal: two runs of the "
+        f"forward and the backward equal bit for bit")
+    del again, first
     t = timings(
         torch, lambda _: fa.flash_attention_forward(q, k, v, True),
         lambda _: fa.flash_attention_forward(q, k, v, True,
@@ -1716,12 +1835,8 @@ def phase_train(torch, np, power, records):
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
               "flash_attention_bwd_dkv": 0.0, "gemm": 0.0, "other": 0.0}
     for name, (us, _) in prof.items():
-        if "flash_fwd_kernel" in name:
-            groups["flash_attention_fwd"] += us
-        elif "flash_bwd_dq_kernel" in name:
-            groups["flash_attention_bwd_dq"] += us
-        elif "flash_bwd_dkv_kernel" in name:
-            groups["flash_attention_bwd_dkv"] += us
+        if flash_group(name):
+            groups[flash_group(name)] += us
         elif any(w in name.lower() for w in ("gemm", "xmma", "cutlass",
                                               "nvjet")):
             groups["gemm"] += us
@@ -1982,7 +2097,8 @@ def phase_flash_1p3b(torch, power):
     """Phase 8b: the flash kernels at the slice's attention shape, B=4,
     T=2048, H=16, D=128 causal: fp32 (TF32 off) within the JAX contract,
     bf16 to phase 5's row gate (with its left-out tile), and device times
-    by graph replay. Returns the times."""
+    by graph replay beside the bounds, the plain versions and the library
+    calls. Returns the times."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -2020,22 +2136,48 @@ def phase_flash_1p3b(torch, power):
              q, k, v, do, lse, delta, True), 5),
          "fwd_plain": graph_ms(torch, lambda _: fa.flash_attention_forward(
              q, k, v, True, kernel="reference"), 1),
+         "dq_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+             q, k, v, o, do, lse, True, kernel="reference"), 1),
+         "dkv_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+             q, k, v, do, lse, delta, True, kernel="reference"), 1),
          "sdpa": graph_ms(torch, lambda _: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=True), 10)}
+    # the library backward, as phase 5b times it at GPT-2's shape
+    aten = torch.ops.aten
+    qc, kc, vc, doc = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_out = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0, True)
+    lib_args = (doc, qc, kc, vc) + tuple(lib_out[:6]) + (0.0, True) \
+        + tuple(lib_out[6:8])
+    t["bwd_library"] = graph_ms(torch, lambda _: (
+        aten._scaled_dot_product_flash_attention_backward(*lib_args)), 5)
+    del qc, kc, vc, doc, lib_out, lib_args
     pairs = B * H * flash_pairs(T, True)
     elems = B * T * H * D
-    fwd_bound = max(4 * 2 * elems / HBM_BYTES_PER_S,
-                    4 * D * pairs / BF16_FLOPS_PER_S) * 1e3
-    bwd_bound = max(8 * 2 * elems / HBM_BYTES_PER_S,
-                    10 * D * pairs / BF16_FLOPS_PER_S) * 1e3
+    rows = 4 * B * H * T                 # one fp32 value per (b, h, t)
+
+    def bound(nbytes, flops):
+        return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+
+    fwd_bound = bound(4 * 2 * elems + rows, 4 * D * pairs)
+    # dq: q, k, v, O, dO, lse in, dq and delta out; S, dP, dS.K
+    dq_bound = bound(6 * 2 * elems + 2 * rows, 6 * D * pairs)
+    # dk/dv: q, k, v, dO, lse, delta in, dk and dv out; S, dP, dV, dK
+    dkv_bound = bound(6 * 2 * elems + 2 * rows, 8 * D * pairs)
+    bwd_bound = bound(8 * 2 * elems + rows, 10 * D * pairs)
+    t.update(fwd_bound=fwd_bound, dq_bound=dq_bound, dkv_bound=dkv_bound,
+             bwd_bound=bwd_bound)
     log(f"PHASE 8b flash [{power}] B={B} T={T} H={H} D={D} bf16 causal "
         f"(graph replay): fwd {t['fwd']:.6f} ms (bound {fwd_bound:.6f}, "
         f"{t['fwd'] / fwd_bound:.2f}x; plain {t['fwd_plain']:.6f}, torch "
-        f"sdpa {t['sdpa']:.6f}); dq {t['dq']:.6f} + dkv {t['dkv']:.6f} = "
-        f"{t['dq'] + t['dkv']:.6f} ms (bound {bwd_bound:.6f}, "
-        f"{(t['dq'] + t['dkv']) / bwd_bound:.2f}x); per 1.3B step (24 "
-        f"layers, forward twice under recompute) "
-        f"{48 * t['fwd'] + 24 * (t['dq'] + t['dkv']):.3f} ms")
+        f"sdpa {t['sdpa']:.6f}); dq {t['dq']:.6f} (bound {dq_bound:.6f}, "
+        f"plain {t['dq_plain']:.6f}) + dkv {t['dkv']:.6f} (bound "
+        f"{dkv_bound:.6f}, plain {t['dkv_plain']:.6f}) = "
+        f"{t['dq'] + t['dkv']:.6f} ms (bound {bwd_bound:.6f}, 10 D flops "
+        f"per pair, {(t['dq'] + t['dkv']) / bwd_bound:.2f}x; plain "
+        f"{t['dq_plain'] + t['dkv_plain']:.6f}; library "
+        f"{t['bwd_library']:.6f}, aten._scaled_dot_product_flash_attention_"
+        f"backward); per 1.3B step (24 layers, forward twice under "
+        f"recompute) {48 * t['fwd'] + 24 * (t['dq'] + t['dkv']):.3f} ms")
     del q, k, v, do, o, lse, delta, qt, kt, vt
     torch.cuda.empty_cache()
     return t
@@ -2212,12 +2354,8 @@ def phase_slice(torch, np, power, ce_records):
               "fused_linear_ce_bwd_dx": 0.0, "fused_linear_ce_bwd_dw": 0.0,
               "gemm": 0.0, "other": 0.0}
     for name, (us, _) in prof.items():
-        if "flash_fwd_kernel" in name:
-            groups["flash_attention_fwd"] += us
-        elif "flash_bwd_dq_kernel" in name:
-            groups["flash_attention_bwd_dq"] += us
-        elif "flash_bwd_dkv_kernel" in name:
-            groups["flash_attention_bwd_dkv"] += us
+        if flash_group(name):
+            groups[flash_group(name)] += us
         elif "lce_fwd_kernel" in name:
             groups["fused_linear_ce_fwd"] += us
         elif "lce_bwd_kernel" in name:

@@ -59,6 +59,7 @@ _MAX_TENSORS = 256          # a request claiming more is malformed
 _MAX_NDIM = 32
 _MAX_CTX_BYTES = 1 << 16    # trace-context JSON cap
 _SEND_COPY_MAX = 1 << 16    # payloads above this go out via memoryview
+_JOIN_TIMEOUT_S = 30.0      # stop(): how long each server thread may take
 
 
 def _recv_exact(sock, n):
@@ -284,6 +285,7 @@ class InferenceServer:
         self._draining = threading.Event()
         self._conn_inflight = 0      # requests read and not yet answered
         self._conn_lock = threading.Lock()
+        self._conns = {}             # connection thread -> its socket
         self._thread = threading.Thread(target=self._accept_loop,
                                         daemon=True)
         self._thread.start()
@@ -298,8 +300,14 @@ class InferenceServer:
                 conn, _ = self._srv.accept()
             except OSError:
                 break
-            threading.Thread(target=self._serve_conn, args=(conn,),
-                             daemon=True).start()
+            t = threading.Thread(target=self._serve_conn, args=(conn,),
+                                 daemon=True)
+            with self._conn_lock:
+                if self._stop.is_set():     # stop() has taken the list
+                    conn.close()
+                    break
+                self._conns[t] = conn
+            t.start()
 
     def _serve_decode(self, conn, inputs, ctx):
         """One decode request on an open connection: per-token PDI2
@@ -412,6 +420,8 @@ class InferenceServer:
                     return
         finally:
             conn.close()
+            with self._conn_lock:
+                self._conns.pop(threading.current_thread(), None)
 
     @property
     def inflight_requests(self) -> int:
@@ -443,13 +453,35 @@ class InferenceServer:
         return drained
 
     def stop(self):
+        """Stop serving and join every thread the server started: the
+        accept loop, the engine's scheduler (open streams get typed
+        errors) and each connection thread (its socket shut down first, so
+        a blocked read returns). A daemon thread left inside torch when the
+        interpreter exits aborts the process ("terminate called without an
+        active exception"), so a thread still alive after its join raises."""
         self._stop.set()
-        self._engine.stop()
         try:
             self._srv.shutdown(socket.SHUT_RDWR)
         except OSError:
             pass
         self._srv.close()
+        self._thread.join(_JOIN_TIMEOUT_S)
+        self._engine.stop()
+        with self._conn_lock:
+            conns = list(self._conns.items())
+        for _, conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        for t, _ in conns:
+            t.join(_JOIN_TIMEOUT_S)
+        alive = [t.name for t in
+                 (self._thread, self._engine._thread, *(t for t, _ in conns))
+                 if t.is_alive()]
+        if alive:
+            raise RuntimeError(f"server threads still running after "
+                               f"{_JOIN_TIMEOUT_S} s: {alive}")
 
     def __enter__(self):
         return self

@@ -1,6 +1,7 @@
-// Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): tile sizes, operand rounding, shared-memory tile
-// loads and the two small matrix products every kernel is built from.
+// Shared pieces of the fp32 (SIMT) flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): tile sizes, shared-
+// memory tile loads and the two small matrix products they are built from.
+// The bf16 kernels run on the tensor cores (flash_attention_mma.cuh).
 //
 // Layout. A CTA of kThreads = 256 threads works on 64 x 64 score tiles.
 // Thread t is (ty, tx) = (t / 16, t % 16); the 16 threads of one ty are
@@ -9,16 +10,14 @@
 // (i, j < 4). In an output tile ([64 rows, DP columns]) it owns the same
 // rows and the columns tx * 4 + 64 jj + c (c < 4, jj < DP / 64).
 //
-// Every tile lives in shared memory as fp32, whatever the input type:
-// operands are rounded to the input type first (bf16 inputs give exactly
-// the bf16 operands the TPU kernel feeds its matrix unit) and products
-// accumulate in fp32. A row of a [64, DP] tile is DP + 4 floats apart, so
-// the float4 loads of 8 threads that read 8 different rows fall on 8
-// different groups of 4 banks.
+// Every tile lives in shared memory as fp32 and products accumulate in
+// fp32 FMAs: exact fp32 arithmetic, the JAX package's fp32 contract. A row
+// of a [64, DP] tile is DP + 4 floats apart, so the float4 loads of 8
+// threads that read 8 different rows fall on 8 different groups of 4
+// banks.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -28,30 +27,6 @@ constexpr int kThreads = 256;
 constexpr int kLP = kTile + 4;      // row stride of a [64, 64] score tile
 constexpr float kNegInf = -1e30f;   // the JAX package's mask constant
 constexpr unsigned kFull = 0xffffffffu;
-
-template <typename E>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  // round to the nearest bf16 (ties to even), as jnp.astype does
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);
-  }
-};
 
 // Sum (or max) over the 16 threads of a half warp that share one tile row.
 __device__ __forceinline__ float row_sum(float x) {
@@ -68,11 +43,11 @@ __device__ __forceinline__ float row_max(float x) {
   return x;
 }
 
-// dst[r, c] = round(src[(row0 + r) * stride + c] * mul) for the rows below
-// n and the columns below D; zero elsewhere (the ragged tail of the
-// sequence and the padding columns D..DP-1).
-template <typename E, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const E* src,
+// dst[r, c] = src[(row0 + r) * stride + c] * mul for the rows below n and
+// the columns below D; zero elsewhere (the ragged tail of the sequence and
+// the padding columns D..DP-1).
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long stride, int row0, int n,
                                           int D, float mul) {
   constexpr int LD = DP + 4;
@@ -81,7 +56,7 @@ __device__ __forceinline__ void load_tile(float* dst, const E* src,
     const int c = e % DP;
     const int t = row0 + r;
     float x = 0.f;
-    if (t < n && c < D) x = Elem<E>::round(Elem<E>::load(src[t * stride + c]) * mul);
+    if (t < n && c < D) x = src[t * stride + c] * mul;
     dst[r * LD + c] = x;
   }
 }
@@ -162,9 +137,10 @@ __device__ __forceinline__ void mm_nn_acc(const float* P, const float* V,
 }
 
 // Write rows row0 + ty + 16 i (below n) of acc * mul to a contiguous
-// [B, n, H, D] output at (b, h), in the output type.
-template <typename E, int DP>
-__device__ __forceinline__ void store_rows(E* out, const float (&acc)[4][DP / 16],
+// [B, n, H, D] output at (b, h).
+template <int DP>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[4][DP / 16],
                                            int b, int h, int H, int n, int D,
                                            int row0, float mul, int ty,
                                            int tx) {
@@ -173,13 +149,13 @@ __device__ __forceinline__ void store_rows(E* out, const float (&acc)[4][DP / 16
   for (int i = 0; i < 4; ++i) {
     const int t = row0 + ty + 16 * i;
     if (t >= n) continue;
-    E* row = out + ((static_cast<long long>(b) * n + t) * H + h) * D;
+    float* row = out + ((static_cast<long long>(b) * n + t) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = tx * 4 + 64 * jj + c;
-        if (col < D) row[col] = Elem<E>::store(acc[i][4 * jj + c] * mul);
+        if (col < D) row[col] = acc[i][4 * jj + c] * mul;
       }
     }
   }

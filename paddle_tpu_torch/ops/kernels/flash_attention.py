@@ -27,6 +27,15 @@ hand-written Hopper kernels or raises:
     `flash_attention_bwd_dkv`, which replace `_bwd_dq_kernel`,
     `_bwd_dkv_kernel` and the fused `_bwd_dkv_kernel(emit_dq=True)`.
 
+Each file has two routes, chosen by the operand type, which is the
+arithmetic contract and not a fallback: fp32 runs fp32 FMAs on the CUDA
+cores (exact fp32 products, the JAX package's 2e-5 / 5e-4 contract, which
+TF32 tensor cores would break); bf16 runs every product on the tensor
+cores (bf16 operands, fp32 accumulators: the contract above). The bf16
+route copies 16-byte chunks, so `_tc_layout` hands it D % 8 == 0 (zero
+columns padded on and cut off again: exact, and the scale stays the real
+D's) and 16-byte aligned rows (misaligned operands are copied).
+
 ``kernel="reference"`` forces the plain versions on any device (tests, and
 holding the kernels against them on the card). The kernels read q, k, v in
 place through their strides (the q/k/v chunks of a fused qkv projection
@@ -165,6 +174,43 @@ def _check(q, k, v):
     return q, k, v
 
 
+def _aligned(t):
+    """Rows of `t` are whole 16-byte chunks at 16-byte aligned addresses
+    (strides in elements, bf16 = 2 bytes)."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in t.stride()[:-1])
+
+
+def _pad_d(t, width):
+    """`t` [..., D] with zero columns up to `width`."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _tc_layout(q, k, v, like_q=()):
+    """The bf16 route's operands: q, k, v (sharing strides) and the
+    contiguous `like_q` tensors with D zero-padded to a multiple of 8 and
+    16-byte aligned rows, copying only what is misaligned. Zero columns
+    add nothing to the scores and their output columns are cut off, so
+    with the real D's scale the result is the same function."""
+    width = -(-q.shape[-1] // 8) * 8
+    q, k, v = (_pad_d(t, width) for t in (q, k, v))
+    if not all(_aligned(t) for t in (q, k, v)):
+        q, k, v = (t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    like_q = [_pad_d(t, width) for t in like_q]
+    like_q = [t if t.is_contiguous() and _aligned(t)
+              else t.clone(memory_format=torch.contiguous_format)
+              for t in like_q]
+    return q, k, v, like_q
+
+
+def _cut_d(t, D):
+    """A kernel output back to the caller's head width."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -172,11 +218,14 @@ def _stream(t):
 def _launch_fwd(q, k, v, causal, scale):
     global fwd_launches
     q, k, v = _check(q, k, v)
+    d_in = q.shape[-1]
+    if q.dtype == torch.bfloat16:
+        q, k, v, _ = _tc_layout(q, k, v)
     B, T, H, D = q.shape
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
-        return o, lse
+        return _cut_d(o, d_in), lse
     fn = _kernel_fn("flash_attention_fwd", "flash_attention_fwd", 5)
     sb, st, sh, _ = q.stride()
     with torch.cuda.device(q.device):
@@ -187,16 +236,17 @@ def _launch_fwd(q, k, v, causal, scale):
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
                            f"cudaError {rc}")
     fwd_launches += 1
-    return o, lse
+    return _cut_d(o, d_in), lse
 
 
 def _bwd_operands(q, k, v, like_q, per_row):
     """The backward kernels' contract on top of `_check`: the tensors of
     `like_q` (dO, O) contiguous [B, T, H, D] in q's dtype, those of
-    `per_row` (lse, delta) contiguous [B*H, T] fp32. Returns (q, k, v,
-    like_q, per_row, the kernels' shape arguments)."""
+    `per_row` (lse, delta) contiguous [B*H, T] fp32; bf16 operands laid
+    out by `_tc_layout`. Returns (q, k, v, like_q, per_row, the kernels'
+    shape arguments)."""
     q, k, v = _check(q, k, v)
-    B, T, H, D = q.shape
+    B, T, H, _ = q.shape
     like_q = [t.to(q.dtype).contiguous() for t in like_q]
     per_row = [t.float().contiguous() for t in per_row]
     for t, want in [(t, q.shape) for t in like_q] \
@@ -206,17 +256,20 @@ def _bwd_operands(q, k, v, like_q, per_row):
                              f"{tuple(t.shape)} on {t.device}, want "
                              f"{tuple(want)} on {q.device} for q "
                              f"{tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        q, k, v, like_q = _tc_layout(q, k, v, like_q)
     sb, st, sh, _ = q.stride()
-    return q, k, v, like_q, per_row, (B, T, H, D, sb, st, sh)
+    return q, k, v, like_q, per_row, (B, T, H, q.shape[-1], sb, st, sh)
 
 
 def _launch_bwd_dq(q, k, v, o, do, lse, causal, scale):
     global dq_launches
+    d_in = q.shape[-1]
     q, k, v, (o, do), (lse,), shape = _bwd_operands(q, k, v, (o, do), (lse,))
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty_like(lse)
     if dq.numel() == 0:
-        return dq, delta
+        return _cut_d(dq, d_in), delta
     fn = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dq", 8)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -227,17 +280,18 @@ def _launch_bwd_dq(q, k, v, o, do, lse, causal, scale):
         raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: "
                            f"cudaError {rc}")
     dq_launches += 1
-    return dq, delta
+    return _cut_d(dq, d_in), delta
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     global bwd_launches
+    d_in = q.shape[-1]
     q, k, v, (do,), (lse, delta), shape = _bwd_operands(q, k, v, (do,),
                                                         (lse, delta))
     dk = torch.empty_like(q, memory_format=torch.contiguous_format)
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
-        return dk, dv
+        return _cut_d(dk, d_in), _cut_d(dv, d_in)
     fn = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dkv", 8)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -248,7 +302,7 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
         raise RuntimeError(f"flash_attention_bwd_dkv kernel launch failed: "
                            f"cudaError {rc}")
     bwd_launches += 1
-    return dk, dv
+    return _cut_d(dk, d_in), _cut_d(dv, d_in)
 
 
 # ---------------------------------------------------------------- entries

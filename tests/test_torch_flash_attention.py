@@ -29,6 +29,10 @@ from paddle_tpu_torch.ops.kernels import flash_attention as tfa  # noqa: E402
 
 FWD_TOL = 2e-5
 BWD_TOL = 5e-4
+# bf16: the worst row's RMS error within 2^-6 of that row's RMS, the gate
+# chip_smoke.py holds the bf16 kernels to (FLASH_BF16_ROW_REL)
+BF16_ROW_REL = 2.0 ** -6
+LOG2E = 1.4426950408889634
 
 
 @pytest.fixture(autouse=True)
@@ -156,6 +160,140 @@ def test_kernel_contract_checks():
     *_, (lse,), shape = tfa._bwd_operands(q, k, v, (q,),
                                           (torch.zeros(4, 8).double(),))
     assert lse.dtype == torch.float32 and shape[:4] == (2, 8, 2, 16)
+
+    # the bf16 route: D padded with zeros to a multiple of 8 (q, k, v and
+    # the contiguous operands), aligned chunks of a fused qkv kept in place,
+    # a misaligned operand copied to an aligned one
+    qkv = torch.zeros(2, 8, 3 * 2 * 13, dtype=torch.bfloat16)
+    q, k, v = (c.reshape(2, 8, 2, 13) for c in qkv.chunk(3, dim=-1))
+    pq, pk, pv, (po,) = tfa._tc_layout(q, k, v, [q.contiguous()])
+    assert all(t.shape == (2, 8, 2, 16) and tfa._aligned(t)
+               for t in (pq, pk, pv, po))
+    assert torch.equal(pq[..., :13], q) and not pq[..., 13:].any()
+    *_, shape = tfa._bwd_operands(q, k, v, (q,), (torch.zeros(4, 8),))
+    assert shape[3] == 16 and shape[4:] == pq.stride()[:3]
+    qkv = torch.zeros(2, 8, 3 * 32, dtype=torch.bfloat16)
+    q, k, v = (c.reshape(2, 8, 2, 16) for c in qkv.chunk(3, dim=-1))
+    cq, ck, cv, _ = tfa._tc_layout(q, k, v)
+    assert cq.data_ptr() == q.data_ptr() and not cq.is_contiguous()
+    buf = torch.zeros(2 * 8 * 2 * 16 + 1, dtype=torch.bfloat16)
+    odd = buf[1:].view(2, 8, 2, 16)             # 2 bytes off alignment
+    assert not tfa._aligned(odd)
+    cq, ck, cv, (co,) = tfa._tc_layout(odd, odd, odd, [odd])
+    assert all(tfa._aligned(t) and t.is_contiguous() and torch.equal(t, odd)
+               for t in (cq, ck, cv, co))
+    # fp32 keeps its layout: the SIMT kernels take any D
+    f = torch.zeros(1, 8, 1, 13)
+    assert tfa._check(f, f, f)[0].shape[-1] == 13
+    # what neither route takes still raises
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa._check(odd.half(), odd.half(), odd.half())
+    wide = torch.zeros(1, 8, 1, 136, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._check(wide, wide, wide)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_zero_padded_head_is_the_same_function(causal):
+    """The bf16 route's zero padding is exact: the plain version on the
+    padded operands, with the real D's scale, cut back to D, equals the
+    plain version on the originals (forward, lse and every gradient)."""
+    q, k, v, do = (torch.tensor(a).bfloat16()
+                   for a in _qkv_do(11 + causal, 2, 70, 2, 13))
+    scale = 1.0 / math.sqrt(13)
+    o, lse = tfa.flash_attention_forward(q, k, v, causal, scale,
+                                         kernel="reference")
+    grads = tfa.flash_attention_backward(q, k, v, o, lse, do, causal, scale,
+                                         kernel="reference")
+    pq, pk, pv, (po, pdo) = tfa._tc_layout(q, k, v, [o, do])
+    assert pq.shape[-1] == 16
+    po2, plse = tfa.flash_attention_forward(pq, pk, pv, causal, scale,
+                                            kernel="reference")
+    pgrads = tfa.flash_attention_backward(pq, pk, pv, po, lse, pdo, causal,
+                                          scale, kernel="reference")
+    # zero columns add exact zeros; only fp32 summation order may differ,
+    # which can move a bf16 output by one rounding step
+    for got, want in zip((po2, *pgrads), (o, *grads)):
+        assert not got[..., 13:].float().any()
+        torch.testing.assert_close(tfa._cut_d(got, 13), want, rtol=2 ** -7,
+                                   atol=2 ** -7 * want.float().abs().max())
+    torch.testing.assert_close(plse, lse, rtol=1e-6, atol=1e-6)
+
+
+def _row_rel_err(got, want):
+    """chip_smoke.py's bf16 gate: the worst row's RMS error over that
+    row's RMS (rows below 2^-10 of the tensor's RMS use that floor)."""
+    err = (got.float() - want.float()).pow(2).mean(-1)
+    ref = want.float().pow(2).mean(-1)
+    ref = ref.clamp_min(ref.mean().item() * 2.0 ** -20)
+    return (err / ref).max().sqrt().item()
+
+
+def _tc_emulation(q, k, v, do, causal, scale, tile=64, skip=None):
+    """The bf16 tensor-core kernels' arithmetic in PyTorch: the forward's
+    online softmax over `tile`-key tiles with P = exp2(s log2(e) - m
+    log2(e)) rounded to bf16 against the running max, and the backward's
+    P = exp2(s log2(e) - lse log2(e)); products of bf16 operands summed in
+    fp32. `skip` leaves one key tile out of the forward."""
+    bf = torch.bfloat16
+    B, T, H, D = q.shape
+    qs = (q.float() * scale).to(bf).float().transpose(1, 2)
+    kf, vf, dof = (t.float().transpose(1, 2) for t in (k, v, do))
+    rows = torch.arange(T)[:, None]
+    m = torch.full((B, H, T), -1e30)
+    l = torch.zeros(B, H, T)
+    acc = torch.zeros(B, H, T, D)
+    for k0 in range(0, T, tile):
+        if k0 == skip:
+            continue
+        s = qs @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + s.shape[-1]) > rows,
+                              -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        p = torch.exp2(s * LOG2E - (m_new * LOG2E)[..., None])
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + p.to(bf).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    o = (acc / lc[..., None]).to(bf)
+    lse = m + torch.log(lc)
+    s = qs @ kf.transpose(-1, -2)
+    p = torch.exp2(s * LOG2E - (lse * LOG2E)[..., None])
+    if causal:
+        p = p.masked_fill(torch.arange(T) > rows, 0.0)
+    delta = (dof * o.float()).sum(-1)
+    ds = (p * (dof @ vf.transpose(-1, -2) - delta[..., None])).to(bf).float()
+    dq = (ds @ kf) * scale
+    dk = ds.transpose(-1, -2) @ qs
+    dv = p.to(bf).float().transpose(-1, -2) @ dof
+    out = [o.transpose(1, 2), lse.reshape(B * H, T)]
+    return out + [g.transpose(1, 2).to(bf) for g in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("T", [1024, 2048])
+def test_tensor_core_softmax_emulation_within_the_bf16_row_gate(T):
+    """Where the tensor-core kernels round P (64-key tiles, exp2 with
+    log2(e) folded in), emulated in PyTorch on bf16 inputs, keeps the worst
+    row of O, dq, dk and dv within 2^-6 of the plain version's row RMS
+    (lse within the fp32 2e-5), while the same emulation with one key
+    tile left out fails that gate."""
+    q, k, v, do = (torch.tensor(a).bfloat16()
+                   for a in _qkv_do(T, 1, T, 2, 64))
+    scale = 1.0 / math.sqrt(64)
+    o, lse = tfa.flash_attention_forward(q, k, v, True, scale,
+                                         kernel="reference")
+    want = [o, lse, *tfa.flash_attention_backward(
+        q, k, v, o, lse, do, True, scale, kernel="reference")]
+    got = _tc_emulation(q, k, v, do, True, scale)
+    assert (got[1] - lse).abs().max().item() <= FWD_TOL
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got[:1] + got[2:],
+                          want[:1] + want[2:]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert _row_rel_err(a, b) <= BF16_ROW_REL, name
+    cut = _tc_emulation(q, k, v, do, True, scale, skip=0)[0]
+    assert _row_rel_err(cut, o) > BF16_ROW_REL
 
 
 @pytest.mark.parametrize("T", [64, 128])

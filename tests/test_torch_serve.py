@@ -13,6 +13,8 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -86,6 +88,60 @@ def test_jax_client_gets_the_engines_tokens(artifact, monkeypatch):
             assert arrays is None and err.startswith("INVALID_ARGUMENT")
     finally:
         assert srv.drain(timeout=30)
+
+
+def test_drain_joins_every_server_thread(artifact, monkeypatch):
+    """After drain() no thread the server started is left: not the accept
+    loop, not the scheduler, not a connection thread blocked reading an
+    idle keep-alive socket or a socket that never sent a frame. (A daemon
+    thread left running at interpreter exit could abort the daemon.)"""
+    monkeypatch.setenv("PADDLE_TPU_DECODE_PAGE_TOKENS", "4")
+    before = set(threading.enumerate())
+    srv = tserve.InferenceServer(artifact, port=0, decode=True,
+                                 decode_slots=1, decode_max_new=2,
+                                 device="cpu")
+    served, idle = _connect(srv.port), _connect(srv.port)
+    try:
+        assert len(tserve.decode_request(
+            served, np.asarray([1, 2, 3], np.int32), trace=False)) == 2
+        deadline = time.monotonic() + 30
+        while len(srv._conns) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(srv._conns) == 2
+        assert srv.drain(timeout=30)
+        assert srv._conns == {}
+        left = [t for t in threading.enumerate()
+                if t not in before and t.is_alive()]
+        assert left == [], left
+    finally:
+        served.close()
+        idle.close()
+        srv.stop()
+
+
+def test_stop_raises_on_a_thread_that_outlives_its_join(artifact,
+                                                        monkeypatch):
+    """A connection thread still running after its join makes stop() raise
+    and name it, so a thread left to abort the interpreter's exit is seen."""
+    monkeypatch.setattr(tserve, "_JOIN_TIMEOUT_S", 0.05)
+    srv = tserve.InferenceServer(artifact, port=0, decode=True,
+                                 decode_slots=1, decode_max_new=2,
+                                 device="cpu")
+    release = threading.Event()
+    stuck = threading.Thread(target=release.wait, name="stuck-conn",
+                             daemon=True)
+    a, b = socket.socketpair()
+    stuck.start()
+    srv._conns[stuck] = a
+    try:
+        with pytest.raises(RuntimeError, match="stuck-conn"):
+            srv.stop()
+    finally:
+        release.set()
+        stuck.join(30)
+        a.close()
+        b.close()
+    srv.stop()          # nothing left running: quiet
 
 
 def test_wire_frames_are_byte_identical():
