@@ -107,15 +107,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      the loss falling on one repeated batch; ms per step (bench.py's
      marginal estimate and CUDA events), tokens/s, MFU against 989
      TFLOP/s, peak memory, and one step's device time by kernel;
-  8. the fused linear-CE kernels (forward, dx, dW) against their plain
-     versions at the slice's LM head, N=8192, H=2048, V=50304: fp32 with
-     TF32 off within the JAX contract (rtol/atol 1e-4 for loss, lse and
-     lab; rtol 2e-3, atol 1e-5 for dx and dW), bf16 against the plain
-     version on the same bf16 tensors by the worst row's RMS error
-     (CE_BF16_ROW_REL), a gate the plain version with one 32-wide tile
-     left out must fail, and a ragged N=200, H=96, V=700 in both; device
-     times by graph replay beside the bound and the plain versions, and
-     the head's forward + backward as the fused kernels, the unfused head
+  8. the fused linear-CE kernels (forward, dx, dW): first the HGMMA count
+     in the SASS of the bf16 backward kernels (wgmma; 0 fails, as does
+     any HMMA or HGMMA in the fp32 SIMT ones), with registers and spills;
+     then the kernels against their plain versions at the LM head, N=8192,
+     H=2048, V=50304: fp32 with TF32 off within the JAX contract
+     (rtol/atol 1e-4 for loss, lse and lab; rtol 2e-3, atol 1e-5 for dx
+     and dW), bf16 against the plain version on the same bf16 tensors by
+     the worst row's RMS error (CE_BF16_ROW_REL), a gate the plain version
+     with one 64-wide tile left out must fail, a ragged N=200, H=96, V=700
+     in both and a full-width ragged N=1000, H=2048, V=4100 in bf16; two
+     bf16 dx and dW calls equal bit for bit; device times by graph replay
+     beside the bound, the plain versions and one cuBLAS bf16 product of
+     the same shape (a yardstick: each backward kernel does two), and the
+     head's forward + backward as the fused kernels, the unfused head
      (`fused_head_ce=None`) and the library composition (F.linear bf16 +
      F.cross_entropy fp32), with their peak memory;
  8b. the flash kernels at the slice's attention shape, B=4, T=2048, H=16,
@@ -1339,11 +1344,14 @@ def profile_kernels(torch, fn, calls):
     return out
 
 
-# the bf16 (tensor-core) flash kernels, by library: phase 5 requires HMMA
-# or HGMMA instructions in the SASS of each instantiation (D <= 64, 128)
+# the bf16 (tensor-core) kernels, by library: phases 5 and 8 require HMMA
+# or HGMMA instructions in the SASS of each instantiation (flash: D <= 64,
+# 128; the CE backward: dx, dW) and none in the library's other (fp32,
+# SIMT) kernels
 FLASH_TC_KERNELS = {"flash_attention_fwd": ("flash_fwd_mma_kernel",),
                     "flash_attention_bwd": ("flash_bwd_dq_mma_kernel",
                                             "flash_bwd_dkv_mma_kernel")}
+CE_TC_KERNELS = {"fused_linear_ce_bwd": ("lce_bwd_mma_kernel",)}
 
 
 def ptxas_by_kernel(text):
@@ -1391,13 +1399,14 @@ def sass_mma_counts(lib):
     return counts
 
 
-def flash_tensor_cores(tag):
-    """Raises unless every bf16 flash kernel instantiation runs HMMA/HGMMA
-    instructions; logs each one's count, registers and spills (and the
-    fp32 kernels' counts beside them)."""
+def tensor_cores(tc_kernels, tag):
+    """Raises unless every bf16 kernel instantiation of `tc_kernels`
+    ({library: kernel stems}) runs HMMA/HGMMA instructions and the
+    libraries' other (fp32, SIMT) kernels run none; logs each one's count,
+    registers and spills."""
     from paddle_tpu_torch.ops.kernels import _build
-    libs = _build.build(sorted(FLASH_TC_KERNELS))
-    for lib, kernels in sorted(FLASH_TC_KERNELS.items()):
+    libs = _build.build(sorted(tc_kernels))
+    for lib, kernels in sorted(tc_kernels.items()):
         counts = sass_mma_counts(libs[lib])
         logf = libs[lib].with_suffix(".log")
         ptxas = ptxas_by_kernel(logf.read_text()) if logf.is_file() else {}
@@ -1410,6 +1419,9 @@ def flash_tensor_cores(tag):
                 f"{res.get('spill_stores', '?')} B, spill loads "
                 f"{res.get('spill_loads', '?')} B, static smem "
                 f"{res.get('smem', '?')} B")
+            if not tc and n:
+                raise RuntimeError(f"{lib}: fp32 kernel {fn} runs {n} "
+                                   f"tensor-core instructions")
         for kn in kernels:
             found = [n for fn, n in counts.items() if kn in fn]
             if len(found) != 2 or min(found) == 0:
@@ -1432,7 +1444,7 @@ def phase_flash(torch, power):
     from paddle_tpu_torch.nn.functional.attention import _sdpa_composed
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    flash_tensor_cores("PHASE 5")
+    tensor_cores(FLASH_TC_KERNELS, "PHASE 5")
     # every small case in both types: fp32 takes the SIMT kernels, bf16
     # the tensor-core ones (D=20 takes the wrapper's zero padding to 24)
     cases = []
@@ -1878,7 +1890,8 @@ def phase_train(torch, np, power, records):
 CE_N, CE_H, CE_V = 8192, 2048, 50304
 CE_LOSS_TOL = (1e-4, 1e-4)   # rtol, atol: tests/test_pallas_kernels.py:199
 CE_GRAD_TOL = (2e-3, 1e-5)   # rtol, atol: tests/test_pallas_kernels.py:206
-CE_TILE = 32                 # the kernels' streamed tile (rows of W or x)
+CE_TILE = 64                 # the bf16 kernels' streamed tile (rows of W
+                             # or x) and resident rows per CTA
 # bf16 kernels against the plain version run on the same bf16 tensors,
 # which rounds dlg and the outputs to bf16 where the kernels do. What is
 # left between them: fp32 summation order (~1e-6 relative) in the logits
@@ -1887,7 +1900,7 @@ CE_TILE = 32                 # the kernels' streamed tile (rows of W or x)
 # The gate is per row (each [H] row of dx and of dW): the RMS of the error
 # over the RMS of the plain row, at most 2^-6, twice what a row has when
 # every element of it is one ulp off, as phase 5's gate for attention.
-# Leaving out one 32-wide vocab tile (dx) or one 32-row tile of x (dW)
+# Leaving out one 64-wide vocab tile (dx) or one 64-row tile of x (dW)
 # from the plain version must fail it: phase 8 measures that. lse, lab and
 # the loss are fp32 from the same operands and keep the fp32 contract.
 CE_BF16_ROW_REL = 2.0 ** -6
@@ -1950,9 +1963,9 @@ def check_ce(torch, fce, N, H, V, dtype, tag, seed):
 
 def ce_dropped_tile_errs(torch, fce, inputs, plain):
     """How far the bf16 gate reaches: `row_rel_err` of the plain dx with
-    the 32-wide vocab tile that holds row 0's label left out, and of the
-    plain dW with the first 32 rows of x left out, against the whole plain
-    versions."""
+    the CE_TILE-wide vocab tile that holds row 0's label left out, and of
+    the plain dW with the first CE_TILE rows of x left out, against the
+    whole plain versions."""
     x, w, lab, gg, lse = inputs
     rdx, rdw = plain
     v0 = int(lab[0]) // CE_TILE * CE_TILE
@@ -1968,21 +1981,26 @@ def ce_dropped_tile_errs(torch, fce, inputs, plain):
 
 
 def phase_fused_ce(torch, power):
-    """Phase 8: the fused linear-CE kernels against their plain versions
-    (fp32 with TF32 off and bf16 at the slice's N=8192, H=2048, V=50304;
-    a ragged N=200, H=96, V=700 in both), the bf16 gate's reach, and
-    device times by graph replay beside the bound, the plain versions,
-    the unfused head and the nearest library composition. Returns the
-    three kernel records."""
+    """Phase 8: the bf16 backward kernels' tensor-core instructions, the
+    fused linear-CE kernels against their plain versions (fp32 with TF32
+    off and bf16 at the slice's N=8192, H=2048, V=50304; a ragged N=200,
+    H=96, V=700 in both; bf16 at a full-width ragged N=1000, H=2048,
+    V=4100), the bf16 gate's reach, two bf16 backward calls equal bit for
+    bit, and device times by graph replay beside the bound, the plain
+    versions, one cuBLAS product of the same shape, the unfused head and
+    the nearest library composition. Returns the three kernel records."""
     import torch.nn.functional as F
     from paddle_tpu_torch.nn.functional.loss import _LinearCrossEntropy
     from paddle_tpu_torch.ops.kernels import fused_ce as fce
 
+    tensor_cores(CE_TC_KERNELS, "PHASE 8")
     N, H, V = CE_N, CE_H, CE_V
     cases = [("fp32 ragged N=200 H=96 V=700", 200, 96, 700, torch.float32,
               21),
              ("bf16 ragged N=200 H=96 V=700", 200, 96, 700, torch.bfloat16,
               22),
+             ("bf16 full-width ragged N=1000 H=2048 V=4100", 1000, 2048,
+              4100, torch.bfloat16, 26),
              (f"fp32 main N={N} H={H} V={V}", N, H, V, torch.float32, 23),
              (f"bf16 main N={N} H={H} V={V}", N, H, V, torch.bfloat16, 24)]
     errs = {}
@@ -2023,6 +2041,18 @@ def phase_fused_ce(torch, power):
         t[name] = graph_ms(torch, lambda _: kern(None), 3)
         t[name + "_plain"] = graph_ms(torch, lambda _: kern("reference"), 1)
         t[name + "_eager"] = cuda_ms(torch, lambda _: kern(None), 2, warm=1)
+    same = {name: torch.equal(f(x, w, lab, lse, gg), f(x, w, lab, lse, gg))
+            for name, f in (("dx", fce.fused_ce_bwd_dx),
+                            ("dw", fce.fused_ce_bwd_dw))}
+    if not all(same.values()):
+        raise RuntimeError(f"fused CE bf16 backward not deterministic: "
+                           f"bit-equal over two calls {same}")
+    log(f"PHASE 8 fused CE bf16 backward, two calls at N={N} H={H} V={V}: "
+        f"bit-equal {same}")
+    # eagerly on the current stream: a graph's side and capture streams
+    # would each keep a cuBLAS workspace that phase 10's peak would count
+    wt = w.t()
+    t["cublas"] = cuda_ms(torch, lambda _: torch.matmul(x, wt), 5, warm=2)
     xl = x.detach().requires_grad_(True)
     wl = w.detach().requires_grad_(True)
 
@@ -2077,6 +2107,10 @@ def phase_fused_ce(torch, power):
             f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
             f"kernel_over_bound={rec['ms'] / rec['bound_ms']:.2f}x "
             f"achieved_tflops={(2 if name != 'fwd' else 1) * prod / rec['ms'] / 1e9:.3f}")
+    log(f"PHASE 8 yardstick [{power}]: one cuBLAS bf16 product of the same "
+        f"shape, torch.matmul [{N}, {H}] x [{H}, {V}] (fp32 sums, bf16 out; "
+        f"dx and dW each do two such products): {t['cublas']:.6f} ms, "
+        f"{prod / t['cublas'] / 1e9:.3f} TFLOP/s (CUDA events, eager)")
     log(f"PHASE 8 LM head forward + backward [{power}] N={N} H={H} V={V} "
         f"bf16 (graph replay; peak bytes above the inputs): fused kernels "
         f"{heads['fused'][0]:.6f} ms {heads['fused'][1]} B; unfused "
@@ -2086,7 +2120,7 @@ def phase_fused_ce(torch, power):
         f"{heads['library'][1]} B (its loss vs the kernels' {lib_err:.3e}); "
         f"fused over unfused {heads['fused'][0] / heads['unfused'][0]:.2f}x, "
         f"over library {heads['fused'][0] / heads['library'][0]:.2f}x")
-    del x, w, lab, gg, lse, xl, wl, lib_rows, ker_rows
+    del x, w, wt, lab, gg, lse, xl, wl, lib_rows, ker_rows
     torch.cuda.empty_cache()
     return recs, heads
 
@@ -2358,7 +2392,7 @@ def phase_slice(torch, np, power, ce_records):
             groups[flash_group(name)] += us
         elif "lce_fwd_kernel" in name:
             groups["fused_linear_ce_fwd"] += us
-        elif "lce_bwd_kernel" in name:
+        elif re.search(r"lce_bwd(_mma)?_kernel", name):
             groups["fused_linear_ce_bwd_dw" if "true" in name
                    else "fused_linear_ce_bwd_dx"] += us
         elif any(w in name.lower() for w in ("gemm", "xmma", "cutlass",

@@ -1,13 +1,15 @@
-// Shared pieces of the fused linear + cross-entropy kernels
-// (fused_linear_ce_fwd.cu, fused_linear_ce_bwd.cu): the CTA shape, operand
-// loads, and the tile of logits every kernel is built from.
+// Shared pieces of the SIMT fused linear + cross-entropy kernels (the
+// forward in fused_linear_ce_fwd.cu, for both types, and the fp32
+// backward in fused_linear_ce_bwd.cu): the CTA shape, operand loads, and
+// the tile of logits every kernel is built from. The bf16 backward runs
+// on the tensor cores (fused_linear_ce_bwd.cu `lce_bwd_mma_kernel`).
 //
 // Every kernel has one "resident" operand, R rows of [*, H] held in shared
 // memory for the whole CTA, and one "streamed" operand, swept in tiles of
 // kStream = 32 rows read from global memory (L2). The forward and dx
 // kernels keep R rows of x and stream W; the dW kernel keeps R rows of W
 // and streams x. R = 16 for bf16 operands and 8 for fp32 ones, so that the
-// dx/dW kernels' fp32 accumulator [R, H] and the resident rows fit one
+// fp32 dx/dW kernels' accumulator [R, H] and the resident rows fit one
 // CTA's 227 KB at H = 2048.
 //
 // The logits tile [kStream, R] = streamed . resident^T over K = H: warp w
@@ -43,29 +45,6 @@ struct Rows<__nv_bfloat16> {
 template <>
 struct Rows<float> {
   static constexpr int R = 8;
-};
-
-// Rounding to the operand type (dlg before its product, as the TPU kernel
-// casts to its matrix-unit type) and the final store.
-template <typename E>
-struct Elem;
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float load(float x) { return x; }
-};
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
 };
 
 // Eight consecutive elements of one row, as loaded (16 bytes of bf16 or 32
@@ -142,31 +121,12 @@ __device__ __forceinline__ void load_chunk(Raw8<E>& v, const E* base, int row,
   }
 }
 
-// Elements [c, c + 4) of a valid row, widened to fp32; zeros past H.
+// Elements [c, c + 4) of a valid fp32 row; zeros past H.
 __device__ __forceinline__ float4 load4(const float* p, int c, int H,
                                         bool vec) {
   if (vec) return __ldg(reinterpret_cast<const float4*>(p + c));
   return make_float4(c < H ? p[c] : 0.f, c + 1 < H ? p[c + 1] : 0.f,
                      c + 2 < H ? p[c + 2] : 0.f, c + 3 < H ? p[c + 3] : 0.f);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int c, int H,
-                                        bool vec) {
-  if (vec) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p + c));
-    return make_float4(__uint_as_float(u.x << 16),
-                       __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xffff0000u));
-  }
-  const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
-  float f[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    f[e] = c + e < H ? __uint_as_float(static_cast<unsigned>(s[c + e]) << 16)
-                     : 0.f;
-  }
-  return make_float4(f[0], f[1], f[2], f[3]);
 }
 
 // Rows row0 .. row0 + R - 1 of src [count, H] into shared memory as [R, Hp]

@@ -26,13 +26,17 @@ hand-written Hopper kernel or raises:
   * `csrc/fused_linear_ce_fwd.cu` (`fused_ce_forward`) — replaces
     `_fwd_kernel`;
   * `csrc/fused_linear_ce_bwd.cu` (`fused_ce_bwd_dx`, `fused_ce_bwd_dw`) —
-    replace `_bwd_dx_kernel` and `_bwd_dw_kernel`.
+    replace `_bwd_dx_kernel` and `_bwd_dw_kernel`: bf16 on the tensor
+    cores (a cluster of CTAs splits H), fp32 on the CUDA cores.
 
 ``kernel="reference"`` forces the plain versions on any device (tests, and
 holding the kernels against them on the card). The kernels take any N and
-V, and any H up to `max_hidden(dtype)` (their shared-memory limit; above
-it they raise). `fwd_launches`, `dx_launches` and `dw_launches` count the
-kernel launches made by this module.
+V, and any H up to `max_hidden(dtype)` (above it they raise). The bf16
+backward takes H in whole 16-byte chunks at 16-byte aligned addresses:
+the wrapper zero-pads H to a multiple of 8 (exact: zero columns add
+nothing to the logits, and the gradient's extra columns are cut off) and
+copies a misaligned operand. `fwd_launches`, `dx_launches` and
+`dw_launches` count the kernel launches made by this module.
 """
 from __future__ import annotations
 
@@ -51,23 +55,34 @@ dx_launches = 0
 #: dW kernel launches.
 dw_launches = 0
 
-# the kernels' shape (csrc/fused_linear_ce_common.cuh): resident rows per
-# CTA by operand type, streamed rows per tile, shared memory per CTA
+# the SIMT kernels' shape (csrc/fused_linear_ce_common.cuh; the forward in
+# both types, the fp32 backward): resident rows per CTA by operand type,
+# streamed rows per tile, shared memory per CTA
 _RESIDENT_ROWS = {torch.bfloat16: 16, torch.float32: 8}
 _STREAM_ROWS = 32
 _SMEM_LIMIT = 232448
+# the bf16 backward (csrc/fused_linear_ce_bwd.cu `lce_bwd_mma_kernel`): H
+# columns per CTA of a cluster, CTAs per cluster at most
+_TC_SLICE = 512
+_TC_MAX_CLUSTER = 8
 
 _FNS = {}
 
 
 def max_hidden(dtype) -> int:
-    """The largest H the backward kernels take for operands of `dtype`:
-    R resident rows and their fp32 [R, H] accumulator in one CTA's shared
-    memory (2400 for bf16, 3616 for fp32)."""
+    """The largest H all three kernels take for operands of `dtype`: the
+    forward's R resident rows in one CTA's shared memory; the fp32
+    backward's R rows and their fp32 [R, H] accumulator there; the bf16
+    backward's cluster of at most 8 CTAs of 512 columns (4096 for bf16,
+    3616 for fp32)."""
     r = _RESIDENT_ROWS[dtype]
-    esize = 2 if dtype == torch.bfloat16 else 4
-    hp = (_SMEM_LIMIT - 4 * _STREAM_ROWS * r) // (r * (esize + 4))
-    return hp // 8 * 8
+    esize = dtype.itemsize
+    fwd = (_SMEM_LIMIT - 4 * _STREAM_ROWS * (r + 1)) // (r * esize)
+    if dtype == torch.bfloat16:
+        bwd = _TC_SLICE * _TC_MAX_CLUSTER
+    else:
+        bwd = (_SMEM_LIMIT - 4 * _STREAM_ROWS * r) // (r * (esize + 4))
+    return min(fwd, bwd) // 8 * 8
 
 
 def _kernel_fn(lib, name, n_ptr):
@@ -175,26 +190,39 @@ def _launch_fwd(x, w, labels):
     return lse, lab
 
 
+def _tc_operands(x, w):
+    """The bf16 backward's operands: x and w with H zero-padded to a
+    multiple of 8 and 16-byte aligned bases, copying only what needs it."""
+    H = x.shape[1]
+    width = -(-H // 8) * 8
+    if width != H:
+        x, w = (torch.nn.functional.pad(t, (0, width - H)) for t in (x, w))
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+
+
 def _launch_bwd(which, x, w, labels, lse, g):
     global dx_launches, dw_launches
     x, w, labels, (lse, g) = _check(x, w, labels, (lse, g))
     N, H = x.shape
+    if N == 0 or w.shape[0] == 0 or H == 0:
+        return torch.zeros_like(x if which == "dx" else w)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, w = _tc_operands(x, w)
     out = torch.empty_like(x if which == "dx" else w)
-    if out.numel() == 0 or N == 0:
-        return out.zero_()
     name = f"fused_linear_ce_bwd_{which}"
     fn = _kernel_fn("fused_linear_ce_bwd", name, 6)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                g.data_ptr(), out.data_ptr(), N, w.shape[0], H,
-                int(x.dtype == torch.bfloat16), _stream(x))
+                g.data_ptr(), out.data_ptr(), N, w.shape[0], x.shape[1],
+                int(bf16), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     if which == "dx":
         dx_launches += 1
     else:
         dw_launches += 1
-    return out
+    return out if out.shape[1] == H else out[:, :H].contiguous()
 
 
 # ---------------------------------------------------------------- entries

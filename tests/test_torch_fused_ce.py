@@ -4,9 +4,11 @@ against the JAX package's Pallas kernels (`ops/pallas/fused_ce.py`) run in
 interpret mode with `_pallas_ok` forced on, as tests/test_pallas_kernels.py
 runs them, at the JAX tests' tolerances (rtol 1e-4 / atol 1e-4 for loss,
 lse and lab; rtol 2e-3 / atol 1e-5 for dx and dW); ragged shapes against
-a float64 numpy reference; and `linear_cross_entropy`'s routing (fused=
+a float64 numpy reference; `linear_cross_entropy`'s routing (fused=
 True / None / False, the V >= 65536 rule, the CPU, a device with no
-kernel)."""
+kernel); and the bf16 tensor-core backward's arithmetic (rank-ordered
+partial logits, exp2, 64-row tiles) emulated in PyTorch within the bf16
+row gate, with its zero-padded H and copied misaligned operands."""
 import numpy as np
 import pytest
 
@@ -23,6 +25,9 @@ from paddle_tpu_torch.ops.kernels import fused_ce as tce      # noqa: E402
 
 LOSS_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_pallas_kernels.py:199
 GRAD_TOL = dict(rtol=2e-3, atol=1e-5)     # tests/test_pallas_kernels.py:206
+# chip_smoke.py holds the bf16 backward kernels to (CE_BF16_ROW_REL)
+BF16_ROW_REL = 2.0 ** -6
+LOG2E = 1.4426950408889634
 
 
 def _inputs(N, H, V, seed):
@@ -197,7 +202,7 @@ def test_wrappers_check_the_kernel_contract():
                                     lab.int(), (torch.zeros(4).double(),))
     assert xc.is_contiguous() and lc.dtype == torch.long \
         and lse.dtype == torch.float32
-    assert tce.max_hidden(torch.bfloat16) == 2400
+    assert tce.max_hidden(torch.bfloat16) == 4096
     assert tce.max_hidden(torch.float32) == 3616
     with pytest.raises(ValueError, match="kernel="):
         tce.fused_ce_forward(x, w, lab, kernel="cuda")
@@ -215,3 +220,113 @@ def test_missing_nvcc_raises_on_launch(monkeypatch):
         tce._kernel_fn("fused_linear_ce_fwd", "fused_linear_ce_fwd", 5)
     assert "fused_linear_ce_fwd" in _build.sources()
     assert "fused_linear_ce_bwd" in _build.sources()
+
+
+# --------------------------------------- the bf16 tensor-core backward
+
+def _row_rel_err(got, want):
+    """chip_smoke.py's bf16 gate: the worst row's RMS error over that
+    row's RMS (rows below 2^-10 of the tensor's RMS use that floor)."""
+    err = (got.float() - want.float()).pow(2).mean(-1)
+    ref = want.float().pow(2).mean(-1)
+    ref = ref.clamp_min(ref.mean().item() * 2.0 ** -20)
+    return (err / ref).max().sqrt().item()
+
+
+def _tc_emulation(x, w, lab, lse, g, which, tile=64, skip=None):
+    """The bf16 backward kernels' arithmetic (csrc/fused_linear_ce_bwd.cu
+    `lce_bwd_mma_kernel`) in PyTorch: per tile of `tile` streamed rows (W
+    for dx, x for dW), each cluster rank's partial logits over its 512
+    columns of H as two 256-column halves summed (half 0 + half 1), the
+    ranks' partials summed in rank order, p = exp2((logit - lse) log2 e),
+    dlg = (p - onehot) g in fp32 rounded to bf16, and acc += dlg . tile in
+    fp32, tile after tile. `skip` leaves the tile at that row out."""
+    xf, wf = x.float(), w.float()
+    H = x.shape[1]
+    res, streamed = (wf, xf) if which == "dw" else (xf, wf)
+    acc = torch.zeros(res.shape[0], H)
+    for s0 in range(0, streamed.shape[0], tile):
+        if s0 == skip:
+            continue
+        st = streamed[s0:s0 + tile]
+        logits = 0.0
+        for c0 in range(0, H, 512):
+            lo, hi = (slice(a, a + 256) for a in (c0, c0 + 256))
+            logits = logits + (res[:, lo] @ st[:, lo].t()
+                               + res[:, hi] @ st[:, hi].t())
+        cols = torch.arange(s0, s0 + st.shape[0])
+        if which == "dx":           # rows: x rows; columns: vocab
+            hot = (cols[None, :] == lab[:, None]).float()
+            p = torch.exp2((logits - lse[:, None]) * LOG2E)
+            d = (p - hot) * g[:, None]
+        else:                       # rows: vocab; columns: x rows
+            rows = torch.arange(res.shape[0])
+            hot = (rows[:, None] == lab[None, s0:s0 + tile]).float()
+            p = torch.exp2((logits - lse[None, s0:s0 + tile]) * LOG2E)
+            d = (p - hot) * g[None, s0:s0 + tile]
+        acc += d.to(torch.bfloat16).float() @ st
+    return acc.to(torch.bfloat16)
+
+
+def _bf16_head(N, H, V, seed):
+    """chip_smoke.py's inputs: x ~ N(0, 1), W ~ N(0, 0.02), g ~ N(0, 1),
+    in bf16, with the plain forward's lse."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((N, H)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((V, H)) * 0.02, dtype=torch.float32)
+    lab = torch.tensor(rng.integers(0, V, N))
+    g = torch.tensor(rng.standard_normal(N), dtype=torch.float32)
+    x, w = x.bfloat16(), w.bfloat16()
+    lse, _ = tce.fused_ce_fwd_reference(x, w, lab)
+    return x, w, lab, lse, g
+
+
+@pytest.mark.parametrize("which", ["dx", "dw"])
+def test_tensor_core_backward_emulation_within_the_bf16_row_gate(which):
+    """At the slice's width (H = 2048: four ranks of 512 columns), the
+    tensor-core kernels' order of sums and exp2, emulated on bf16 inputs,
+    keeps the worst row of dx and dW within 2^-6 of the plain version's row
+    RMS, while the same emulation with one 64-row tile left out fails it."""
+    x, w, lab, lse, g = _bf16_head(256, 2048, 4096, seed=5)
+    ref = (tce.fused_ce_bwd_dx_reference if which == "dx"
+           else tce.fused_ce_bwd_dw_reference)(x, w, lab, lse, g)
+    got = _tc_emulation(x, w, lab, lse, g, which)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert _row_rel_err(got, ref) <= BF16_ROW_REL
+    skip = int(lab[0]) // 64 * 64 if which == "dx" else 0
+    cut = _tc_emulation(x, w, lab, lse, g, which, skip=skip)
+    assert _row_rel_err(cut, ref) > BF16_ROW_REL
+
+
+def test_tensor_core_operands_pad_h_and_copy_misaligned():
+    """The bf16 backward's operands: H zero-padded to a multiple of 8,
+    aligned operands kept in place, a misaligned one copied."""
+    x, w = torch.randn(5, 13).bfloat16(), torch.randn(7, 13).bfloat16()
+    px, pw = tce._tc_operands(x, w)
+    assert px.shape == (5, 16) and pw.shape == (7, 16)
+    assert torch.equal(px[:, :13], x) and not px[:, 13:].any()
+    assert torch.equal(pw[:, :13], w) and not pw[:, 13:].any()
+    x, w = torch.randn(5, 16).bfloat16(), torch.randn(7, 16).bfloat16()
+    kx, kw = tce._tc_operands(x, w)
+    assert kx.data_ptr() == x.data_ptr() and kw.data_ptr() == w.data_ptr()
+    buf = torch.zeros(5 * 16 + 1, dtype=torch.bfloat16)
+    odd = buf[1:].view(5, 16)                   # 2 bytes off alignment
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    kx, kw = tce._tc_operands(odd, w)
+    assert kx.data_ptr() % 16 == 0 and torch.equal(kx, odd)
+    assert kw.data_ptr() == w.data_ptr()
+
+
+@pytest.mark.parametrize("which", ["dx", "dw"])
+def test_zero_padded_hidden_is_the_same_function(which):
+    """The bf16 route's zero padding of H is exact: the plain backward on
+    the padded operands, cut back to H, equals it on the originals."""
+    x, w, lab, lse, g = _bf16_head(40, 13, 90, seed=9)
+    fn = (tce.fused_ce_bwd_dx_reference if which == "dx"
+          else tce.fused_ce_bwd_dw_reference)
+    px, pw = tce._tc_operands(x, w)
+    plse, _ = tce.fused_ce_fwd_reference(px, pw, lab)
+    assert torch.equal(plse, lse)
+    got = fn(px, pw, lab, lse, g)
+    assert not got[:, 13:].any()
+    assert torch.equal(got[:, :13], fn(x, w, lab, lse, g))
