@@ -20,10 +20,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      quantize_kv at phase 2's shapes (<= 1e-4 against its plain version,
      <= 0.05 against the fp32 attention of the unquantized pools; plus
      head dims 16 and 128; library = gather + dequantize + sdpa), and,
-     after ragged shapes, the int8-weight matmul over one
-     decode step's 48 block matmuls of the seed-0 GPT-2 weights quantized
-     by quantize_params, at M=8 and M=512 (<= 1e-4 against its plain
-     version; library = torch.matmul on the fp32 weights);
+     after the HMMA count in the SASS of the int8 matmul's M > 8 kernel
+     (tensor cores on an exact three-piece bf16 split of x; 0 fails, as
+     does any in the M <= 8 GEMV) and ragged shapes, the int8-weight
+     matmul over one decode step's 48 block matmuls of the seed-0 GPT-2
+     weights quantized by quantize_params, at M=8 and M=512 (<= 1e-4
+     against its plain version; library = torch.matmul on the fp32
+     weights; at M=512 the bound of the three-product route beside the
+     fp32 one); then one paged_prefill of a 512-token prompt on int8
+     weights and pages beside the fp32 one, in device ms by kernel (the
+     int8 path's time to first token on the card);
  2c. the contiguous-cache decode attention kernel (row 3) against its
      plain version, <= 1e-5 with TF32 off, at the contiguous decode path's
      B=8, H=12, D=64, cap=1024 (lengths over 1..1024), at GPT-3 1.3B's
@@ -108,8 +114,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      marginal estimate and CUDA events), tokens/s, MFU against 989
      TFLOP/s, peak memory, and one step's device time by kernel;
   8. the fused linear-CE kernels (forward, dx, dW): first the HGMMA count
-     in the SASS of the bf16 backward kernels (wgmma; 0 fails, as does
-     any HMMA or HGMMA in the fp32 SIMT ones), with registers and spills;
+     in the SASS of the bf16 forward and backward kernels (wgmma; 0 fails,
+     as does any HMMA or HGMMA in the fp32 SIMT ones), with registers and
+     spills;
      then the kernels against their plain versions at the LM head, N=8192,
      H=2048, V=50304: fp32 with TF32 off within the JAX contract
      (rtol/atol 1e-4 for loss, lse and lab; rtol 2e-3, atol 1e-5 for dx
@@ -117,10 +124,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      the worst row's RMS error (CE_BF16_ROW_REL), a gate the plain version
      with one 64-wide tile left out must fail, a ragged N=200, H=96, V=700
      in both and a full-width ragged N=1000, H=2048, V=4100 in bf16; two
-     bf16 dx and dW calls equal bit for bit; device times by graph replay
-     beside the bound, the plain versions and one cuBLAS bf16 product of
-     the same shape (a yardstick: each backward kernel does two), and the
-     head's forward + backward as the fused kernels, the unfused head
+     bf16 forward, dx and dW calls equal bit for bit; device times by
+     graph replay beside the bound, the plain versions, one cuBLAS bf16
+     product of the same shape (a yardstick: the forward does one, each
+     backward kernel two) and the forward-only composition
+     F.cross_entropy(F.linear(x, w).float()), and the head's forward +
+     backward as the fused kernels, the unfused head
      (`fused_head_ce=None`) and the library composition (F.linear bf16 +
      F.cross_entropy fp32), with their peak memory;
  8b. the flash kernels at the slice's attention shape, B=4, T=2048, H=16,
@@ -490,10 +499,13 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
     """The int8-weight matmul over one decode step's 48 block matmuls (12
     layers x qkv, proj, fc1, fc2 of the seed-0 weights), in the step's
     order, so the 85 MB of int8 weights stream from device memory as they
-    do in a step; at M=8 (a decode step at 8 slots) and M=512 (a prefill
-    of 512 prompt rows)."""
+    do in a step; at M=8 (a decode step at 8 slots: the GEMV, bound by
+    bytes) and M=512 (a prefill of 512 prompt rows: the tensor-core
+    kernel, whose bound is its three bf16 products, the fp32 bound beside
+    it). Returns the M=8 record."""
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 
+    tensor_cores(INT8_TC_KERNELS, "PHASE 2b")
     ws = []
     for i in range(cfg.layers):
         for rel in MATMULS:
@@ -552,7 +564,11 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
                                       + M * w.shape[1]) for w, s, _ in ws)
         flops = sum(2 * M * w.numel() + M * w.shape[1] for w, _, _ in ws)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        t_fp32 = flops / FP32_FLOPS_PER_S * 1e3
+        # M > 8 runs three bf16 products on the tensor cores
+        t_ops = (t_fp32 if M <= 8
+                 else 3 * 2 * M * sum(w.numel() for w, _, _ in ws)
+                 / BF16_FLOPS_PER_S * 1e3)
         out[M] = {"name": "int8_weight_matmul", "route": "cuda",
                   "source": "paddle_tpu_torch/ops/kernels/csrc/"
                             "int8_weight_matmul.cu",
@@ -568,7 +584,10 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
             f"launches {t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
             f"library_ms={library_ms:.6f} (fp32 torch.matmul) "
             f"bound_ms={out[M]['bound_ms']:.6f} ({out[M]['bound_by']}, "
-            f"{nbytes} bytes, {flops} flops) "
+            f"{nbytes} bytes, {flops} flops"
+            + ("" if M <= 8 else f"; 3 bf16 products on the tensor cores: "
+               f"{t_ops:.6f}; the fp32 bound 2MKN / 67 TFLOP/s: "
+               f"{t_fp32:.6f}") + ") "
             f"kernel_over_bound={ms / out[M]['bound_ms']:.2f}x")
         for kn in sorted({tuple(w.shape) for w, _, _ in ws}):
             w, s, wf = next(t for t in ws if tuple(t[0].shape) == kn)
@@ -576,13 +595,62 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
                 xs[w.shape[0]], w, s), 50)
             b1 = (w.numel() + 4 * (s.numel() + M * w.shape[0]
                                    + M * w.shape[1])) / HBM_BYTES_PER_S
-            f1 = (2 * M * w.numel() + M * w.shape[1]) / FP32_FLOPS_PER_S
+            f1 = (2 if M <= 8 else 6) * M * w.numel() / (
+                FP32_FLOPS_PER_S if M <= 8 else BF16_FLOPS_PER_S)
             log(f"PHASE 2b int8_weight_matmul M={M} K x N={kn[0]}x"
                 f"{kn[1]} one launch (weight in L2) kernel_ms="
                 f"{one:.6f} bound_ms={max(b1, f1) * 1e3:.6f}")
     del ws
     torch.cuda.empty_cache()
     return out[8]
+
+
+def phase_int8_prefill(torch, cfg, arrays, qarrays, power):
+    """The int8 path's time to first token on the card: one paged_prefill
+    of a 512-token prompt (seed-0 GPT-2 124M) on int8 weights and int8
+    pages, beside the fp32 weights and pages, in device ms by kernel
+    (torch.profiler, 3 calls each); the int8 one's 48 matmuls run the
+    tensor-core kernel at M=512."""
+    from paddle_tpu_torch.models.gpt import (gpt_paged_prefill_fns,
+                                             params_from_numpy)
+    from paddle_tpu_torch.quant.kv import kv_pool_zeros
+
+    n, pt = 512, 16
+    P = n // pt + 1
+    prefill = gpt_paged_prefill_fns(cfg, page_tokens=pt)
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g)
+    tables = torch.arange(1, P, dtype=torch.int32)[None]
+    lens = torch.tensor([n])
+    shape = (cfg.layers, P, pt, cfg.heads, cfg.head_dim)
+    res = {}
+    for name, src, kv in (("fp32", arrays, "float32"),
+                          ("int8", qarrays, "int8")):
+        params = params_from_numpy(cfg, src, "cuda")
+        kp, vp = (kv_pool_zeros(shape, kv, "cuda") for _ in range(2))
+
+        def one():
+            logits, _, _ = prefill(params, kp, vp, toks, tables, lens)
+            return logits
+
+        logits = one()
+        torch.cuda.synchronize()
+        if not torch.isfinite(logits).all():
+            raise RuntimeError(f"PHASE 2b {name} prefill: non-finite logits")
+        prof = profile_kernels(torch, one, 3)
+        mm = sum(us for k, (us, _) in prof.items()
+                 if "int8_mma_kernel" in k or "int8_splitk" in k)
+        res[name] = (sum(us for us, _ in prof.values()) / 1e3, mm / 1e3,
+                     logits)
+        del params, kp, vp
+    err = (res["int8"][2] - res["fp32"][2]).abs().max().item()
+    log(f"PHASE 2b prefill [{power}] gpt2_124m, one {n}-token prompt "
+        f"through paged_prefill (device ms per call, torch.profiler): fp32 "
+        f"weights and pages {res['fp32'][0]:.6f}; int8 weights and pages "
+        f"{res['int8'][0]:.6f}, of which the int8 matmul kernels "
+        f"{res['int8'][1]:.6f} (48 launches); int8 over fp32 "
+        f"{res['int8'][0] / res['fp32'][0]:.2f}x; last-position logits "
+        f"int8 vs fp32 max abs diff {err:.3e}")
 
 
 # ----------------------------------------------------------- phase 2c
@@ -1344,14 +1412,17 @@ def profile_kernels(torch, fn, calls):
     return out
 
 
-# the bf16 (tensor-core) kernels, by library: phases 5 and 8 require HMMA
-# or HGMMA instructions in the SASS of each instantiation (flash: D <= 64,
-# 128; the CE backward: dx, dW) and none in the library's other (fp32,
-# SIMT) kernels
-FLASH_TC_KERNELS = {"flash_attention_fwd": ("flash_fwd_mma_kernel",),
-                    "flash_attention_bwd": ("flash_bwd_dq_mma_kernel",
-                                            "flash_bwd_dkv_mma_kernel")}
-CE_TC_KERNELS = {"fused_linear_ce_bwd": ("lce_bwd_mma_kernel",)}
+# the tensor-core kernels, by library, with their count of instantiations:
+# phases 2b, 5 and 8 require HMMA or HGMMA instructions in the SASS of each
+# instantiation (the int8 matmul at M > 8: aligned and scalar loads;
+# flash: D <= 64, 128; the CE forward: one; the CE backward: dx, dW) and
+# none in the library's other (fp32 or GEMV, CUDA-core) kernels
+INT8_TC_KERNELS = {"int8_weight_matmul": {"int8_mma_kernel": 2}}
+FLASH_TC_KERNELS = {"flash_attention_fwd": {"flash_fwd_mma_kernel": 2},
+                    "flash_attention_bwd": {"flash_bwd_dq_mma_kernel": 2,
+                                            "flash_bwd_dkv_mma_kernel": 2}}
+CE_TC_KERNELS = {"fused_linear_ce_fwd": {"lce_fwd_mma_kernel": 1},
+                 "fused_linear_ce_bwd": {"lce_bwd_mma_kernel": 2}}
 
 
 def ptxas_by_kernel(text):
@@ -1400,10 +1471,10 @@ def sass_mma_counts(lib):
 
 
 def tensor_cores(tc_kernels, tag):
-    """Raises unless every bf16 kernel instantiation of `tc_kernels`
-    ({library: kernel stems}) runs HMMA/HGMMA instructions and the
-    libraries' other (fp32, SIMT) kernels run none; logs each one's count,
-    registers and spills."""
+    """Raises unless every instantiation of the tensor-core kernels of
+    `tc_kernels` ({library: {kernel stem: instantiations}}) runs HMMA/HGMMA
+    instructions and the libraries' other (CUDA-core) kernels run none;
+    logs each one's count, registers and spills."""
     from paddle_tpu_torch.ops.kernels import _build
     libs = _build.build(sorted(tc_kernels))
     for lib, kernels in sorted(tc_kernels.items()):
@@ -1414,20 +1485,20 @@ def tensor_cores(tc_kernels, tag):
             tc = any(kn in fn for kn in kernels)
             res = ptxas.get(fn, {})
             log(f"{tag} SASS {lib} {fn}: {n} HMMA/HGMMA "
-                f"({'bf16 tensor-core route' if tc else 'fp32 SIMT route'})"
+                f"({'tensor-core route' if tc else 'CUDA-core route'})"
                 f"; registers {res.get('registers', '?')}, spill stores "
                 f"{res.get('spill_stores', '?')} B, spill loads "
                 f"{res.get('spill_loads', '?')} B, static smem "
                 f"{res.get('smem', '?')} B")
             if not tc and n:
-                raise RuntimeError(f"{lib}: fp32 kernel {fn} runs {n} "
+                raise RuntimeError(f"{lib}: CUDA-core kernel {fn} runs {n} "
                                    f"tensor-core instructions")
-        for kn in kernels:
+        for kn, want in kernels.items():
             found = [n for fn, n in counts.items() if kn in fn]
-            if len(found) != 2 or min(found) == 0:
+            if len(found) != want or min(found) == 0:
                 raise RuntimeError(f"{lib}: {kn} instantiations with tensor-"
-                                   f"core instructions: {found} (want two, "
-                                   f"each > 0)")
+                                   f"core instructions: {found} (want "
+                                   f"{want}, each > 0)")
 
 
 def phase_flash(torch, power):
@@ -1981,14 +2052,15 @@ def ce_dropped_tile_errs(torch, fce, inputs, plain):
 
 
 def phase_fused_ce(torch, power):
-    """Phase 8: the bf16 backward kernels' tensor-core instructions, the
+    """Phase 8: the bf16 kernels' tensor-core instructions, the
     fused linear-CE kernels against their plain versions (fp32 with TF32
     off and bf16 at the slice's N=8192, H=2048, V=50304; a ragged N=200,
     H=96, V=700 in both; bf16 at a full-width ragged N=1000, H=2048,
-    V=4100), the bf16 gate's reach, two bf16 backward calls equal bit for
-    bit, and device times by graph replay beside the bound, the plain
-    versions, one cuBLAS product of the same shape, the unfused head and
-    the nearest library composition. Returns the three kernel records."""
+    V=4100), the bf16 gate's reach, two bf16 forward and backward calls
+    equal bit for bit, and device times by graph replay beside the bound,
+    the plain versions, one cuBLAS product of the same shape, the forward's
+    composition, the unfused head and the nearest library composition.
+    Returns the three kernel records."""
     import torch.nn.functional as F
     from paddle_tpu_torch.nn.functional.loss import _LinearCrossEntropy
     from paddle_tpu_torch.ops.kernels import fused_ce as fce
@@ -2044,15 +2116,19 @@ def phase_fused_ce(torch, power):
     same = {name: torch.equal(f(x, w, lab, lse, gg), f(x, w, lab, lse, gg))
             for name, f in (("dx", fce.fused_ce_bwd_dx),
                             ("dw", fce.fused_ce_bwd_dw))}
+    f1, f2 = (fce.fused_ce_forward(x, w, lab) for _ in range(2))
+    same["fwd"] = all(torch.equal(a, b) for a, b in zip(f1, f2))
     if not all(same.values()):
-        raise RuntimeError(f"fused CE bf16 backward not deterministic: "
+        raise RuntimeError(f"fused CE bf16 kernels not deterministic: "
                            f"bit-equal over two calls {same}")
-    log(f"PHASE 8 fused CE bf16 backward, two calls at N={N} H={H} V={V}: "
-        f"bit-equal {same}")
+    log(f"PHASE 8 fused CE bf16 forward (lse, lab) and backward, two calls "
+        f"at N={N} H={H} V={V}: bit-equal {same}")
     # eagerly on the current stream: a graph's side and capture streams
     # would each keep a cuBLAS workspace that phase 10's peak would count
     wt = w.t()
     t["cublas"] = cuda_ms(torch, lambda _: torch.matmul(x, wt), 5, warm=2)
+    t["fwd_compose"] = cuda_ms(torch, lambda _: F.cross_entropy(
+        F.linear(x, w).float(), lab, reduction="none"), 3, warm=1)
     xl = x.detach().requires_grad_(True)
     wl = w.detach().requires_grad_(True)
 
@@ -2109,8 +2185,10 @@ def phase_fused_ce(torch, power):
             f"achieved_tflops={(2 if name != 'fwd' else 1) * prod / rec['ms'] / 1e9:.3f}")
     log(f"PHASE 8 yardstick [{power}]: one cuBLAS bf16 product of the same "
         f"shape, torch.matmul [{N}, {H}] x [{H}, {V}] (fp32 sums, bf16 out; "
-        f"dx and dW each do two such products): {t['cublas']:.6f} ms, "
-        f"{prod / t['cublas'] / 1e9:.3f} TFLOP/s (CUDA events, eager)")
+        f"the forward does one such product, dx and dW two each): "
+        f"{t['cublas']:.6f} ms, {prod / t['cublas'] / 1e9:.3f} TFLOP/s; the "
+        f"forward's composition F.cross_entropy(F.linear(x, w).float(), "
+        f"reduction='none') {t['fwd_compose']:.6f} ms (CUDA events, eager)")
     log(f"PHASE 8 LM head forward + backward [{power}] N={N} H={H} V={V} "
         f"bf16 (graph replay; peak bytes above the inputs): fused kernels "
         f"{heads['fused'][0]:.6f} ms {heads['fused'][1]} B; unfused "
@@ -2390,7 +2468,7 @@ def phase_slice(torch, np, power, ce_records):
     for name, (us, _) in prof.items():
         if flash_group(name):
             groups[flash_group(name)] += us
-        elif "lce_fwd_kernel" in name:
+        elif re.search(r"lce_fwd_(mma_|combine_)?kernel", name):
             groups["fused_linear_ce_fwd"] += us
         elif re.search(r"lce_bwd(_mma)?_kernel", name):
             groups["fused_linear_ce_bwd_dw" if "true" in name
@@ -2484,6 +2562,7 @@ def main():
     log(f"PHASE 2b setup: seed-0 weights + quantize_params "
         f"{time.perf_counter() - t0:.3f}s")
     records.append(phase_int8_matmul(torch, np, cfg, qarrays, arrays))
+    phase_int8_prefill(torch, cfg, arrays, qarrays, power)
     records.append(phase_decode_attention(torch, np))
 
     # phase 3: the fp32 path

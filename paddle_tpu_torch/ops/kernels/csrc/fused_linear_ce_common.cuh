@@ -1,25 +1,23 @@
-// Shared pieces of the SIMT fused linear + cross-entropy kernels (the
-// forward in fused_linear_ce_fwd.cu, for both types, and the fp32
+// Shared pieces of the SIMT fused linear + cross-entropy kernels, which
+// take fp32 operands (the forward in fused_linear_ce_fwd.cu and the
 // backward in fused_linear_ce_bwd.cu): the CTA shape, operand loads, and
-// the tile of logits every kernel is built from. The bf16 backward runs
-// on the tensor cores (fused_linear_ce_bwd.cu `lce_bwd_mma_kernel`).
+// the tile of logits every kernel is built from. bf16 runs on the tensor
+// cores (`lce_fwd_mma_kernel`, `lce_bwd_mma_kernel`, wgmma.cuh).
 //
 // Every kernel has one "resident" operand, R rows of [*, H] held in shared
 // memory for the whole CTA, and one "streamed" operand, swept in tiles of
 // kStream = 32 rows read from global memory (L2). The forward and dx
 // kernels keep R rows of x and stream W; the dW kernel keeps R rows of W
-// and streams x. R = 16 for bf16 operands and 8 for fp32 ones, so that the
-// fp32 dx/dW kernels' accumulator [R, H] and the resident rows fit one
-// CTA's 227 KB at H = 2048.
+// and streams x. R = 8, so that the dx/dW kernels' fp32 accumulator [R, H]
+// and the resident rows fit one CTA's 227 KB at H = 2048.
 //
 // The logits tile [kStream, R] = streamed . resident^T over K = H: warp w
 // owns streamed rows 4w..4w+3 against all R resident rows (4R sums per
 // lane), and its 32 lanes split K in chunks of 8 (lane l takes chunks l,
-// l+32, ...), so each 16-byte load of W or x feeds 4R or 32 FMAs. The
+// l+32, ...), so each 32-byte load of W or x feeds 4R or 32 FMAs. The
 // lanes' partial sums are then summed by a butterfly reduce-scatter that
-// leaves 4R/32 finished logits in each lane. Products take the operands in
-// their own type, widened exactly to fp32, with fp32 accumulation (the TPU
-// kernel's preferred_element_type=f32); fp32 operands stay fp32 (no TF32).
+// leaves 4R/32 finished logits in each lane. fp32 products with fp32
+// accumulation (the TPU kernel's preferred_element_type=f32), no TF32.
 
 #pragma once
 
@@ -39,43 +37,14 @@ constexpr int kSmemLimit = 232448;            // 227 KB, opt-in maximum
 template <typename E>
 struct Rows;
 template <>
-struct Rows<__nv_bfloat16> {
-  static constexpr int R = 16;
-};
-template <>
 struct Rows<float> {
   static constexpr int R = 8;
 };
 
-// Eight consecutive elements of one row, as loaded (16 bytes of bf16 or 32
-// of fp32); `to_float` widens them exactly.
+// Eight consecutive elements of one row, as loaded (32 bytes of fp32);
+// `to_float` hands them out.
 template <typename E>
 struct Raw8;
-
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 u;
-  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ void load_vec(const __nv_bfloat16* p) {
-    u = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ void load_tail(const __nv_bfloat16* p, int n) {
-    const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
-    unsigned h[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) h[e] = e < n ? s[e] : 0u;
-    u = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
-                   h[4] | (h[5] << 16), h[6] | (h[7] << 16));
-  }
-  __device__ __forceinline__ void to_float(float (&f)[8]) const {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);           // bf16 -> f32 exact
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
 
 template <>
 struct Raw8<float> {

@@ -24,7 +24,9 @@ JAX package's `_xla_fwd` / `_xla_bwd`), a CUDA tensor launches the
 hand-written Hopper kernel or raises:
 
   * `csrc/fused_linear_ce_fwd.cu` (`fused_ce_forward`) — replaces
-    `_fwd_kernel`;
+    `_fwd_kernel`: bf16 on the tensor cores (a GEMM with an online-
+    logsumexp epilogue over vocabulary chunks, combined by a second small
+    kernel), fp32 on the CUDA cores;
   * `csrc/fused_linear_ce_bwd.cu` (`fused_ce_bwd_dx`, `fused_ce_bwd_dw`) —
     replace `_bwd_dx_kernel` and `_bwd_dw_kernel`: bf16 on the tensor
     cores (a cluster of CTAs splits H), fp32 on the CUDA cores.
@@ -32,11 +34,13 @@ hand-written Hopper kernel or raises:
 ``kernel="reference"`` forces the plain versions on any device (tests, and
 holding the kernels against them on the card). The kernels take any N and
 V, and any H up to `max_hidden(dtype)` (above it they raise). The bf16
-backward takes H in whole 16-byte chunks at 16-byte aligned addresses:
+kernels take H in whole 16-byte chunks at 16-byte aligned addresses:
 the wrapper zero-pads H to a multiple of 8 (exact: zero columns add
 nothing to the logits, and the gradient's extra columns are cut off) and
-copies a misaligned operand. `fwd_launches`, `dx_launches` and
-`dw_launches` count the kernel launches made by this module.
+copies a misaligned operand. The bf16 forward's per-chunk partials go to
+a small fp32 scratch the wrapper allocates. `fwd_launches`, `dx_launches`
+and `dw_launches` count the calls that launched each kernel (one per
+call).
 """
 from __future__ import annotations
 
@@ -55,10 +59,9 @@ dx_launches = 0
 #: dW kernel launches.
 dw_launches = 0
 
-# the SIMT kernels' shape (csrc/fused_linear_ce_common.cuh; the forward in
-# both types, the fp32 backward): resident rows per CTA by operand type,
-# streamed rows per tile, shared memory per CTA
-_RESIDENT_ROWS = {torch.bfloat16: 16, torch.float32: 8}
+# the fp32 (SIMT) kernels' shape (csrc/fused_linear_ce_common.cuh):
+# resident rows per CTA, streamed rows per tile, shared memory per CTA
+_RESIDENT_ROWS = 8
 _STREAM_ROWS = 32
 _SMEM_LIMIT = 232448
 # the bf16 backward (csrc/fused_linear_ce_bwd.cu `lce_bwd_mma_kernel`): H
@@ -70,18 +73,16 @@ _FNS = {}
 
 
 def max_hidden(dtype) -> int:
-    """The largest H all three kernels take for operands of `dtype`: the
-    forward's R resident rows in one CTA's shared memory; the fp32
-    backward's R rows and their fp32 [R, H] accumulator there; the bf16
-    backward's cluster of at most 8 CTAs of 512 columns (4096 for bf16,
-    3616 for fp32)."""
-    r = _RESIDENT_ROWS[dtype]
-    esize = dtype.itemsize
-    fwd = (_SMEM_LIMIT - 4 * _STREAM_ROWS * (r + 1)) // (r * esize)
+    """The largest H all three kernels take for operands of `dtype`: in
+    bf16 the backward's cluster of at most 8 CTAs of 512 columns (4096;
+    the forward streams H); in fp32 the forward's R resident rows in one
+    CTA's shared memory and the backward's R rows and their fp32 [R, H]
+    accumulator there (3616)."""
     if dtype == torch.bfloat16:
-        bwd = _TC_SLICE * _TC_MAX_CLUSTER
-    else:
-        bwd = (_SMEM_LIMIT - 4 * _STREAM_ROWS * r) // (r * (esize + 4))
+        return _TC_SLICE * _TC_MAX_CLUSTER
+    r = _RESIDENT_ROWS
+    fwd = (_SMEM_LIMIT - 4 * _STREAM_ROWS * (r + 1)) // (r * 4)
+    bwd = (_SMEM_LIMIT - 4 * _STREAM_ROWS * r) // (r * 8)
     return min(fwd, bwd) // 8 * 8
 
 
@@ -93,6 +94,17 @@ def _kernel_fn(lib, name, n_ptr):
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
+    return fn
+
+
+def _fwd_scratch_fn():
+    """The forward's scratch query: floats for (N, V, bf16)."""
+    fn = _FNS.get("scratch")
+    if fn is None:
+        fn = _build.load("fused_linear_ce_fwd").fused_linear_ce_fwd_scratch
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+        _FNS["scratch"] = fn
     return fn
 
 
@@ -143,7 +155,7 @@ def _check(x, w, labels, per_row=()):
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"{what}: want x [N, H] and w [V, H], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype != w.dtype or x.dtype not in _RESIDENT_ROWS:
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: the kernels take x and w both float32 or "
                         f"both bfloat16, got {x.dtype} and {w.dtype}")
     N, H = x.shape
@@ -170,34 +182,41 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(x, w, labels):
-    global fwd_launches
-    x, w, labels, _ = _check(x, w, labels)
-    N, H = x.shape
-    lse = torch.empty(N, dtype=torch.float32, device=x.device)
-    lab = torch.empty_like(lse)
-    if N == 0:
-        return lse, lab
-    fn = _kernel_fn("fused_linear_ce_fwd", "fused_linear_ce_fwd", 5)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                lab.data_ptr(), N, w.shape[0], H,
-                int(x.dtype == torch.bfloat16), _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"fused_linear_ce_fwd kernel launch failed: "
-                           f"cudaError {rc}")
-    fwd_launches += 1
-    return lse, lab
-
-
 def _tc_operands(x, w):
-    """The bf16 backward's operands: x and w with H zero-padded to a
+    """The bf16 kernels' operands: x and w with H zero-padded to a
     multiple of 8 and 16-byte aligned bases, copying only what needs it."""
     H = x.shape[1]
     width = -(-H // 8) * 8
     if width != H:
         x, w = (torch.nn.functional.pad(t, (0, width - H)) for t in (x, w))
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+
+
+def _launch_fwd(x, w, labels):
+    global fwd_launches
+    x, w, labels, _ = _check(x, w, labels)
+    N, V = x.shape[0], w.shape[0]
+    lse = torch.empty(N, dtype=torch.float32, device=x.device)
+    lab = torch.empty_like(lse)
+    if N == 0:
+        return lse, lab
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, w = _tc_operands(x, w)
+    fn = _kernel_fn("fused_linear_ce_fwd", "fused_linear_ce_fwd", 6)
+    with torch.cuda.device(x.device):
+        n_scratch = _fwd_scratch_fn()(N, V, int(bf16))
+        scratch = torch.empty(n_scratch, dtype=torch.float32,
+                              device=x.device) if n_scratch else None
+        rc = fn(x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                lab.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), N, V,
+                x.shape[1], int(bf16), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fused_linear_ce_fwd kernel launch failed: "
+                           f"cudaError {rc}")
+    fwd_launches += 1
+    return lse, lab
 
 
 def _launch_bwd(which, x, w, labels, lse, g):

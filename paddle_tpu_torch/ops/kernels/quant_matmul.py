@@ -13,11 +13,15 @@ instead of an fp32 copy of the weight.
 `int8_weight_matmul(x [..., K] f32, w_q [K, N] int8, scale [N] f32)`
 dispatches on the tensors' device: a CPU tensor takes the plain PyTorch
 version (`int8_weight_matmul_reference`), a CUDA tensor launches the
-hand-written Hopper kernel (`csrc/int8_weight_matmul.cu`) or raises.
+hand-written Hopper kernels (`csrc/int8_weight_matmul.cu`: a CUDA-core
+GEMV for M <= 8 rows, the tensor cores on an exact three-piece bf16 split
+of x above) or raises. Where the M > 8 kernel splits K across CTAs, the
+wrapper allocates its fp32 workspace (`torch.empty`).
 ``kernel="reference"`` forces the plain version (for tests and for
 holding the kernel against it on the card).
 
-`launches` counts kernel launches made by this module.
+`launches` counts the calls that launched the kernels (one per call,
+the split-K sum included).
 """
 from __future__ import annotations
 
@@ -34,13 +38,18 @@ _FN = None
 
 
 def _kernel_fn():
+    """(the C entry point, its workspace query), declared once."""
     global _FN
     if _FN is None:
-        fn = _build.load("int8_weight_matmul").int8_weight_matmul_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        lib = _build.load("int8_weight_matmul")
+        fn = lib.int8_weight_matmul_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
+        ws = lib.int8_weight_matmul_workspace
+        ws.argtypes = [ctypes.c_int] * 3
+        ws.restype = ctypes.c_longlong
+        _FN = fn, ws
     return _FN
 
 
@@ -80,11 +89,15 @@ def _launch(x, w_q, scale):
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M > 0:
+        fn, ws_floats = _kernel_fn()
         with torch.cuda.device(x.device):
+            n_ws = ws_floats(M, N, K)
+            ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) \
+                if n_ws else None
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = _kernel_fn()(x2.data_ptr(), w_q.data_ptr(),
-                              scale.data_ptr(), out.data_ptr(), M, N, K,
-                              stream)
+            rc = fn(x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                    out.data_ptr(), None if ws is None else ws.data_ptr(),
+                    M, N, K, stream)
         if rc != 0:
             raise RuntimeError(f"int8_weight_matmul kernel launch failed: "
                                f"cudaError {rc}")

@@ -217,7 +217,9 @@ def test_missing_nvcc_raises_on_launch(monkeypatch):
     monkeypatch.setattr(tce, "_FNS", {})
     monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        tce._kernel_fn("fused_linear_ce_fwd", "fused_linear_ce_fwd", 5)
+        tce._kernel_fn("fused_linear_ce_fwd", "fused_linear_ce_fwd", 6)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tce._fwd_scratch_fn()
     assert "fused_linear_ce_fwd" in _build.sources()
     assert "fused_linear_ce_bwd" in _build.sources()
 
@@ -299,7 +301,7 @@ def test_tensor_core_backward_emulation_within_the_bf16_row_gate(which):
 
 
 def test_tensor_core_operands_pad_h_and_copy_misaligned():
-    """The bf16 backward's operands: H zero-padded to a multiple of 8,
+    """The bf16 kernels' operands: H zero-padded to a multiple of 8,
     aligned operands kept in place, a misaligned one copied."""
     x, w = torch.randn(5, 13).bfloat16(), torch.randn(7, 13).bfloat16()
     px, pw = tce._tc_operands(x, w)
@@ -330,3 +332,78 @@ def test_zero_padded_hidden_is_the_same_function(which):
     got = fn(px, pw, lab, lse, g)
     assert not got[:, 13:].any()
     assert torch.equal(got[:, :13], fn(x, w, lab, lse, g))
+
+
+# ---------------------------------------- the bf16 tensor-core forward
+
+def _fwd_chunks(N, V, sms=132):
+    """The forward kernel's vocabulary chunks on a card of `sms` SMs
+    (`fwd_chunks`): one 128-row x 256-column CTA per SM, at most one chunk
+    per tile."""
+    return min(-(-V // 256), max(sms // -(-N // 128), 1))
+
+
+def _fwd_tc_emulation(x, w, lab, chunks, skip=None):
+    """The bf16 forward kernels' arithmetic (csrc/fused_linear_ce_fwd.cu
+    `lce_fwd_mma_kernel`, `lce_fwd_combine_kernel`) in PyTorch: the vocab
+    in `chunks` runs of 256-column tiles (as the kernel divides them); per
+    tile the fp32 logits of the bf16 operands, columns >= V at -1e30, lab
+    = the label column's logit, m_new = max(m, max(tile)), l = l 2^((m -
+    m_new) log2 e) + sum 2^((tile - m_new) log2 e); the chunks' (m, l,
+    lab) combined in chunk order, lse = m + log(max(l, 1e-30)). `skip`
+    leaves out the tile that starts at that column."""
+    N, V = x.shape[0], w.shape[0]
+    T = -(-V // 256)
+    logits = x.float() @ w.float().t()
+    rows = torch.arange(N)
+    parts = []
+    for c in range(chunks):
+        m = torch.full((N,), -1e30)
+        l = torch.zeros(N)
+        lb = torch.zeros(N)
+        for t in range(c * T // chunks, (c + 1) * T // chunks):
+            v0 = 256 * t
+            if v0 == skip:
+                continue
+            tile = logits[:, v0:v0 + 256]
+            hit = (lab >= v0) & (lab < v0 + tile.shape[1])
+            lb = torch.where(hit, tile[rows, (lab - v0).clamp(0, tile.shape[1]
+                                                                - 1)], lb)
+            mn = torch.maximum(m, tile.amax(1))
+            l = (l * torch.exp2((m - mn) * LOG2E)
+                 + torch.exp2((tile - mn[:, None]) * LOG2E).sum(1))
+            m = mn
+        parts.append((m, l, lb))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = sum(p[1] * torch.exp2((p[0] - m) * LOG2E) for p in parts)
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return lse, sum(p[2] for p in parts)
+
+
+@pytest.mark.parametrize("chunks", [1, 3, "kernel"])
+def test_tensor_core_forward_emulation_matches_plain_and_jax(chunks,
+                                                            monkeypatch):
+    """At the slice's width (H = 2048) on bf16 inputs, the tensor-core
+    forward's tile, chunk and combine order with exp2 keeps loss, lse and
+    lab within the JAX tolerance of the plain forward and of JAX's Pallas
+    forward (interpret mode); the same emulation with row 0's label tile
+    left out does not."""
+    N, H, V = 256, 2048, 4100
+    x, w, lab, lse, _ = _bf16_head(N, H, V, seed=11)
+    n = _fwd_chunks(N, V) if chunks == "kernel" else chunks
+    got_lse, got_lab = _fwd_tc_emulation(x, w, lab, n)
+    _, want_lab = tce.fused_ce_fwd_reference(x, w, lab)
+    monkeypatch.setattr(jce, "_pallas_ok", lambda N, H: True)
+    jloss, (_, _, _, jlse) = jce._lce_pallas_fwd(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16),
+        jnp.asarray(w.float().numpy(), jnp.bfloat16),
+        jnp.asarray(lab.numpy().astype(np.int32)))
+    jlse = np.asarray(jlse)
+    for a, b in ((got_lse, lse), (got_lab, want_lab),
+                 (got_lse - got_lab, lse - want_lab),
+                 (got_lse, jlse), (got_lse - got_lab, np.asarray(jloss))):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), **LOSS_TOL)
+    cut_lse, cut_lab = _fwd_tc_emulation(x, w, lab, n,
+                                         skip=int(lab[0]) // 256 * 256)
+    assert not np.allclose((cut_lse - cut_lab).numpy(),
+                           (lse - want_lab).numpy(), **LOSS_TOL)

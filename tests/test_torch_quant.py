@@ -9,6 +9,10 @@ kernels and through the port's:
   * the plain `int8_weight_matmul` against JAX's ``kernel="xla"`` and its
     Pallas kernel (interpret mode on the CPU), atol 1e-5 — the JAX gate
     (tests/test_quant.py `test_quant_kernels_match_reference`);
+  * the M > 8 kernel's tensor-core arithmetic (x cut into three bf16
+    pieces, int8 codes as bf16, fp32 sums in the kernel's order and split
+    of K) emulated in PyTorch, within that gate of the plain version, JAX's
+    reference and float64 at the decode step's K; with one piece it fails;
   * the plain `paged_decode_attention_quant` against JAX's reference and
     Pallas kernel at atol 5e-5: this XLA build evaluates exp with
     TPU-profile approximations on the CPU (~3e-5), as in
@@ -159,6 +163,86 @@ def test_int8_matmul_plain_matches_jax_xla_and_pallas(K, N, xshape, std):
     np.testing.assert_allclose(got, want_pallas, rtol=0, atol=ATOL_MM)
     exact = x @ (wq.astype(np.float32) * s)
     np.testing.assert_allclose(got, exact, rtol=0, atol=ATOL_MM)
+
+
+# ------------------------- the int8 matmul's M > 8 tensor-core arithmetic
+
+def _cut_bf16(v):
+    """v with its low 16 bits cleared: its top 8 significant bits, a bf16
+    value held as float32."""
+    return (v.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _split3(x):
+    """csrc/int8_weight_matmul.cu `split3`: x = b0 + b1 + b2 exactly."""
+    b0 = _cut_bf16(x)
+    r1 = x - b0
+    b1 = _cut_bf16(r1)
+    return b0, b1, r1 - b1
+
+
+def _k_ranges(M, N, K, sms=132):
+    """The kernel's split of K (`split_k`, on a card of `sms` SMs): 64 x 64
+    tiles of out, K ranges of whole 32-deep steps, at least 256 deep."""
+    tiles = -(-M // 64) * -(-N // 64)
+    S = 1 if tiles >= 2 * sms else min(-(-2 * sms // tiles),
+                                       max(K // 256, 1))
+    steps = -(-K // 32)
+    chunk = -(-steps // S) * 32
+    return [(k, min(K, k + chunk)) for k in range(0, K, chunk)]
+
+
+def _tc_mm_emulation(x, wq, s, pieces=3):
+    """The M > 8 kernel's sums in float32: x cut into `pieces` of its
+    three bf16 pieces, per K range and 16-deep k slice acc += b2.q, acc +=
+    b1.q, acc += b0.q (each product exact, fp32 sums), the ranges' partials
+    summed in range order, then scaled."""
+    parts = [torch.from_numpy(np.ascontiguousarray(b))
+             for b in _split3(x)[:pieces]]
+    q = torch.from_numpy(wq.astype(np.float32))
+    M, K = x.shape
+    total = None
+    for k0, k1 in _k_ranges(M, wq.shape[1], K):
+        acc = torch.zeros(M, wq.shape[1])
+        for k in range(k0, k1, 16):
+            for b in reversed(parts):
+                acc += b[:, k:min(k + 16, k1)] @ q[k:min(k + 16, k1)]
+        total = acc if total is None else total + acc
+    return (total * torch.from_numpy(s)).numpy()
+
+
+@pytest.mark.parametrize("K", [768, 3072])
+def test_int8_matmul_tensor_core_split_matches_plain_jax_and_float64(K):
+    """The tensor-core route's arithmetic at the decode step's K (x cut into
+    three bf16 pieces times the int8 codes, fp32 sums in the kernel's
+    order, split K) is within ATOL_MM of the port's plain version, JAX's
+    `int8_weight_matmul_reference` and the float64 product, on weights
+    quantized from GPT's std-0.02 init; with one piece (x cut to bf16) it
+    is not."""
+    rng = np.random.default_rng(K)
+    M, N = 24, 64
+    q = tquant.quantize_params(
+        {"l.weight": rng.standard_normal((K, N), np.float32) * 0.02})
+    wq, s = q["l.weight"], q["l.weight::scale"]
+    x = rng.standard_normal((M, K), np.float32)
+    b0, b1, b2 = _split3(x)
+    assert np.array_equal(b0 + b1 + b2, x)
+    assert not any((b.view(np.uint32) & 0xFFFF).any() for b in (b0, b1, b2))
+    assert len(_k_ranges(M, N, K)) > 1
+    plain = tqm.int8_weight_matmul(torch.from_numpy(x), torch.from_numpy(wq),
+                                   torch.from_numpy(s)).numpy()
+    jax_ref = np.asarray(jqm.int8_weight_matmul_reference(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s)))
+    exact = x.astype(np.float64) @ (wq.astype(np.float64) * s)
+    got = _tc_mm_emulation(x, wq, s)
+    for want in (plain, jax_ref, exact):
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_MM)
+    errs = {n: np.abs(_tc_mm_emulation(x, wq, s, n) - exact).max()
+            for n in (1, 2)}
+    print(f"K={K}: max abs error against float64 with 1, 2, 3 pieces: "
+          f"{errs[1]:.3e}, {errs[2]:.3e}, {np.abs(got - exact).max():.3e} "
+          f"(gate {ATOL_MM})")
+    assert errs[1] > ATOL_MM
 
 
 def _attn_inputs(seed, B, D, pt, W, lengths, null_rows=()):
