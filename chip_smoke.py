@@ -78,10 +78,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      SIGTERM and a clean drain; (4-int8) the same on the int8 artifact
      with --kv-dtype int8, held to the int8 engine and the int8 launch
      formulas;
-  5. flash attention forward (5) and backward (5b): first the count of
-     HMMA/HGMMA instructions in the SASS of each bf16 (tensor-core) flash
-     kernel (cuobjdump -sass on the built library; 0 fails), with each
-     kernel's registers and spills from the build's -Xptxas -v log; then
+  5. flash attention forward (5) and backward (5b): first the counts of
+     HMMA and HGMMA instructions in the SASS of each bf16 (tensor-core)
+     flash kernel (cuobjdump -sass on the built library; the kernels run
+     on wgmma and TMA, so each instantiation must show HGMMA and no HMMA),
+     with each kernel's registers and spills from the build's -Xptxas -v
+     log; then
      the kernels against their plain versions, fp32 (the SIMT kernels)
      with TF32 off at B=2, H=4, T=256, D=64 (causal and not; q/k/v as
      chunks of one qkv tensor and as separate tensors), at ragged shapes
@@ -89,7 +91,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      B=16, H=12, T=1024, D=64 causal, within the JAX contract (2e-5
      forward, 5e-4 backward); bf16 (the tensor-core kernels) at the same
      small and ragged shapes, at T=70, D=20 (zero-padded to 24 by the
-     wrapper), at the main path's shapes and at T=2048, against the plain
+     wrapper), at T=192 (a multiple of 64 but not of the kernels' 128-row
+     tiles; D=64 and 128), with q, k, v strided views of one bf16 qkv
+     tensor at T=384, H=3, D=128 (the tensor maps on non-contiguous
+     strides), at the main path's shapes and at T=2048, against the plain
      version on the same bf16 tensors, the worst row's RMS error within
      FLASH_BF16_ROW_REL of that row's RMS, a gate the plain version with
      one 64-row tile left out must fail; two runs of the bf16 kernels at
@@ -133,7 +138,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (`fused_head_ce=None`) and the library composition (F.linear bf16 +
      F.cross_entropy fp32), with their peak memory;
  8b. the flash kernels at the slice's attention shape, B=4, T=2048, H=16,
-     D=128 causal: fp32 within the JAX contract, bf16 to phase 5's row
+     D=128 causal: phase 5's SASS check again (HGMMA and no HMMA in every
+     bf16 instantiation, registers and spills), fp32 within the JAX
+     contract, bf16 to phase 5's row
      gate with its left-out tile, device times by graph replay of the
      forward, dq and dk/dv beside their bounds and plain versions, torch
      sdpa's forward and aten._scaled_dot_product_flash_attention_backward;
@@ -1288,10 +1295,16 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, oracle_params, tol,
 # ------------------------------------------------------------ phase 5
 
 def flash_inputs(torch, B, T, H, D, dtype, seed, fused=True):
-    """q, k, v [B, T, H, D] (the chunks of one fused qkv tensor, as the
-    model hands them to attention, when `fused`) and dO, on the card."""
+    """q, k, v [B, T, H, D] (the chunks of one fused qkv tensor when
+    `fused`, each copied to its own tensor in `dtype`; with fused="views"
+    strided views of one fused qkv tensor in `dtype`, as the model hands
+    them to attention) and dO, on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if fused:
+    if fused == "views":
+        qkv = torch.randn((B, T, 3 * H * D), generator=g,
+                          device="cuda").to(dtype)
+        q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    elif fused:
         qkv = torch.randn((B, T, 3 * H * D), generator=g, device="cuda")
         q, k, v = (t.reshape(B, T, H, D).to(dtype)
                    for t in qkv.split(H * D, dim=-1))
@@ -1332,6 +1345,8 @@ def check_flash(torch, fa, B, T, H, D, dtype, causal, tag, fused=True,
     within FLASH_BF16_ROW_REL (lse by the fp32 gate). Returns ({output:
     (gated error, max abs error)}, the inputs, the plain (o, lse, dv))."""
     q, k, v, do = flash_inputs(torch, B, T, H, D, dtype, seed, fused)
+    if fused == "views" and q.is_contiguous():
+        raise RuntimeError(f"{tag}: q is not a strided view")
     o, lse = fa.flash_attention_forward(q, k, v, causal)
     ro, rlse = fa.flash_attention_forward(q, k, v, causal, kernel="reference")
     got = fa.flash_attention_backward(q, k, v, ro, rlse, do, causal)
@@ -1384,7 +1399,7 @@ def flash_group(name):
     for group, stem in (("flash_attention_fwd", "flash_fwd"),
                         ("flash_attention_bwd_dq", "flash_bwd_dq"),
                         ("flash_attention_bwd_dkv", "flash_bwd_dkv")):
-        if re.search(stem + r"(_mma)?_kernel", name):
+        if re.search(stem + r"(_wgmma)?_kernel", name):
             return group
     return None
 
@@ -1416,11 +1431,12 @@ def profile_kernels(torch, fn, calls):
 # phases 2b, 5 and 8 require HMMA or HGMMA instructions in the SASS of each
 # instantiation (the int8 matmul at M > 8: aligned and scalar loads;
 # flash: D <= 64, 128; the CE forward: one; the CE backward: dx, dW) and
-# none in the library's other (fp32 or GEMV, CUDA-core) kernels
+# none in the library's other (fp32 or GEMV, CUDA-core) kernels; the flash
+# kernels run on wgmma, so phase 5 requires HGMMA and no HMMA in each
 INT8_TC_KERNELS = {"int8_weight_matmul": {"int8_mma_kernel": 2}}
-FLASH_TC_KERNELS = {"flash_attention_fwd": {"flash_fwd_mma_kernel": 2},
-                    "flash_attention_bwd": {"flash_bwd_dq_mma_kernel": 2,
-                                            "flash_bwd_dkv_mma_kernel": 2}}
+FLASH_TC_KERNELS = {"flash_attention_fwd": {"flash_fwd_wgmma_kernel": 2},
+                    "flash_attention_bwd": {"flash_bwd_dq_wgmma_kernel": 2,
+                                            "flash_bwd_dkv_wgmma_kernel": 2}}
 CE_TC_KERNELS = {"fused_linear_ce_fwd": {"lce_fwd_mma_kernel": 1},
                  "fused_linear_ce_bwd": {"lce_bwd_mma_kernel": 2}}
 
@@ -1451,8 +1467,9 @@ def ptxas_by_kernel(text):
 
 
 def sass_mma_counts(lib):
-    """{kernel function: count of HMMA and HGMMA instructions} in the SASS
-    of a built library (cuobjdump -sass, from the toolkit beside nvcc)."""
+    """{kernel function: {"HMMA": n, "HGMMA": n}}, the counts of mma.sync
+    and wgmma instructions in the SASS of a built library (cuobjdump -sass,
+    from the toolkit beside nvcc)."""
     from paddle_tpu_torch.ops.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
@@ -1464,41 +1481,52 @@ def sass_mma_counts(lib):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name is not None and re.search(r"\bHG?MMA\.", ln):
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+            continue
+        m = re.search(r"\b(HG?MMA)\.", ln)
+        if name is not None and m:
+            counts[name][m.group(1)] += 1
     return counts
 
 
-def tensor_cores(tc_kernels, tag):
+def tensor_cores(tc_kernels, tag, only=None):
     """Raises unless every instantiation of the tensor-core kernels of
     `tc_kernels` ({library: {kernel stem: instantiations}}) runs HMMA/HGMMA
-    instructions and the libraries' other (CUDA-core) kernels run none;
-    logs each one's count, registers and spills."""
+    instructions (with `only` = "HGMMA" or "HMMA": that kind and none of
+    the other) and the libraries' other (CUDA-core) kernels run none; logs
+    each one's counts, registers and spills."""
     from paddle_tpu_torch.ops.kernels import _build
     libs = _build.build(sorted(tc_kernels))
     for lib, kernels in sorted(tc_kernels.items()):
         counts = sass_mma_counts(libs[lib])
         logf = libs[lib].with_suffix(".log")
         ptxas = ptxas_by_kernel(logf.read_text()) if logf.is_file() else {}
-        for fn, n in sorted(counts.items()):
+        for fn, c in sorted(counts.items()):
             tc = any(kn in fn for kn in kernels)
             res = ptxas.get(fn, {})
-            log(f"{tag} SASS {lib} {fn}: {n} HMMA/HGMMA "
-                f"({'tensor-core route' if tc else 'CUDA-core route'})"
+            log(f"{tag} SASS {lib} {fn}: {c['HMMA']} HMMA, {c['HGMMA']} "
+                f"HGMMA ({'tensor-core route' if tc else 'CUDA-core route'})"
                 f"; registers {res.get('registers', '?')}, spill stores "
                 f"{res.get('spill_stores', '?')} B, spill loads "
                 f"{res.get('spill_loads', '?')} B, static smem "
                 f"{res.get('smem', '?')} B")
-            if not tc and n:
-                raise RuntimeError(f"{lib}: CUDA-core kernel {fn} runs {n} "
-                                   f"tensor-core instructions")
+            if not tc and c["HMMA"] + c["HGMMA"]:
+                raise RuntimeError(f"{lib}: CUDA-core kernel {fn} runs "
+                                   f"tensor-core instructions: {c}")
         for kn, want in kernels.items():
-            found = [n for fn, n in counts.items() if kn in fn]
-            if len(found) != want or min(found) == 0:
-                raise RuntimeError(f"{lib}: {kn} instantiations with tensor-"
-                                   f"core instructions: {found} (want "
-                                   f"{want}, each > 0)")
+            found = [c for fn, c in counts.items() if kn in fn]
+            kinds = [only] if only else ["HMMA", "HGMMA"]
+            ok = len(found) == want and all(
+                sum(c[k] for k in kinds) > 0 for c in found)
+            if only:
+                other = "HMMA" if only == "HGMMA" else "HGMMA"
+                ok = ok and not any(c[other] for c in found)
+            if not ok:
+                raise RuntimeError(
+                    f"{lib}: {kn} instantiations' tensor-core instructions: "
+                    f"{found} (want {want}, each with "
+                    f"{only or 'HMMA or HGMMA'}"
+                    f"{' and no ' + other if only else ''})")
 
 
 def phase_flash(torch, power):
@@ -1515,7 +1543,7 @@ def phase_flash(torch, power):
     from paddle_tpu_torch.nn.functional.attention import _sdpa_composed
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    tensor_cores(FLASH_TC_KERNELS, "PHASE 5")
+    tensor_cores(FLASH_TC_KERNELS, "PHASE 5", only="HGMMA")
     # every small case in both types: fp32 takes the SIMT kernels, bf16
     # the tensor-core ones (D=20 takes the wrapper's zero padding to 24)
     cases = []
@@ -1530,6 +1558,19 @@ def phase_flash(torch, power):
                    dtype, False, True, 3)]
     cases += [("bf16 ragged T=70 D=20 causal=True, D padded to 24", 1, 70,
                2, 20, torch.bfloat16, True, False, 9),
+              # a multiple of 64 but not of the kernels' 128-row tiles
+              ("bf16 T=192 D=64 causal=True", 2, 192, 4, 64, torch.bfloat16,
+               True, True, 11),
+              ("bf16 T=192 D=64 causal=False", 2, 192, 4, 64,
+               torch.bfloat16, False, True, 12),
+              ("bf16 T=192 D=128 causal=True", 2, 192, 2, 128,
+               torch.bfloat16, True, True, 13),
+              # q, k, v as strided views of one fused qkv tensor at D=128:
+              # the tensor maps read them in place
+              ("bf16 strided fused-qkv T=384 H=3 D=128 causal=True", 2, 384,
+               3, 128, torch.bfloat16, True, "views", 14),
+              ("bf16 strided fused-qkv T=384 H=3 D=128 causal=False", 2,
+               384, 3, 128, torch.bfloat16, False, "views", 15),
               ("fp32 main B=16 T=1024 H=12 D=64 causal", 16, 1024, 12, 64,
                torch.float32, True, True, 8),
               ("bf16 main B=16 T=1024 H=12 D=64 causal", 16, 1024, 12, 64,
@@ -1604,11 +1645,11 @@ def phase_flash(torch, power):
         q, k, v, o, lse, do, True), 10)
     bwd_eager = cuda_ms(torch, lambda _: fa.flash_attention_backward(
         q, k, v, o, lse, do, True), 10)
-    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    _, delta, q_s = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
     dq_ms = graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
         q, k, v, o, do, lse, True), 10)
     dkv_ms = graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, True), 10)
+        q, k, v, do, lse, delta, True, q_s=q_s), 10)
     plain_dq = graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
         q, k, v, o, do, lse, True, kernel="reference"), 2)
     plain_dkv = graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
@@ -1682,7 +1723,7 @@ def phase_flash(torch, power):
             f"ms, torch sdpa {lib_t:.6f} ms")
         del qc, kc, vc, doc, leaves
         torch.cuda.empty_cache()
-    del q, k, v, do, o, lse, delta
+    del q, k, v, do, o, lse, delta, q_s
     torch.cuda.empty_cache()
     # the TPU's fused backward (emit_dq=True) runs here as the dq kernel
     # then the dk/dv kernel: its record is the pair's, one per backward
@@ -2214,6 +2255,7 @@ def phase_flash_1p3b(torch, power):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
+    tensor_cores(FLASH_TC_KERNELS, "PHASE 8b", only="HGMMA")
     B, T, H, D = 4, 2048, 16, 128
     errs = {}
     for tag, dtype, seed in (("fp32", torch.float32, 31),
@@ -2239,13 +2281,13 @@ def phase_flash_1p3b(torch, power):
     q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, 33)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     o, lse = fa.flash_attention_forward(q, k, v, True)
-    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    _, delta, q_s = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
     t = {"fwd": graph_ms(torch, lambda _: fa.flash_attention_forward(
              q, k, v, True), 10),
          "dq": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
              q, k, v, o, do, lse, True), 5),
          "dkv": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
-             q, k, v, do, lse, delta, True), 5),
+             q, k, v, do, lse, delta, True, q_s=q_s), 5),
          "fwd_plain": graph_ms(torch, lambda _: fa.flash_attention_forward(
              q, k, v, True, kernel="reference"), 1),
          "dq_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
@@ -2290,7 +2332,7 @@ def phase_flash_1p3b(torch, power):
         f"{t['bwd_library']:.6f}, aten._scaled_dot_product_flash_attention_"
         f"backward); per 1.3B step (24 layers, forward twice under "
         f"recompute) {48 * t['fwd'] + 24 * (t['dq'] + t['dkv']):.3f} ms")
-    del q, k, v, do, o, lse, delta, qt, kt, vt
+    del q, k, v, do, o, lse, delta, q_s, qt, kt, vt
     torch.cuda.empty_cache()
     return t
 

@@ -15,36 +15,52 @@
 // Why two kernels (design (a), deterministic). The TPU's fused backward is
 // right only when one k block spans the whole sequence, so each dq block is
 // written once; its 16 MB VMEM allows that up to T = 1024. A Hopper CTA has
-// at most 227 KB of shared memory, so k tiles are 64 rows at every T and dq
-// always sums over several k tiles. Rather than add those partial sums with
-// atomics (run-to-run different rounding), dq gets its own kernel:
-//   dq kernel   one CTA per (b*h, 64-row q tile), sweeping the k tiles up
-//               to the diagonal; also writes delta [B*H, T] for the next;
-//   dk/dv kernel one CTA per (b*h, 64-row k tile), sweeping the q tiles from
-//               the diagonal on.
+// at most 227 KB of shared memory, so k tiles are 64 or 128 rows at every T
+// and dq always sums over several k tiles. Rather than add those partial
+// sums with atomics (run-to-run different rounding), dq gets its own
+// kernel:
+//   dq kernel   one CTA per (b*h, q tile), sweeping the k tiles up to the
+//               diagonal; also writes delta [B*H, T] for the next (and, in
+//               bf16, the scaled q);
+//   dk/dv kernel one CTA per (b*h, k tile), sweeping the q tiles from the
+//               diagonal on.
 // Both recompute s and dp: 7 tile products per (q, k) tile pair where the
 // fused form needs 5. Launch order on the stream: dq, then dk/dv.
 //
 // Two routes, chosen by the operand type; the choice is the arithmetic
 // contract, not a fallback. fp32 (`flash_bwd_dq_kernel`,
 // `flash_bwd_dkv_kernel`) runs fp32 FMAs on the CUDA cores
-// (flash_attention_common.cuh), the JAX package's 5e-4 contract, which
-// TF32 tensor cores would break. bf16 (`flash_bwd_dq_mma_kernel`,
-// `flash_bwd_dkv_mma_kernel`) runs every product on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, fp32 accumulators;
-// flash_attention_mma.cuh): 4 warps, each owning 16 rows.
-//   dq:    q (scaled and rounded in shared memory) and dO are copied once;
-//          K and V tiles stream through a 2-stage cp.async ring. Per k
-//          tile: S = q_s.kᵀ and dP = dO.vᵀ in registers, P = exp2(s log2(e)
-//          - lse log2(e)), dS = P (dP - delta) rounded to bf16 and packed
-//          as A fragments of dq += dS.K (K through ldmatrix.trans).
-//   dk/dv: K and V stay in shared memory; q tiles (BQ = 64 rows at D <= 64,
-//          32 at D = 128, which keeps the fp32 dK and dV accumulators, 128
-//          registers a thread at D = 128, clear of spills) and their dO, lse
-//          and delta stream through the ring. The warps own key rows, so
-//          Sᵀ = K.q_sᵀ and dPᵀ = V.dOᵀ come out with Pᵀ and dSᵀ already in
-//          the A layout of dV += Pᵀ.dO and dK += dSᵀ.q_s; lse and delta are
-//          indexed by column.
+// (flash_attention_common.cuh), 64-row tiles, the JAX package's 5e-4
+// contract, which TF32 tensor cores would break. bf16
+// (`flash_bwd_dq_wgmma_kernel`, `flash_bwd_dkv_wgmma_kernel`) runs every
+// product on the tensor cores by wgmma (bf16 operands, fp32 accumulators),
+// warp-specialized like the forward (tma.cuh, flash_attention_wgmma.cuh):
+// a producer warpgroup whose first thread loads by TMA through rings with
+// full and empty mbarriers, and consumer warpgroups of 64 resident rows
+// each (two in one CTA an SM at D = 128 with 240 registers a thread, one
+// in each of two CTAs an SM at D <= 64 with 232), one CTA per (b*h, tile).
+// Each tile is taken whole before the next (overlapping two measured no
+// faster, and at D = 128 the accumulators leave no room for it).
+//   dq:    the q and dO rows are loaded once; each consumer scales its q
+//          rows in fp32, rounds them to bf16 in place and writes them out
+//          as q_s [B, T, H, D], and computes delta for its rows. K and V
+//          tiles of 128 keys stream through rings of 3 and 2 stages (V
+//          leaves first). Per k tile: S = q_s.kᵀ and dP = dO.vᵀ by wgmma
+//          m64n128k16 from shared memory, P = exp2(s log2(e) - lse
+//          log2(e)), dS = P (dP - delta) rounded to bf16 in registers, the
+//          A operand of dq += dS.K (K read MN-major).
+//   dk/dv: the K and V rows stay in shared memory; q_s and dO stream by
+//          TMA, 64 q rows a stage (3 stages at D = 128, 4 at D <= 64), so q
+//          is not scaled again at every visit, and the producer's second
+//          warp copies the stage's lse and delta (a TMA box starting at an
+//          odd T is not 16-byte aligned). The consumers own key rows, so
+//          Sᵀ = K.q_sᵀ and dPᵀ = V.dOᵀ (m64n64k16) come out with Pᵀ and dSᵀ
+//          already in the A layout of dV += Pᵀ.dO and dK += dSᵀ.q_s
+//          (m64n{D}k16, dO and q_s read MN-major); lse and delta are
+//          indexed by column. At D = 128 the fp32 dK and dV accumulators
+//          alone take 128 registers a thread.
+// Tiles are masked only where they cross the diagonal or the ragged end;
+// rows past T come in as zeros.
 //
 // What bounds it on the H100: at B = 16, H = 12, T = 1024, D = 64 causal
 // bf16 the least work is the 5 products, 10 * D flops per live (q, k) pair,
@@ -52,7 +68,7 @@
 // in; dq, dk, dv out) are 202 MB, or 0.060 ms at 3.35 TB/s. The split's 7
 // products do 14 * D flops per live pair.
 
-#include "flash_attention_mma.cuh"
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -258,6 +274,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
+  void* qs;
   int B, n, H, D;
   long long sb, st, sh;
   int causal;
@@ -309,86 +326,141 @@ int launch_dkv(const Args& a) {
 
 // ------------------------------------------------------------ bf16 route
 
-using flash_mma::bf16;
-using flash_mma::kLog2e;
-using flash_mma::kMmaThreads;
-using flash_mma::kRows;
-using flash_mma::Tile;
-
-// P of the [16, NB] strip held as the C fragments s (in place): exp(s -
-// lse) where (row, col) is live, else 0. `row_of(e)` and `col_of(j, e)`
-// give the global (query or key) indices of element e of n-tile j;
-// lseL(j, e) is the matching lse times log2(e).
-template <int NB, typename Live, typename LseL>
-__device__ __forceinline__ void probs(float (&s)[NB / 8][4], bool masked,
-                                      Live live, LseL lse_l) {
-#pragma unroll
-  for (int j = 0; j < NB / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(fmaf(s[j][e], kLog2e, -lse_l(j, e)));
-      s[j][e] = (!masked || live(j, e)) ? p : 0.f;
-    }
-  }
-}
+namespace fw = flash_wgmma;
+using fw::bf16;
+using fw::kLog2e;
 
 template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, bf16* __restrict__ dq,
-                        float* __restrict__ delta, int H, int n, int D,
-                        long long sb, long long st, long long sh, int causal,
-                        float scale) {
-  using namespace flash_mma;
-  constexpr int LD = Tile<DP>::LD;
-  constexpr int ND = Tile<DP>::ND;
-  constexpr int NJ = kRows / 8;
-  constexpr int TILE = kRows * LD;
-  constexpr int CPR = DP / 8;          // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + TILE;
-  bf16* sK = sdO + TILE;               // two stages
-  bf16* sV = sK + 2 * TILE;            // two stages
-  float* sDelta = reinterpret_cast<float*>(sV + 2 * TILE);
+struct DqShape : fw::Cta<DP> {
+  using C = fw::Cta<DP>;
+  // K stays in its stage longer than V (until dq += dS . K is done), so
+  // its ring is deeper
+  static constexpr int kStagesK = 3;
+  static constexpr int kStagesV = 2;
+  static constexpr int kRes = DP / 64 * C::kResBlock;     // [kRows, DP]
+  static constexpr int kTile = DP / 64 * fw::kBlock128;   // [128, DP]
+  static constexpr int kBars = 1 + 2 * (kStagesK + kStagesV);
+  static constexpr int kSmem = 1024 + 2 * kRes +
+                               (kStagesK + kStagesV) * kTile +
+                               4 * C::kRows + 8 * kBars;
+  static_assert(C::kPerSm * (kSmem + 1024) <= 233472,
+                "shared memory over the SM's");
+};
 
-  const int nq = (n + kRows - 1) / kRows;
-  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
+template <int DP>
+__global__ void __launch_bounds__(DqShape<DP>::kThreads,
+                                  DqShape<DP>::kPerSm)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const bf16* __restrict__ o,
+                          const float* __restrict__ lse,
+                          bf16* __restrict__ dq, float* __restrict__ delta,
+                          bf16* __restrict__ qs, int H, int n, int D,
+                          int causal, float scale) {
+  using S = DqShape<DP>;
+  constexpr int NK = S::kStagesK;
+  constexpr int NV = S::kStagesV;
+  constexpr int NB = DP / 64;
+  constexpr int CPR = DP / 8;          // 16-byte chunks per row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = tma::align1024(smem_raw);
+  unsigned char* sdO = sQ + S::kRes;
+  unsigned char* sK = sdO + S::kRes;   // NK stages
+  unsigned char* sV = sK + NK * S::kTile;                  // NV stages
+  float* sDelta = reinterpret_cast<float*>(sV + NV * S::kTile);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(sDelta + S::kRows);
+  uint64_t* k_full = res_full + 1;
+  uint64_t* k_empty = k_full + NK;
+  uint64_t* v_full = k_empty + NK;
+  uint64_t* v_empty = v_full + NV;
+
+  const int nq = (n + S::kRows - 1) / S::kRows;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x);   // longest first
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const long long base = b * sb + h * sh;
-  // O and dO are contiguous [B, n, H, D]
+  const int q0 = qi * S::kRows;
+  const int nkt = (n + fw::kKeys - 1) / fw::kKeys;
+  // the k tiles up to the q tile's last row when causal
+  const int nk = causal ? min(nkt, (q0 + S::kRows + fw::kKeys - 1) /
+                                       fw::kKeys)
+                        : nkt;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    tma::mbar_init(res_full, 1);
+    for (int s = 0; s < NK; ++s) {
+      tma::mbar_init(k_full + s, 1);
+      tma::mbar_init(k_empty + s, S::kConsumerWarps);
+    }
+    for (int s = 0; s < NV; ++s) {
+      tma::mbar_init(v_full + s, 1);
+      tma::mbar_init(v_empty + s, S::kConsumerWarps);
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {                       // producer
+    tma::regs_dec<fw::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma::mbar_expect_tx(res_full, 2 * S::kRes);
+      for (int c = 0; c < NB; ++c) {
+        tma::load_4d(sQ + c * S::kResBlock, &tq, res_full, 64 * c, h, q0, b);
+        tma::load_4d(sdO + c * S::kResBlock, &tdo, res_full, 64 * c, h, q0,
+                     b);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int sk = j % NK;
+        const int sv = j % NV;
+        tma::mbar_wait(k_empty + sk, ((j / NK) & 1) ^ 1);
+        tma::mbar_expect_tx(k_full + sk, S::kTile);
+        for (int c = 0; c < NB; ++c) {
+          tma::load_4d(sK + sk * S::kTile + c * fw::kBlock128, &tk,
+                       k_full + sk, 64 * c, h, j * fw::kKeys, b);
+        }
+        tma::mbar_wait(v_empty + sv, ((j / NV) & 1) ^ 1);
+        tma::mbar_expect_tx(v_full + sv, S::kTile);
+        for (int c = 0; c < NB; ++c) {
+          tma::load_4d(sV + sv * S::kTile + c * fw::kBlock128, &tv,
+                       v_full + sv, 64 * c, h, j * fw::kKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw: q rows [q0 + 64 cw, q0 + 64 cw + 64)
+  tma::regs_inc<S::kConsumerRegs>();
+  const int cw = wg - 1;
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tq4 = lane & 3;
+  const int wr0 = q0 + 64 * cw;
+  const int r_lo = wr0 + 16 * warp + g;        // rows r_lo, r_lo + 8
+  // O, dO, dq and q_s are contiguous [B, n, H, D]
   const long long cbase = (static_cast<long long>(b) * n * H + h) * D;
   const long long cst = static_cast<long long>(H) * D;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int q0 = qi * kRows;
-  const int r_lo = q0 + warp * 16 + g;
-  const int nk = causal ? qi + 1 : nq;
 
-  copy_tile<DP, kRows>(sQ, q + base, st, q0, n, D);
-  copy_tile<DP, kRows>(sdO, dout + cbase, cst, q0, n, D);
-  copy_tile<DP, kRows>(sK, k + base, st, 0, n, D);
-  copy_tile<DP, kRows>(sV, v + base, st, 0, n, D);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-  scale_tile<DP, kRows>(sQ, scale);
+  tma::mbar_wait(res_full, 0);
+  fw::scale_rows<DP>(sQ, S::kResBlock, 64 * cw, t, scale,
+                     qs + cbase + wr0 * cst, cst, n - wr0, D);
   // delta = rowsum(dO * O) in fp32: CPR consecutive threads share a row
 #pragma unroll
-  for (int e = threadIdx.x; e < kRows * CPR; e += kMmaThreads) {
+  for (int e = t; e < 64 * CPR; e += 128) {
     const int r = e / CPR;
-    const int c = (e % CPR) * 8;
-    const int t = q0 + r;
+    const int c = e % CPR;
+    const int tt = wr0 + r;
     float part = 0.f;
-    if (t < n && c < D) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(o + cbase + t * cst + c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(sdO + r * LD + c);
+    if (tt < n && 8 * c < D) {
+      const uint4 ov =
+          *reinterpret_cast<const uint4*>(o + cbase + tt * cst + 8 * c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(
+          sdO + (c / 8) * S::kResBlock + gmma::sw128(64 * cw + r, c % 8));
       const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
       const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
@@ -403,229 +475,304 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int off = CPR / 2; off > 0; off >>= 1) {
       part += __shfl_xor_sync(0xffffffffu, part, off);
     }
-    if (e % CPR == 0) {
-      sDelta[r] = part;
-      if (t < n) delta[static_cast<long long>(bh) * n + t] = part;
+    if (c == 0) {
+      sDelta[64 * cw + r] = part;
+      if (tt < n) delta[static_cast<long long>(bh) * n + tt] = part;
     }
   }
-  __syncthreads();
+  gmma::fence_proxy_async();
+  tma::named_sync(1 + cw, 128);
   float lse_l[2], dlt[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r_lo + 8 * half;
-    lse_l[half] = r < n ? lse[static_cast<long long>(bh) * n + r] * kLog2e : 0.f;
-    dlt[half] = sDelta[warp * 16 + g + 8 * half];
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r_lo + 8 * hh;
+    lse_l[hh] = r < n ? lse[static_cast<long long>(bh) * n + r] * kLog2e
+                      : 0.f;
+    dlt[hh] = sDelta[r - q0];
   }
 
-  float acc[ND][4];
+  unsigned char* sQw = sQ + 64 * cw * 128;     // this warpgroup's rows
+  unsigned char* sdOw = sdO + 64 * cw * 128;
+  float acc[DP / 2], sc[64], dp[64];
 #pragma unroll
-  for (int j = 0; j < ND; ++j) {
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
+  for (int i = 0; i < 64; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t ds[8][4];                   // dS in bf16: 8 k steps of 16 keys
 
-  for (int kj = 0; kj < nk; ++kj) {
-    const int cur = kj & 1;
-    if (kj + 1 < nk) {
-      const int nxt = (cur ^ 1) * TILE;
-      copy_tile<DP, kRows>(sK + nxt, k + base, st, (kj + 1) * kRows, n, D);
-      copy_tile<DP, kRows>(sV + nxt, v + base, st, (kj + 1) * kRows, n, D);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  // one k tile at a time (overlapping two measured no faster)
+  for (int j = 0; j < nk; ++j) {
+    const unsigned char* tK = sK + j % NK * S::kTile;
+    tma::mbar_wait(k_full + j % NK, (j / NK) & 1);
+    tma::mbar_wait(v_full + j % NV, (j / NV) & 1);
+    gmma::wgmma_fence();
+    fw::mma_ss<DP, 128>(sc, sQw, S::kResBlock, tK, fw::kBlock128);
+    fw::mma_ss<DP, 128>(dp, sdOw, S::kResBlock, sV + j % NV * S::kTile,
+                        fw::kBlock128);
+    gmma::wgmma_commit();
+    gmma::wgmma_wait<0>();
+    gmma::hold(sc);
+    gmma::hold(dp);
+    fw::release(v_empty + j % NV, lane);
+
+    // dS = P (dP - delta), P = exp(s - lse) where (row, key) is live
+    const int k0 = j * fw::kKeys;
+    const bool masked = (causal && k0 + fw::kKeys - 1 > wr0) ||
+                        k0 + fw::kKeys > n;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + 8 * jj + 2 * tq4 + (e & 1);
+        const int r = r_lo + 8 * (e >> 1);
+        float p =
+            fw::exp2_fast(fmaf(sc[4 * jj + e], kLog2e, -lse_l[e >> 1]));
+        if (masked && (c >= n || (causal && c > r))) p = 0.f;
+        sc[4 * jj + e] = p * (dp[4 * jj + e] - dlt[e >> 1]);
+      }
     }
-    __syncthreads();
-    const bf16* tK = sK + cur * TILE;
-    const bf16* tV = sV + cur * TILE;
-    const int k0 = kj * kRows;
-
-    float s[NJ][4];
-    mm_abt<DP, kRows>(s, sQ, warp * 16, tK, 0);
-    probs<kRows>(
-        s, (causal && kj == qi) || k0 + kRows > n,
-        [&](int j, int e) {
-          const int c = k0 + 8 * j + 2 * tq + (e & 1);
-          return c < n && !(causal && c > r_lo + 8 * (e >> 1));
-        },
-        [&](int, int e) { return lse_l[e >> 1]; });
-    float dp[NJ][4];
-    mm_abt<DP, kRows>(dp, sdO, warp * 16, tV, 0);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dlt[e >> 1];
-    }
-    mm_pv<DP, kRows>(acc, s, tK, 0);           // dq += dS . K
-    __syncthreads();                   // stage `cur` is refilled next
+    fw::pack_a<8>(ds, sc);
+    gmma::wgmma_fence();
+    fw::mma_rs<DP, 8>(acc, ds, tK, fw::kBlock128);   // dq += dS . K
+    gmma::wgmma_commit();
+    gmma::wgmma_wait<0>();
+    gmma::hold(acc);
+    fw::release(k_empty + j % NK, lane);
   }
-  store_strip<DP>(dq, acc, b, h, H, n, D, q0 + warp * 16, scale);
+  fw::store_rows<DP>(dq, acc, b, h, H, n, D, r_lo, tq4, scale);
 }
 
 template <int DP>
-__host__ __device__ constexpr int dkv_q_rows() { return DP > 64 ? 32 : 64; }
+struct DkvShape : fw::Cta<DP> {
+  using C = fw::Cta<DP>;
+  static constexpr int kStages = DP > 64 ? 3 : 4;
+  static constexpr int kRes = DP / 64 * C::kResBlock;     // [kRows, DP]
+  static constexpr int kQ = DP / 64 * fw::kBlock64;       // [64, DP]
+  static constexpr int kQRows = 64;                       // q rows a stage
+  static constexpr int kBars = 1 + 2 * kStages;
+  static constexpr int kSmem = 1024 + 2 * kRes + 2 * kStages * kQ +
+                               2 * kStages * kQRows * 4 + 8 * kBars;
+  static_assert(C::kPerSm * (kSmem + 1024) <= 233472,
+                "shared memory over the SM's");
+};
 
 template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                         int n, int D, long long sb, long long st,
-                         long long sh, int causal, float scale) {
-  using namespace flash_mma;
-  constexpr int LD = Tile<DP>::LD;
-  constexpr int ND = Tile<DP>::ND;
-  constexpr int BQ = dkv_q_rows<DP>();
-  constexpr int NJ = BQ / 8;
-  constexpr int QT = BQ * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kRows * LD;
-  bf16* sQ = sV + kRows * LD;          // two stages
-  bf16* sdO = sQ + 2 * QT;             // two stages
-  float* sLse = reinterpret_cast<float*>(sdO + 2 * QT);   // two stages
-  float* sDelta = sLse + 2 * BQ;                          // two stages
+__global__ void __launch_bounds__(DkvShape<DP>::kThreads,
+                                  DkvShape<DP>::kPerSm)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tqs,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int n, int D, int causal) {
+  using S = DkvShape<DP>;
+  constexpr int NS = S::kStages;
+  constexpr int NB = DP / 64;
+  constexpr int BQ = S::kQRows;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = tma::align1024(smem_raw);
+  unsigned char* sV = sK + S::kRes;
+  unsigned char* sQ = sV + S::kRes;    // q_s, NS stages
+  unsigned char* sdO = sQ + NS * S::kQ;
+  float* sLse = reinterpret_cast<float*>(sdO + NS * S::kQ);
+  float* sDelta = sLse + NS * BQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + NS * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + NS;
 
   const int ki = blockIdx.x;     // causal: low k tiles have the most q tiles
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const long long base = b * sb + h * sh;
-  const long long cbase = (static_cast<long long>(b) * n * H + h) * D;
-  const long long cst = static_cast<long long>(H) * D;
-  const float* lse_bh = lse + static_cast<long long>(bh) * n;
-  const float* delta_bh = delta + static_cast<long long>(bh) * n;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int k0 = ki * kRows;
-  const int kr_lo = k0 + warp * 16 + g;     // this thread's key rows
+  const int k0 = ki * S::kRows;
   const int nqt = (n + BQ - 1) / BQ;
   const int qj0 = causal ? k0 / BQ : 0;
+  const int wg = threadIdx.x / 128;
 
-  copy_tile<DP, kRows>(sK, k + base, st, k0, n, D);
-  copy_tile<DP, kRows>(sV, v + base, st, k0, n, D);
-  copy_tile<DP, BQ>(sQ, q + base, st, qj0 * BQ, n, D);
-  copy_tile<DP, BQ>(sdO, dout + cbase, cst, qj0 * BQ, n, D);
-  copy_rows<BQ>(sLse, lse_bh, qj0 * BQ, n);
-  copy_rows<BQ>(sDelta, delta_bh, qj0 * BQ, n);
-  cp_commit();
-
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk_acc[j][e] = 0.f;
-      dv_acc[j][e] = 0.f;
+  if (threadIdx.x == 0) {
+    tma::mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      tma::mbar_init(full + s, 1 + 32);   // the TMA thread and warp 1
+      tma::mbar_init(empty + s, S::kConsumerWarps);
     }
+    tma::fence_barrier_init();
   }
+  __syncthreads();
 
-  for (int qj = qj0; qj < nqt; ++qj) {
-    const int cur = (qj - qj0) & 1;
-    if (qj + 1 < nqt) {
-      const int nxt = cur ^ 1;
-      const int q1 = (qj + 1) * BQ;
-      copy_tile<DP, BQ>(sQ + nxt * QT, q + base, st, q1, n, D);
-      copy_tile<DP, BQ>(sdO + nxt * QT, dout + cbase, cst, q1, n, D);
-      copy_rows<BQ>(sLse + nxt * BQ, lse_bh, q1, n);
-      copy_rows<BQ>(sDelta + nxt * BQ, delta_bh, q1, n);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    bf16* tQ = sQ + cur * QT;
-    const bf16* tdO = sdO + cur * QT;
-    const float* tLse = sLse + cur * BQ;
-    const float* tDelta = sDelta + cur * BQ;
-    scale_tile<DP, BQ>(tQ, scale);
-    __syncthreads();
-    const int q0 = qj * BQ;
-
-    // transposed strips: rows are this warp's key rows, columns q rows
-    float s[NJ][4];
-    mm_abt<DP, BQ>(s, sK, warp * 16, tQ, 0);
-    probs<BQ>(
-        s, (causal && q0 < k0 + kRows) || q0 + BQ > n,
-        [&](int j, int e) {
-          const int t = q0 + 8 * j + 2 * tq + (e & 1);
-          return t < n && !(causal && kr_lo + 8 * (e >> 1) > t);
-        },
-        [&](int j, int e) { return tLse[8 * j + 2 * tq + (e & 1)] * kLog2e; });
-    mm_pv<DP, BQ>(dv_acc, s, tdO, 0);          // dV += Pᵀ . dO
-    float dp[NJ][4];
-    mm_abt<DP, BQ>(dp, sV, warp * 16, tdO, 0);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dp[j][e] = s[j][e] * (dp[j][e] - tDelta[8 * j + 2 * tq + (e & 1)]);
+  if (wg == 0) {                       // producer
+    tma::regs_dec<fw::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma::mbar_expect_tx(kv_full, 2 * S::kRes);
+      for (int c = 0; c < NB; ++c) {
+        tma::load_4d(sK + c * S::kResBlock, &tk, kv_full, 64 * c, h, k0, b);
+        tma::load_4d(sV + c * S::kResBlock, &tv, kv_full, 64 * c, h, k0, b);
+      }
+      for (int i = 0; qj0 + i < nqt; ++i) {
+        const int s = i % NS;
+        const int t0 = (qj0 + i) * BQ;
+        tma::mbar_wait(empty + s, ((i / NS) & 1) ^ 1);
+        tma::mbar_expect_tx(full + s, 2 * S::kQ);
+        for (int c = 0; c < NB; ++c) {
+          tma::load_4d(sQ + s * S::kQ + c * fw::kBlock64, &tqs, full + s,
+                       64 * c, h, t0, b);
+          tma::load_4d(sdO + s * S::kQ + c * fw::kBlock64, &tdo, full + s,
+                       64 * c, h, t0, b);
+        }
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      // warp 1 copies each tile's lse and delta (a box of a [B*H, T] row
+      // starting at an odd T is not 16-byte aligned, which TMA refuses)
+      const int l = threadIdx.x - 32;
+      const float* lse_bh = lse + static_cast<long long>(bh) * n;
+      const float* delta_bh = delta + static_cast<long long>(bh) * n;
+      for (int i = 0; qj0 + i < nqt; ++i) {
+        const int s = i % NS;
+        const int t0 = (qj0 + i) * BQ;
+        tma::mbar_wait(empty + s, ((i / NS) & 1) ^ 1);
+        for (int c = l; c < BQ; c += 32) {
+          const bool in = t0 + c < n;
+          sLse[s * BQ + c] = in ? lse_bh[t0 + c] : 0.f;
+          sDelta[s * BQ + c] = in ? delta_bh[t0 + c] : 0.f;
+        }
+        tma::mbar_arrive(full + s);
       }
     }
-    mm_pv<DP, BQ>(dk_acc, dp, tQ, 0);          // dK += dSᵀ . q_s
-    __syncthreads();                           // stage `cur` is refilled next
+    return;
   }
-  store_strip<DP>(dk, dk_acc, b, h, H, n, D, k0 + warp * 16, 1.f);
-  store_strip<DP>(dv, dv_acc, b, h, H, n, D, k0 + warp * 16, 1.f);
-}
 
-template <int DP>
-constexpr size_t dq_mma_smem_bytes() {
-  return 6 * kRows * Tile<DP>::LD * sizeof(bf16) + kRows * sizeof(float);
-}
+  // consumer warpgroup cw: key rows [k0 + 64 cw, k0 + 64 cw + 64)
+  tma::regs_inc<S::kConsumerRegs>();
+  const int cw = wg - 1;
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tq4 = lane & 3;
+  const int wk0 = k0 + 64 * cw;
+  const int kr_lo = wk0 + 16 * (t >> 5) + g;   // key rows kr_lo, kr_lo + 8
+  const unsigned char* sKw = sK + 64 * cw * 128;
+  const unsigned char* sVw = sV + 64 * cw * 128;
 
-template <int DP>
-constexpr size_t dkv_mma_smem_bytes() {
-  return (2 * kRows + 4 * dkv_q_rows<DP>()) * Tile<DP>::LD * sizeof(bf16) +
-         4 * dkv_q_rows<DP>() * sizeof(float);
-}
+  float dk_acc[DP / 2], dv_acc[DP / 2], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t pa[4][4], da[4][4];         // Pᵀ and dSᵀ in bf16: 4 k steps
+  tma::mbar_wait(kv_full, 0);
 
-template <int DP>
-int launch_dq_mma(const Args& a) {
-  const size_t smem = dq_mma_smem_bytes<DP>();
-  static bool opted_in = false;   // once, before any CUDA-graph capture
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_mma_kernel<DP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
+  // one q tile at a time: at D = 128 the dK and dV accumulators take 128
+  // registers a thread, too many to hold a second tile's Sᵀ and dPᵀ beside
+  // them, and at D = 64 overlapping two tiles measured no faster
+  for (int i = 0; qj0 + i < nqt; ++i) {
+    const int s = i % NS;
+    const unsigned char* tQ = sQ + s * S::kQ;
+    const unsigned char* tdO = sdO + s * S::kQ;
+    // transposed products Sᵀ = K.q_sᵀ, dPᵀ = V.dOᵀ: rows are this
+    // warpgroup's keys, columns the tile's q rows (a tile that the causal
+    // mask hides from all of them gives Pᵀ = dSᵀ = 0)
+    tma::mbar_wait(full + s, (i / NS) & 1);
+    gmma::wgmma_fence();
+    fw::mma_ss<DP, 64>(st, sKw, S::kResBlock, tQ, fw::kBlock64);
+    fw::mma_ss<DP, 64>(dpt, sVw, S::kResBlock, tdO, fw::kBlock64);
+    gmma::wgmma_commit();
+    gmma::wgmma_wait<0>();
+    gmma::hold(st);
+    gmma::hold(dpt);
+
+    // Pᵀ = exp(s - lse) where (q row, key) is live, dSᵀ = Pᵀ (dPᵀ - delta)
+    const int q0 = (qj0 + i) * BQ;
+    const float* tLse = sLse + s * BQ;
+    const float* tDelta = sDelta + s * BQ;
+    const bool masked = (causal && q0 < wk0 + 64) || q0 + BQ > n;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * jj + 2 * tq4 + (e & 1);
+        const int tt = q0 + col;
+        float p = fw::exp2_fast(
+            fmaf(st[4 * jj + e], kLog2e, -tLse[col] * kLog2e));
+        if (masked && (tt >= n || (causal && kr_lo + 8 * (e >> 1) > tt))) {
+          p = 0.f;
+        }
+        st[4 * jj + e] = p;
+        dpt[4 * jj + e] = p * (dpt[4 * jj + e] - tDelta[col]);
+      }
+    }
+    fw::pack_a<4>(pa, st);
+    fw::pack_a<4>(da, dpt);
+    gmma::wgmma_fence();
+    fw::mma_rs<DP, 4>(dv_acc, pa, tdO, fw::kBlock64);    // dV += Pᵀ . dO
+    fw::mma_rs<DP, 4>(dk_acc, da, tQ, fw::kBlock64);     // dK += dSᵀ . q_s
+    gmma::wgmma_commit();
+    gmma::wgmma_wait<0>();
+    gmma::hold(dv_acc);
+    gmma::hold(dk_acc);
+    fw::release(empty + s, lane);
   }
-  dim3 grid((a.n + kRows - 1) / kRows, a.B * a.H);
-  flash_bwd_dq_mma_kernel<DP><<<grid, kMmaThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
-      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<bf16*>(a.dq), static_cast<float*>(a.delta), a.H, a.n, a.D,
-      a.sb, a.st, a.sh, a.causal, a.scale);
+  fw::store_rows<DP>(dk, dk_acc, b, h, H, n, D, kr_lo, tq4, 1.f);
+  fw::store_rows<DP>(dv, dv_acc, b, h, H, n, D, kr_lo, tq4, 1.f);
+}
+
+template <int DP>
+int launch_dq_wgmma(const Args& a) {
+  using S = DqShape<DP>;
+  static bool opted_in = false;
+  if (int err = fw::opt_in(flash_bwd_dq_wgmma_kernel<DP>, S::kSmem,
+                           opted_in)) {
+    return err;
+  }
+  // O and dO are contiguous [B, n, H, D]
+  const long long sh = a.D, st = sh * a.H, sb = st * a.n;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tma::rows_map(&tq, a.q, a.B, a.n, a.H, a.D, a.sb, a.st, a.sh,
+                     S::kRows) ||
+      !tma::rows_map(&tk, a.k, a.B, a.n, a.H, a.D, a.sb, a.st, a.sh,
+                     fw::kKeys) ||
+      !tma::rows_map(&tv, a.v, a.B, a.n, a.H, a.D, a.sb, a.st, a.sh,
+                     fw::kKeys) ||
+      !tma::rows_map(&tdo, a.dout, a.B, a.n, a.H, a.D, sb, st, sh,
+                     S::kRows)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  dim3 grid((a.n + S::kRows - 1) / S::kRows, a.B * a.H);
+  flash_bwd_dq_wgmma_kernel<DP><<<grid, S::kThreads, S::kSmem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(a.o),
+      static_cast<const float*>(a.lse), static_cast<bf16*>(a.dq),
+      static_cast<float*>(a.delta), static_cast<bf16*>(a.qs), a.H, a.n, a.D,
+      a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
-int launch_dkv_mma(const Args& a) {
-  const size_t smem = dkv_mma_smem_bytes<DP>();
-  static bool opted_in = false;   // once, before any CUDA-graph capture
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_mma_kernel<DP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
+int launch_dkv_wgmma(const Args& a) {
+  using S = DkvShape<DP>;
+  static bool opted_in = false;
+  if (int err = fw::opt_in(flash_bwd_dkv_wgmma_kernel<DP>, S::kSmem,
+                           opted_in)) {
+    return err;
   }
-  dim3 grid((a.n + kRows - 1) / kRows, a.B * a.H);
-  flash_bwd_dkv_mma_kernel<DP><<<grid, kMmaThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.n, a.D,
-      a.sb, a.st, a.sh, a.causal, a.scale);
+  // q_s and dO are contiguous [B, n, H, D]
+  const long long sh = a.D, st = sh * a.H, sb = st * a.n;
+  CUtensorMap tqs, tk, tv, tdo;
+  if (!tma::rows_map(&tqs, a.qs, a.B, a.n, a.H, a.D, sb, st, sh,
+                     S::kQRows) ||
+      !tma::rows_map(&tk, a.k, a.B, a.n, a.H, a.D, a.sb, a.st, a.sh,
+                     S::kRows) ||
+      !tma::rows_map(&tv, a.v, a.B, a.n, a.H, a.D, a.sb, a.st, a.sh,
+                     S::kRows) ||
+      !tma::rows_map(&tdo, a.dout, a.B, a.n, a.H, a.D, sb, st, sh,
+                     S::kQRows)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  dim3 grid((a.n + S::kRows - 1) / S::kRows, a.B * a.H);
+  flash_bwd_dkv_wgmma_kernel<DP>
+      <<<grid, S::kThreads, S::kSmem, a.stream>>>(
+          tqs, tk, tv, tdo, static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
+          static_cast<bf16*>(a.dv), a.H, a.n, a.D, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -637,29 +784,32 @@ bool bad_shape(int B, int n, int H, int D) {
 }  // namespace
 
 // C entry points, bound with ctypes. q, k, v [B, n, H, D] share the element
-// strides (sb, st, sh) with a unit last stride; o, dout and the gradients
-// are contiguous [B, n, H, D] in the input type; lse and delta are
-// [B*H, n] fp32. bf16 = 1 for bfloat16 inputs (the tensor-core route: D %
-// 8 == 0, strides multiples of 8 elements, 16-byte aligned pointers), 0 for
-// fp32 (the SIMT route). Each launches one
-// kernel on `stream` without synchronising and returns cudaGetLastError()
-// (0 = cudaSuccess). Call flash_attention_bwd_dq first: it writes the delta
-// that flash_attention_bwd_dkv reads.
+// strides (sb, st, sh) with a unit last stride; o, dout, qs and the
+// gradients are contiguous [B, n, H, D] in the input type; lse and delta
+// are [B*H, n] fp32. bf16 = 1 for bfloat16 inputs (the tensor-core route:
+// D % 8 == 0, strides multiples of 8 elements, 16-byte aligned pointers),
+// 0 for fp32 (the SIMT route, which takes qs = nullptr and scales q
+// itself). Each launches one kernel on `stream` without synchronising and
+// returns cudaGetLastError() (0 = cudaSuccess), or cudaErrorNotSupported
+// when cuTensorMapEncodeTiled refuses a tensor map. Call
+// flash_attention_bwd_dq first: it writes the delta that
+// flash_attention_bwd_dkv reads and, in bf16, the scaled q (qs =
+// round_bf16(q * scale)) that the dk/dv kernel streams.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
-                                      void* delta, void* dq, int B, int n,
-                                      int H, int D, long long sb, long long st,
-                                      long long sh, int causal, float scale,
-                                      int bf16, void* stream) {
+                                      void* delta, void* dq, void* qs, int B,
+                                      int n, int H, int D, long long sb,
+                                      long long st, long long sh, int causal,
+                                      float scale, int bf16, void* stream) {
   if (bad_shape(B, n, H, D)) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, B, n, H, D,
+  Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, qs, B, n, H, D,
          sb, st, sh, causal, scale, static_cast<cudaStream_t>(stream)};
   if (bf16) {
-    if (!flash_mma::aligned(D, sb, st, sh, {q, k, v, o, dout, dq})) {
+    if (!flash_mma::aligned(D, sb, st, sh, {q, k, v, o, dout, dq, qs})) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return D <= 64 ? launch_dq_mma<64>(a) : launch_dq_mma<128>(a);
+    return D <= 64 ? launch_dq_wgmma<64>(a) : launch_dq_wgmma<128>(a);
   }
   return D <= 64 ? launch_dq<64>(a) : launch_dq<128>(a);
 }
@@ -667,19 +817,20 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
-                                       void* dk, void* dv, int B, int n, int H,
-                                       int D, long long sb, long long st,
+                                       void* dk, void* dv, const void* qs,
+                                       int B, int n, int H, int D,
+                                       long long sb, long long st,
                                        long long sh, int causal, float scale,
                                        int bf16, void* stream) {
   if (bad_shape(B, n, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk,
-         dv, B, n, H, D, sb, st, sh, causal, scale,
+         dv, const_cast<void*>(qs), B, n, H, D, sb, st, sh, causal, scale,
          static_cast<cudaStream_t>(stream)};
   if (bf16) {
-    if (!flash_mma::aligned(D, sb, st, sh, {q, k, v, dout, dk, dv})) {
+    if (!flash_mma::aligned(D, sb, st, sh, {k, v, dout, dk, dv, qs})) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return D <= 64 ? launch_dkv_mma<64>(a) : launch_dkv_mma<128>(a);
+    return D <= 64 ? launch_dkv_wgmma<64>(a) : launch_dkv_wgmma<128>(a);
   }
   return D <= 64 ? launch_dkv<64>(a) : launch_dkv<128>(a);
 }

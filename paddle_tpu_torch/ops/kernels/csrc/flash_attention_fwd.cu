@@ -21,10 +21,9 @@
 //         shared-memory tiles (flash_attention_common.cuh), exact fp32
 //         products, the JAX package's 2e-5 contract. Tensor cores would
 //         round fp32 operands to TF32 and break it.
-//   bf16  `flash_fwd_mma_kernel`: the products on the tensor cores
-//         (mma.sync m16n8k16, bf16 operands, fp32 accumulators;
-//         flash_attention_mma.cuh), which is exactly the contract's bf16
-//         operands with fp32 sums.
+//   bf16  `flash_fwd_wgmma_kernel`: the products on the tensor cores by
+//         wgmma (bf16 operands, fp32 accumulators), which is exactly the
+//         contract's bf16 operands with fp32 sums.
 //
 // What bounds it on the H100: at the main path's B = 16, H = 12, T = 1024,
 // D = 64 causal bf16, the work is 4 * D flops per live (q, k) pair, 25.8
@@ -33,30 +32,37 @@
 // B = 4, H = 16, T = 2048, D = 128 the flops bound it: 68.7 GFLOP, 0.070 ms.
 //
 // Design. The TPU walks a sequential (BH, nq, nk) grid and carries (m, l,
-// acc) in scratch across the k steps. Here one CTA owns one (b*h, 64-row q
-// tile) and loops over the 64-row k tiles itself, only up to the diagonal
-// when causal; m, l and acc live in registers. q tiles are scheduled
-// longest-first so the causal triangle's long rows start early. Any T
-// works: the kernels mask the ragged last tile themselves.
-//   fp32: 256 threads, (ty, tx) ownership of 64 x 64 score tiles; D <= 128
-//   (tiles padded to DP = 64 or 128 columns).
-//   bf16: 4 warps, each owning 16 q rows (32 at D = 128, `fwd_m_tiles`),
-//   so a CTA takes 64 (128) q rows. The q tile is copied once, scaled in
-//   fp32 and rounded to bf16 in shared memory; at D <= 64 a warp holds its
-//   A fragments in registers for the whole k loop. K and V tiles of 64
-//   rows stream through a 2-stage cp.async ring: the next tile's copy is
-//   issued before the current tile's products. S = q.kᵀ stays in
-//   registers; the row max and sum are taken over the 4 lanes of a quad;
-//   P = exp2(s log2(e) - m log2(e)) is rounded to bf16 and packed in
-//   registers as the A operand of P . V (V through ldmatrix.trans), so P
-//   never touches shared memory. Only tiles that cross the diagonal and a
-//   ragged last tile are masked; a warp skips a tile its causal rows do not
-//   reach. Shared memory: the q tile and 2 stages of K and V, padded bf16,
-//   46 KB at D <= 64 and 104 KB at D = 128 (two CTAs per SM). The wrapper
-//   gives this route D % 8 == 0 and 16-byte aligned rows (it zero-pads D
-//   and copies misaligned operands); the entry point refuses anything else.
+// acc) in scratch across the k steps. Here a CTA owns a (b*h, q tile) and
+// loops over the k tiles itself, only up to the diagonal when causal; m, l
+// and acc live in registers. Any T works: out-of-range rows come in as
+// zeros and the kernel masks the ragged last tile by column.
+//   fp32: one CTA per (b*h, 64-row q tile), longest first; 256 threads,
+//   (ty, tx) ownership of 64 x 64 score tiles; D <= 128 (tiles padded to DP
+//   = 64 or 128 columns).
+//   bf16: warp-specialized and persistent (tma.cuh,
+//   flash_attention_wgmma.cuh). A CTA is a producer warpgroup and two
+//   consumer warpgroups of 64 q rows at DP = 128 (one CTA an SM), one at
+//   DP = 64 (two CTAs an SM); `setmaxnreg` gives the consumers 240 (232)
+//   registers a thread and leaves the producer 24. The producer's first
+//   thread takes (b*h, q tile) work tiles from a counter in device memory
+//   (fw::Schedule: a few heads at a time, so their K and V stay in L2;
+//   longest first) and loads by TMA from 4-D tensor maps over (D, H, T, B)
+//   (the fused-qkv views in place, zeros past D and past T, 128-byte
+//   swizzle): the q tile into one of two buffers, and K and V tiles of 128
+//   keys through rings of 3 and 2 stages with full and empty mbarriers.
+//   A consumer scales its q rows in fp32 and rounds them to bf16 in place,
+//   then per k tile j: S = q.kᵀ by wgmma m64n128k16 from shared memory;
+//   only tiles that cross the diagonal or the ragged end are masked (by
+//   column: zero-filled keys score 0, not -1e30); the row max and sum over
+//   the 4 lanes of a quad; P = exp2(s log2(e) - m log2(e)) (one SFU
+//   instruction) rounded to bf16 in registers, which are the A operand of O
+//   += P . V by wgmma m64n{DP}k16 (V read MN-major), so P never touches
+//   shared memory. The products of tile j + 1's S and of P_j . V_j are in
+//   flight together, and tile j + 1's softmax runs while P_j . V_j does.
+//   The wrapper gives this route D % 8 == 0, 16-byte aligned rows and
+//   strides that are multiples of 8 elements (TMA's 16-byte stride rule).
 
-#include "flash_attention_mma.cuh"
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -174,218 +180,316 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 // ------------------------------------------------------------ bf16 route
 
-// m-tiles (16 rows each) per warp. A warp of two m-tiles uses each K and V
-// fragment it loads from shared memory twice. Measured on the H100, that
-// is worth its few register spills at D = 128 and gains nothing at D = 64;
-// 128-key tiles were slower at both widths.
+namespace fw = flash_wgmma;
+using fw::bf16;
+
 template <int DP>
-__host__ __device__ constexpr int fwd_m_tiles() {
-  return DP > 64 ? 2 : 1;
+struct FwdShape : fw::Cta<DP> {
+  using C = fw::Cta<DP>;
+  // K leaves its stage when S is done, V when P . V is: the K ring is one
+  // deeper, and the q tile is double-buffered so the next work tile's
+  // loads overlap this one's last products and epilogue
+  static constexpr int kStagesK = 3;
+  static constexpr int kStagesV = 2;
+  static constexpr int kQTile = DP / 64 * C::kResBlock;   // [kRows, DP]
+  static constexpr int kTile = DP / 64 * fw::kBlock128;   // [128, DP]
+  static constexpr int kBars = 4 + 2 * (kStagesK + kStagesV);
+  static constexpr int kSmem = 1024 + 2 * kQTile +
+                               (kStagesK + kStagesV) * kTile + 8 * kBars + 8;
+  static_assert(C::kPerSm * (kSmem + 1024) <= 233472,
+                "shared memory over the SM's");
+};
+
+// One k tile of the online softmax, in place on a consumer thread's share
+// of S [64 rows, 128 keys from k0] (wgmma's accumulator layout): masks the
+// keys past n and, when causal, after each row (only on a tile that crosses
+// the diagonal or the end; rows from r_lo), takes each row's max and sum
+// over the four lanes of a quad, writes P = exp2(s log2(e) - m log2(e)),
+// and updates m and this lane's share of l. alpha[h] = exp2((m_old -
+// m_new) log2(e)) rescales the rows' accumulators.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int k0, int wr0, int r_lo,
+                                             int tq4, int n, int causal) {
+  if ((causal && k0 + fw::kKeys - 1 > wr0) || k0 + fw::kKeys > n) {
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + 8 * jj + 2 * tq4 + (e & 1);
+        const int r = r_lo + 8 * (e >> 1);
+        if (c >= n || (causal && c > r)) sc[4 * jj + e] = fw::kNegInf;
+      }
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = fw::kNegInf;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * hh], sc[4 * jj + 2 * hh + 1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hh], mx);
+    alpha[hh] = fw::exp2_fast((m[hh] - m_new) * fw::kLog2e);
+    const float mL = m_new * fw::kLog2e;
+    float ps = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+        const float p =
+            fw::exp2_fast(fmaf(sc[4 * jj + e], fw::kLog2e, -mL));
+        sc[4 * jj + e] = p;
+        ps += p;
+      }
+    }
+    l[hh] = alpha[hh] * l[hh] + ps;
+    m[hh] = m_new;
+  }
 }
 
+// Persistent: each CTA takes (b*h, q tile) work tiles from `sched` (the
+// CTAs at work together share a few heads, whose K and V stay in L2: all
+// heads' K and V, 64 MB at GPT-3 1.3B's shape, do not fit).
 template <int DP>
-__host__ __device__ constexpr int fwd_q_rows() {
-  return 16 * fwd_m_tiles<DP>() * flash_mma::kWarps;
-}
+__global__ void __launch_bounds__(FwdShape<DP>::kThreads,
+                                  FwdShape<DP>::kPerSm)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ o, float* __restrict__ lse,
+                       fw::Schedule sched, int H, int n, int D, int causal,
+                       float scale) {
+  using S = FwdShape<DP>;
+  constexpr int NK = S::kStagesK;
+  constexpr int NV = S::kStagesV;
+  constexpr int NB = DP / 64;          // 64-column blocks of a row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = tma::align1024(smem_raw);   // two buffers
+  unsigned char* sK = sQ + 2 * S::kQTile;         // NK stages
+  unsigned char* sV = sK + NK * S::kTile;         // NV stages
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + NV * S::kTile);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* k_empty = k_full + NK;
+  uint64_t* v_full = k_empty + NK;
+  uint64_t* v_empty = v_full + NV;
+  int* work = reinterpret_cast<int*>(v_empty + NV);   // one per q buffer
 
-template <int DP>
-__global__ void __launch_bounds__(flash_mma::kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int H, int n, int D, long long sb, long long st,
-                     long long sh, int causal, float scale) {
-  using namespace flash_mma;
-  constexpr int LD = Tile<DP>::LD;
-  constexpr int KD = Tile<DP>::KD;
-  constexpr int ND = Tile<DP>::ND;
-  constexpr int MT = fwd_m_tiles<DP>();
-  constexpr int BM = fwd_q_rows<DP>();
-  constexpr int BN = kRows;            // keys per tile
-  constexpr int NJ = BN / 8;           // n-tiles of a [16, BN] score strip
-  constexpr int TILE = BN * LD;
-  // q fragments stay in registers while they take at most 32 of them
-  constexpr bool kQRegs = MT * KD <= 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BM * LD;             // two stages
-  bf16* sV = sK + 2 * TILE;            // two stages
+  const int nq = sched.tiles;
+  const int nkt = (n + fw::kKeys - 1) / fw::kKeys;   // k tiles of a head
+  const int works = sched.works();
+  // the k tiles a q tile sees: up to its last row when causal
+  auto k_tiles = [&](int qi, int all, int c) {
+    return c ? min(all, ((qi + 1) * S::kRows + fw::kKeys - 1) / fw::kKeys)
+             : all;
+  };
+  const int wg = threadIdx.x / 128;
 
-  const int nq = (n + BM - 1) / BM;
-  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const long long base = b * sb + h * sh;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      tma::mbar_init(q_full + i, 1);
+      tma::mbar_init(q_empty + i, S::kConsumerWarps);
+    }
+    for (int i = 0; i < NK; ++i) {
+      tma::mbar_init(k_full + i, 1);
+      tma::mbar_init(k_empty + i, S::kConsumerWarps);
+    }
+    for (int i = 0; i < NV; ++i) {
+      tma::mbar_init(v_full + i, 1);
+      tma::mbar_init(v_empty + i, S::kConsumerWarps);
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {                       // producer
+    tma::regs_dec<fw::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma::prefetch_map(&tq);
+      tma::prefetch_map(&tk);
+      tma::prefetch_map(&tv);
+      int it = 0;                      // K/V tiles loaded so far
+      for (int wi = 0;; ++wi) {
+        tma::mbar_wait(q_empty + (wi & 1), ((wi >> 1) & 1) ^ 1);
+        const int w = atomicAdd(sched.next, 1);
+        work[wi & 1] = w;              // published by the arrival below
+        if (w >= works) {
+          tma::mbar_arrive(q_full + (wi & 1));
+          break;
+        }
+        int bh, rank;
+        sched.decode(w, bh, rank);
+        const int qi = nq - 1 - rank;
+        const int b = bh / H;
+        const int h = bh % H;
+        const int nk = k_tiles(qi, nkt, causal);
+        unsigned char* q_buf = sQ + (wi & 1) * S::kQTile;
+        tma::mbar_expect_tx(q_full + (wi & 1), S::kQTile);
+        for (int c = 0; c < NB; ++c) {
+          tma::load_4d(q_buf + c * S::kResBlock, &tq, q_full + (wi & 1),
+                       64 * c, h, qi * S::kRows, b);
+        }
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int sk = it % NK;
+          const int sv = it % NV;
+          tma::mbar_wait(k_empty + sk, ((it / NK) & 1) ^ 1);
+          tma::mbar_expect_tx(k_full + sk, S::kTile);
+          for (int c = 0; c < NB; ++c) {
+            tma::load_4d(sK + sk * S::kTile + c * fw::kBlock128, &tk,
+                         k_full + sk, 64 * c, h, j * fw::kKeys, b);
+          }
+          tma::mbar_wait(v_empty + sv, ((it / NV) & 1) ^ 1);
+          tma::mbar_expect_tx(v_full + sv, S::kTile);
+          for (int c = 0; c < NB; ++c) {
+            tma::load_4d(sV + sv * S::kTile + c * fw::kBlock128, &tv,
+                         v_full + sv, 64 * c, h, j * fw::kKeys, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup cw: q rows [64 cw, 64 cw + 64) of each work tile
+  tma::regs_inc<S::kConsumerRegs>();
+  const int cw = wg - 1;
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5;
+  const int lane = t & 31;
   const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int q0 = qi * BM;
-  const int w0 = warp * 16 * MT;       // the warp's first row in the tile
-  const int wr0 = q0 + w0;             // ... and in the sequence
-  const int nkt = (n + BN - 1) / BN;
-  const int nk = causal ? min(nkt, (q0 + BM - 1) / BN + 1) : nkt;
+  const int tq4 = lane & 3;
+  float acc[DP / 2], sc[64], alpha[2], m[2], l[2];
+  uint32_t pa[8][4];                   // P in bf16: 8 k steps of 16 keys
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
 
-  copy_tile<DP, BM>(sQ, q + base, st, q0, n, D);
-  copy_tile<DP, BN>(sK, k + base, st, 0, n, D);
-  copy_tile<DP, BN>(sV, v + base, st, 0, n, D);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-  scale_tile<DP, BM>(sQ, scale);
-  __syncthreads();
-  uint32_t qf[kQRegs ? MT : 1][kQRegs ? KD : 1][4];
-  if constexpr (kQRegs) {
+  int it = 0;                          // K/V tiles consumed so far
+  for (int wi = 0;; ++wi) {
+    tma::mbar_wait(q_full + (wi & 1), (wi >> 1) & 1);
+    const int w = work[wi & 1];
+    if (w >= works) break;
+    int bh, rank;
+    sched.decode(w, bh, rank);
+    const int qi = nq - 1 - rank;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int nk = k_tiles(qi, nkt, causal);
+    const int wr0 = qi * S::kRows + 64 * cw;   // the warpgroup's first row
+    const int r_lo = wr0 + 16 * warp + g;       // rows r_lo, r_lo + 8
+    unsigned char* q_buf = sQ + (wi & 1) * S::kQTile;
+    unsigned char* sQw = q_buf + 64 * cw * 128; // this warpgroup's rows
+
+    fw::scale_rows<DP>(q_buf, S::kResBlock, 64 * cw, t, scale, nullptr, 0,
+                       0, 0);
+    gmma::fence_proxy_async();
+    tma::named_sync(1 + cw, 128);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    m[0] = m[1] = fw::kNegInf;
+    l[0] = l[1] = 0.f;                 // this lane's share of a row sum
+
+    // S and P of k tile 0; then per tile j < nk - 1 the products of tile
+    // j + 1's S and of O += P_j . V_j are in flight together, and the
+    // softmax of tile j + 1 runs while P_j . V_j is on the tensor cores (no
+    // branch around a product inside the loop: ptxas serializes wgmma
+    // where it cannot tell which group a wait retires); the last P . V
+    // after the loop
+    tma::mbar_wait(k_full + it % NK, (it / NK) & 1);
+    gmma::wgmma_fence();
+    fw::mma_ss<DP, 128>(sc, sQw, S::kResBlock, sK + it % NK * S::kTile,
+                        fw::kBlock128);
+    gmma::wgmma_commit();
+    gmma::wgmma_wait<0>();
+    fw::release(k_empty + it % NK, lane);
+    gmma::hold(sc);
+    softmax_tile(sc, m, l, alpha, 0, wr0, r_lo, tq4, n, causal);
+    fw::pack_a<8>(pa, sc);
+    for (int j = 0; j + 1 < nk; ++j) {
+      const int i0 = it + j;
+      const int i1 = i0 + 1;
+      tma::mbar_wait(k_full + i1 % NK, (i1 / NK) & 1);
+      tma::mbar_wait(v_full + i0 % NV, (i0 / NV) & 1);
+      gmma::wgmma_fence();
+      fw::mma_ss<DP, 128>(sc, sQw, S::kResBlock, sK + i1 % NK * S::kTile,
+                          fw::kBlock128);
+      gmma::wgmma_commit();
+      fw::mma_rs<DP, 8>(acc, pa, sV + i0 % NV * S::kTile, fw::kBlock128);
+      gmma::wgmma_commit();
+        gmma::wgmma_wait<1>();           // S of tile j + 1 is in
+      fw::release(k_empty + i1 % NK, lane);
+      gmma::hold(sc);
+      softmax_tile(sc, m, l, alpha, (j + 1) * fw::kKeys, wr0, r_lo, tq4, n,
+                   causal);
+      gmma::wgmma_wait<0>();
+      gmma::hold(acc);
+      fw::release(v_empty + i0 % NV, lane);
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        load_a<DP>(qf[mt][kd], sQ, w0 + 16 * mt, kd * 16);
+      for (int jj = 0; jj < DP / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * jj + e] *= alpha[e >> 1];
       }
+      fw::pack_a<8>(pa, sc);
     }
-  }
-
-  float m[MT][2], l[MT][2];            // l: this lane's share of a row sum
-  float acc[MT][ND][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    m[mt][0] = m[mt][1] = kNegInf;
-    l[mt][0] = l[mt][1] = 0.f;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-    }
-  }
-
-  for (int kj = 0; kj < nk; ++kj) {
-    const int cur = kj & 1;
-    if (kj + 1 < nk) {                 // next tile in flight during this one
-      const int nxt = (cur ^ 1) * TILE;
-      copy_tile<DP, BN>(sK + nxt, k + base, st, (kj + 1) * BN, n, D);
-      copy_tile<DP, BN>(sV + nxt, v + base, st, (kj + 1) * BN, n, D);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tK = sK + cur * TILE;
-    const bf16* tV = sV + cur * TILE;
-    const int k0 = kj * BN;
-    // under the causal mask a warp whose rows all precede the tile skips it
-    if (!(causal && k0 > wr0 + 16 * MT - 1)) {
-      float s[MT][NJ][4];
-      mm_abt<DP, BN, MT>(
-          s,
-          [&](uint32_t (&a)[4], int mt, int kd) {
-            if constexpr (kQRegs) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) a[i] = qf[mt][kd][i];
-            } else {
-              load_a<DP>(a, sQ, w0 + 16 * mt, kd * 16);
-            }
-          },
-          tK, 0);
-      if ((causal && k0 + BN - 1 > wr0) || k0 + BN > n) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int c = k0 + 8 * j + 2 * tq + (e & 1);
-              const int r = wr0 + 16 * mt + g + 8 * (e >> 1);
-              if (c >= n || (causal && c > r)) s[mt][j][e] = kNegInf;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float mx = kNegInf;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            mx = fmaxf(mx, fmaxf(s[mt][j][2 * half], s[mt][j][2 * half + 1]));
-          }
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m[mt][half], mx);
-          const float alpha = exp2f((m[mt][half] - m_new) * kLog2e);
-          const float mL = m_new * kLog2e;
-          float ps = 0.f;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-            for (int e = 2 * half; e < 2 * half + 2; ++e) {
-              const float p = exp2f(fmaf(s[mt][j][e], kLog2e, -mL));
-              s[mt][j][e] = p;
-              ps += p;
-            }
-          }
-          l[mt][half] = alpha * l[mt][half] + ps;
-          m[mt][half] = m_new;
-#pragma unroll
-          for (int j = 0; j < ND; ++j) {
-            acc[mt][j][2 * half] *= alpha;
-            acc[mt][j][2 * half + 1] *= alpha;
-          }
-        }
-      }
-      // acc += P . V, P rounded to bf16 and packed from the registers of s
-      mm_pv<DP, BN, MT>(acc, s, tV, 0);
-    }
-    __syncthreads();                   // stage `cur` is refilled next
-  }
+    const int il = it + nk - 1;
+    tma::mbar_wait(v_full + il % NV, (il / NV) & 1);
+    gmma::wgmma_fence();
+    fw::mma_rs<DP, 8>(acc, pa, sV + il % NV * S::kTile, fw::kBlock128);
+    gmma::wgmma_commit();
+    gmma::wgmma_wait<0>();
+    gmma::hold(acc);
+    fw::release(v_empty + il % NV, lane);
+    fw::release(q_empty + (wi & 1), lane);
+    it += nk;
 
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float lt = l[mt][half];
+    for (int hh = 0; hh < 2; ++hh) {
+      float lt = l[hh];
       lt += __shfl_xor_sync(0xffffffffu, lt, 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const float lc = fmaxf(lt, 1e-30f);
 #pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        acc[mt][j][2 * half] /= lc;
-        acc[mt][j][2 * half + 1] /= lc;
+      for (int jj = 0; jj < DP / 8; ++jj) {
+        acc[4 * jj + 2 * hh] /= lc;
+        acc[4 * jj + 2 * hh + 1] /= lc;
       }
-      const int r = wr0 + 16 * mt + g + 8 * half;
-      if (tq == 0 && r < n) {
-        lse[static_cast<long long>(bh) * n + r] = m[mt][half] + logf(lc);
+      const int r = r_lo + 8 * hh;
+      if (tq4 == 0 && r < n) {
+        lse[static_cast<long long>(bh) * n + r] = m[hh] + logf(lc);
       }
     }
-    store_strip<DP>(o, acc[mt], b, h, H, n, D, wr0 + 16 * mt, 1.f);
+    fw::store_rows<DP>(o, acc, b, h, H, n, D, r_lo, tq4, 1.f);
   }
 }
 
 template <int DP>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int n, int H, int D, long long sb,
-               long long st, long long sh, int causal, float scale,
-               cudaStream_t stream) {
-  constexpr int BM = fwd_q_rows<DP>();
-  const size_t smem = (BM + 4 * flash_mma::kRows) *
-                      flash_mma::Tile<DP>::LD * sizeof(__nv_bfloat16);
-  static bool opted_in = false;   // once, before any CUDA-graph capture
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, void* counter, int B, int n, int H, int D,
+                 long long sb, long long st, long long sh, int causal,
+                 float scale, cudaStream_t stream) {
+  using S = FwdShape<DP>;
+  static bool opted_in = false;
+  if (int err = fw::opt_in(flash_fwd_wgmma_kernel<DP>, S::kSmem,
+                           opted_in)) {
+    return err;
   }
-  dim3 grid((n + BM - 1) / BM, B * H);
-  flash_fwd_mma_kernel<DP><<<grid, flash_mma::kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, n, D, sb, st, sh, causal, scale);
+  CUtensorMap tq, tk, tv;
+  if (!tma::rows_map(&tq, q, B, n, H, D, sb, st, sh, S::kRows) ||
+      !tma::rows_map(&tk, k, B, n, H, D, sb, st, sh, fw::kKeys) ||
+      !tma::rows_map(&tv, v, B, n, H, D, sb, st, sh, fw::kKeys)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const int nq = (n + S::kRows - 1) / S::kRows;
+  // a q tile streams its head's K and V
+  const fw::Schedule sched{static_cast<int*>(counter), B * H, nq,
+                           fw::group_heads(4ll * n * DP, B * H)};
+  const int grid = fw::persistent_grid(B * H * nq, S::kPerSm);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  flash_fwd_wgmma_kernel<DP><<<grid, S::kThreads, S::kSmem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), sched, H,
+      n, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,13 +500,18 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 // contiguous in the input type; lse [B*H, n] fp32. bf16 = 1 for bfloat16
 // inputs (the tensor-core route: D % 8 == 0, strides multiples of 8
 // elements, 16-byte aligned pointers), 0 for fp32 (the SIMT route).
+// `counter` is one int in device memory, zero at the launch, from which the
+// bf16 kernel's CTAs take their work (the fp32 route takes nullptr).
+// Returns cudaErrorNotSupported when cuTensorMapEncodeTiled refuses a
+// tensor map.
 // Launches on `stream` and does not synchronise. Returns
 // cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int B,
-                                   int n, int H, int D, long long sb,
-                                   long long st, long long sh, int causal,
-                                   float scale, int bf16, void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   void* counter, int B, int n, int H, int D,
+                                   long long sb, long long st, long long sh,
+                                   int causal, float scale, int bf16,
+                                   void* stream) {
   if (B <= 0 || n <= 0 || H <= 0 || D <= 0 || D > 128 ||
       static_cast<long long>(B) * H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -412,10 +521,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     if (!flash_mma::aligned(D, sb, st, sh, {q, k, v, o})) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return D <= 64 ? launch_mma<64>(q, k, v, o, lse, B, n, H, D, sb, st, sh,
-                                    causal, scale, s)
-                   : launch_mma<128>(q, k, v, o, lse, B, n, H, D, sb, st,
-                                     sh, causal, scale, s);
+    return D <= 64 ? launch_wgmma<64>(q, k, v, o, lse, counter, B, n, H, D,
+                                      sb, st, sh, causal, scale, s)
+                   : launch_wgmma<128>(q, k, v, o, lse, counter, B, n, H, D,
+                                       sb, st, sh, causal, scale, s);
   }
   return D <= 64 ? launch<64>(q, k, v, o, lse, B, n, H, D, sb, st, sh, causal,
                               scale, s)

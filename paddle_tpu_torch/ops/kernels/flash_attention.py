@@ -31,10 +31,15 @@ Each file has two routes, chosen by the operand type, which is the
 arithmetic contract and not a fallback: fp32 runs fp32 FMAs on the CUDA
 cores (exact fp32 products, the JAX package's 2e-5 / 5e-4 contract, which
 TF32 tensor cores would break); bf16 runs every product on the tensor
-cores (bf16 operands, fp32 accumulators: the contract above). The bf16
-route copies 16-byte chunks, so `_tc_layout` hands it D % 8 == 0 (zero
+cores by wgmma, its tiles loaded by TMA (bf16 operands, fp32
+accumulators: the contract above). The bf16 route's tensor maps take
+16-byte rows and strides, so `_tc_layout` hands it D % 8 == 0 (zero
 columns padded on and cut off again: exact, and the scale stays the real
-D's) and 16-byte aligned rows (misaligned operands are copied).
+D's) and 16-byte aligned rows (misaligned operands are copied). Its dq
+kernel also writes q_s = bf16(q * scale) [B, T, H, D], a scratch that the
+dk/dv kernel streams instead of scaling q again at every visit:
+`flash_attention_bwd_dq` returns it and `flash_attention_bwd_dkv` takes
+it (`flash_attention_backward` passes it on and drops it).
 
 ``kernel="reference"`` forces the plain versions on any device (tests, and
 holding the kernels against them on the card). The kernels read q, k, v in
@@ -65,6 +70,9 @@ _FNS = {}
 
 
 def _kernel_fn(lib, name, n_ptr):
+    """The C entry point `name` of csrc/<lib>.cu, built and loaded on first
+    use: n_ptr pointers, then (B, n, H, D), (sb, st, sh), causal, scale,
+    bf16 and the stream."""
     fn = _FNS.get(name)
     if fn is None:
         fn = getattr(_build.load(lib), name)
@@ -215,6 +223,12 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _work_counter(t):
+    """A zeroed int32 in device memory from which a persistent bf16
+    kernel's CTAs take their work tiles."""
+    return torch.zeros(1, dtype=torch.int32, device=t.device)
+
+
 def _launch_fwd(q, k, v, causal, scale):
     global fwd_launches
     q, k, v = _check(q, k, v)
@@ -226,12 +240,14 @@ def _launch_fwd(q, k, v, causal, scale):
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return _cut_d(o, d_in), lse
-    fn = _kernel_fn("flash_attention_fwd", "flash_attention_fwd", 5)
+    fn = _kernel_fn("flash_attention_fwd", "flash_attention_fwd", 6)
     sb, st, sh, _ = q.stride()
+    bf16 = q.dtype == torch.bfloat16
+    counter = _work_counter(q) if bf16 else None
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), B, T, H, D, sb, st, sh, int(causal), scale,
-                int(q.dtype == torch.bfloat16), _stream(q))
+                lse.data_ptr(), counter.data_ptr() if bf16 else None, B, T,
+                H, D, sb, st, sh, int(causal), scale, int(bf16), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
                            f"cudaError {rc}")
@@ -248,7 +264,9 @@ def _bwd_operands(q, k, v, like_q, per_row):
     q, k, v = _check(q, k, v)
     B, T, H, _ = q.shape
     like_q = [t.to(q.dtype).contiguous() for t in like_q]
+    # contiguous fp32 on 16-byte aligned bases (the dk/dv kernel's TMA)
     per_row = [t.float().contiguous() for t in per_row]
+    per_row = [t if t.data_ptr() % 16 == 0 else t.clone() for t in per_row]
     for t, want in [(t, q.shape) for t in like_q] \
             + [(t, (B * H, T)) for t in per_row]:
         if t.shape != want or t.device != q.device:
@@ -268,36 +286,47 @@ def _launch_bwd_dq(q, k, v, o, do, lse, causal, scale):
     q, k, v, (o, do), (lse,), shape = _bwd_operands(q, k, v, (o, do), (lse,))
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty_like(lse)
+    bf16 = q.dtype == torch.bfloat16
+    q_s = torch.empty_like(dq) if bf16 else None
     if dq.numel() == 0:
-        return _cut_d(dq, d_in), delta
-    fn = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dq", 8)
+        return _cut_d(dq, d_in), delta, q_s
+    fn = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dq", 9)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), *shape, int(causal), scale,
-                int(q.dtype == torch.bfloat16), _stream(q))
+                dq.data_ptr(), q_s.data_ptr() if bf16 else None, *shape,
+                int(causal), scale, int(bf16), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: "
                            f"cudaError {rc}")
     dq_launches += 1
-    return _cut_d(dq, d_in), delta
+    return _cut_d(dq, d_in), delta, q_s
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_s):
     global bwd_launches
     d_in = q.shape[-1]
     q, k, v, (do,), (lse, delta), shape = _bwd_operands(q, k, v, (do,),
                                                         (lse, delta))
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (q_s is None or q_s.shape != q.shape or q_s.dtype != q.dtype
+                 or q_s.device != q.device or not q_s.is_contiguous()
+                 or not _aligned(q_s)):
+        raise ValueError(
+            "flash_attention_bwd_dkv: the bf16 kernel streams the q_s that "
+            "flash_attention_bwd_dq returned (contiguous, "
+            f"{tuple(q.shape)} {q.dtype} on {q.device}); got "
+            f"{None if q_s is None else (tuple(q_s.shape), q_s.dtype)}")
     dk = torch.empty_like(q, memory_format=torch.contiguous_format)
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return _cut_d(dk, d_in), _cut_d(dv, d_in)
-    fn = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dkv", 8)
+    fn = _kernel_fn("flash_attention_bwd", "flash_attention_bwd_dkv", 9)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), *shape, int(causal), scale,
-                int(q.dtype == torch.bfloat16), _stream(q))
+                dv.data_ptr(), q_s.data_ptr() if bf16 else None, *shape,
+                int(causal), scale, int(bf16), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv kernel launch failed: "
                            f"cudaError {rc}")
@@ -335,34 +364,39 @@ def flash_attention_forward(q, k, v, causal=False, scale=None, kernel=None):
 
 def flash_attention_bwd_dq(q, k, v, o, do, lse, causal=False, scale=None,
                            kernel=None):
-    """The first backward kernel: (dq, delta = rowsum(dO * O) [B*H, T]);
-    same dispatch as `flash_attention_forward`."""
+    """The first backward kernel: (dq, delta = rowsum(dO * O) [B*H, T],
+    q_s), same dispatch as `flash_attention_forward`. q_s = bf16(q *
+    scale) [B, T, H, D'] (D' = D rounded up to 8) is the bf16 kernel's
+    scratch for `flash_attention_bwd_dkv`; None from the fp32 kernels and
+    the plain versions, which scale q themselves."""
     scale = _scale(q, scale)
     if _plain(kernel, q):
         return flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal,
-                                                scale)
+                                                scale) + (None,)
     return _launch_bwd_dq(q, k, v, o, do, lse, causal, scale)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
-                            scale=None, kernel=None):
+                            scale=None, kernel=None, q_s=None):
     """The second backward kernel: (dk, dv) from lse and the delta of
-    `flash_attention_bwd_dq`; same dispatch."""
+    `flash_attention_bwd_dq`; same dispatch. The bf16 kernel reads the
+    q_s that `flash_attention_bwd_dq` returned and raises without it."""
     scale = _scale(q, scale)
     if _plain(kernel, q):
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal, scale)
-    return _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale, q_s)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, causal=False, scale=None,
                              kernel=None):
     """(dq, dk, dv) from the forward's (o, lse) and the output gradient
-    dO, without autograd: the dq kernel, then the dk/dv kernel."""
-    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale,
-                                       kernel)
+    dO, without autograd: the dq kernel, then the dk/dv kernel (the q_s
+    scratch lives from one to the other)."""
+    dq, delta, q_s = flash_attention_bwd_dq(q, k, v, o, do, lse, causal,
+                                            scale, kernel)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
-                                     kernel)
+                                     kernel, q_s)
     return dq, dk, dv
 
 

@@ -274,11 +274,11 @@ def _tc_emulation(q, k, v, do, causal, scale, tile=64, skip=None):
 
 @pytest.mark.parametrize("T", [1024, 2048])
 def test_tensor_core_softmax_emulation_within_the_bf16_row_gate(T):
-    """Where the tensor-core kernels round P (64-key tiles, exp2 with
-    log2(e) folded in), emulated in PyTorch on bf16 inputs, keeps the worst
-    row of O, dq, dk and dv within 2^-6 of the plain version's row RMS
-    (lse within the fp32 2e-5), while the same emulation with one key
-    tile left out fails that gate."""
+    """Rounding P per 64-key tile (exp2 with log2(e) folded in, as the
+    tensor-core kernels do per tile), emulated in PyTorch on bf16 inputs,
+    keeps the worst row of O, dq, dk and dv within 2^-6 of the plain
+    version's row RMS (lse within the fp32 2e-5), while the same emulation
+    with one key tile left out fails that gate."""
     q, k, v, do = (torch.tensor(a).bfloat16()
                    for a in _qkv_do(T, 1, T, 2, 64))
     scale = 1.0 / math.sqrt(64)
@@ -294,6 +294,138 @@ def test_tensor_core_softmax_emulation_within_the_bf16_row_gate(T):
         assert _row_rel_err(a, b) <= BF16_ROW_REL, name
     cut = _tc_emulation(q, k, v, do, True, scale, skip=0)[0]
     assert _row_rel_err(cut, o) > BF16_ROW_REL
+
+
+def _wgmma_emulation(q, k, v, do, causal, scale, q_s, tile=128, q_tile=64,
+                     skip=None, skip_q=None):
+    """The bf16 wgmma kernels' arithmetic in PyTorch, tile by tile: the
+    forward's online softmax over `tile`-key tiles (`_tc_emulation`); dq
+    summed over the same key tiles in order, dq = (dS . K) * scale; dk and
+    dv summed over `q_tile`-row tiles of q in order, dk = dSᵀ . q_s, dv =
+    Pᵀ . dO, where q_s [B, T, H, D] is the scaled q that the dq kernel
+    writes and the dk/dv kernel reads. `skip` leaves one key tile out of
+    the forward, `skip_q` one q tile out of dk and dv."""
+    bf = torch.bfloat16
+    B, T, H, D = q.shape
+    o, lse = _tc_emulation(q, k, v, do, causal, scale, tile, skip)[:2]
+    qs = q_s.float().transpose(1, 2)
+    kf, vf, dof = (t.float().transpose(1, 2) for t in (k, v, do))
+    lse4 = lse.reshape(B, H, T)[..., None]
+    delta = (dof * o.float().transpose(1, 2)).sum(-1)[..., None]
+    rows = torch.arange(T)[:, None]
+
+    def grads(qr, kr):             # P and dS of q rows qr, keys kr
+        s = qs[:, :, qr] @ kf[:, :, kr].transpose(-1, -2)
+        p = torch.exp2(s * LOG2E - lse4[:, :, qr] * LOG2E)
+        if causal:
+            p = p.masked_fill(torch.arange(T)[kr] > rows[qr], 0.0)
+        dp = dof[:, :, qr] @ vf[:, :, kr].transpose(-1, -2)
+        return p, (p * (dp - delta[:, :, qr])).to(bf).float()
+
+    dq = torch.zeros(B, H, T, D)
+    for k0 in range(0, T, tile):
+        kr = slice(k0, k0 + tile)
+        dq = dq + grads(slice(0, T), kr)[1] @ kf[:, :, kr]
+    dk = torch.zeros(B, H, T, D)
+    dv = torch.zeros(B, H, T, D)
+    for t0 in range(0, T, q_tile):
+        if t0 == skip_q:
+            continue
+        qr = slice(t0, t0 + q_tile)
+        p, ds = grads(qr, slice(0, T))
+        dv = dv + p.to(bf).float().transpose(-1, -2) @ dof[:, :, qr]
+        dk = dk + ds.transpose(-1, -2) @ qs[:, :, qr]
+    return [o, lse] + [g.transpose(1, 2).to(bf) for g in (dq * scale, dk, dv)]
+
+
+def _bf16_case(seed, T, D, H=2):
+    q, k, v, do = (torch.tensor(a).bfloat16()
+                   for a in _qkv_do(seed, 1, T, H, D))
+    scale = 1.0 / math.sqrt(D)
+    q_s = (q.float() * scale).to(torch.bfloat16)
+    assert torch.equal(q_s.float(), tfa._scaled_q(q, scale))
+    return q, k, v, do, scale, q_s
+
+
+@pytest.mark.parametrize("T,D", [(1024, 64), (1024, 128), (2048, 128)])
+def test_wgmma_tile_emulation_within_the_bf16_row_gate(T, D):
+    """The wgmma kernels' tiles (128 keys in the forward and dq, 64 q rows
+    in dk/dv, the backward reading the precomputed q_s), emulated in
+    PyTorch on bf16 inputs, keep the worst row of O, dq, dk and dv within
+    2^-6 of the plain version's row RMS (lse within the fp32 2e-5); the
+    same emulation with one key tile left out of the forward, or one q
+    tile out of dk and dv, fails that gate."""
+    q, k, v, do, scale, q_s = _bf16_case(T + D, T, D)
+    o, lse = tfa.flash_attention_forward(q, k, v, True, scale,
+                                         kernel="reference")
+    want = [o, lse, *tfa.flash_attention_backward(
+        q, k, v, o, lse, do, True, scale, kernel="reference")]
+    got = _wgmma_emulation(q, k, v, do, True, scale, q_s)
+    assert (got[1] - lse).abs().max().item() <= FWD_TOL
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got[:1] + got[2:],
+                          want[:1] + want[2:]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert _row_rel_err(a, b) <= BF16_ROW_REL, name
+    cut = _wgmma_emulation(q, k, v, do, True, scale, q_s, skip=0)[0]
+    assert _row_rel_err(cut, o) > BF16_ROW_REL
+    cut_dv = _wgmma_emulation(q, k, v, do, True, scale, q_s,
+                              skip_q=T - 64)[4]
+    assert _row_rel_err(cut_dv, want[4]) > BF16_ROW_REL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_tile_emulation_matches_jax_pallas(causal):
+    """The same emulation against the JAX package's Pallas kernels in
+    interpret mode (run as test_plain_flash_matches_jax_pallas runs them,
+    in fp32 on the bf16-rounded inputs) at T=256, D=64: O and every
+    gradient within the bf16 row gate."""
+    q, k, v, do, scale, q_s = _bf16_case(31 + causal, 256, 64)
+    jo, _, jg = _jax_forward_and_grads(*(t.float().numpy()
+                                         for t in (q, k, v, do)),
+                                       causal, scale)
+    got = _wgmma_emulation(q, k, v, do, causal, scale, q_s)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got[:1] + got[2:],
+                          [jo] + jg):
+        assert _row_rel_err(a, torch.tensor(b)) <= BF16_ROW_REL, name
+
+
+def test_bf16_dkv_needs_the_dq_kernels_q_s():
+    """The bf16 dk/dv kernel streams the q_s that the dq kernel wrote: its
+    launcher raises before any build or launch when q_s is missing or of
+    another shape, and the backward's per-row operands come out 16-byte
+    aligned."""
+    q, k, v, do = (torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+                   for _ in range(4))
+    lse = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="q_s"):
+        tfa._launch_bwd_dkv(q, k, v, do, lse, lse, True, 0.25, None)
+    with pytest.raises(ValueError, match="q_s"):
+        tfa._launch_bwd_dkv(q, k, v, do, lse, lse, True, 0.25, q[:, :4])
+    odd = torch.zeros(2 * 8 + 1)[1:].view(2, 8)    # 4 bytes off alignment
+    *_, (lse2,), _ = tfa._bwd_operands(q, k, v, (do,), (odd,))
+    assert lse2.data_ptr() % 16 == 0 and torch.equal(lse2, odd)
+    # the plain versions take no q_s and the dq entry returns none
+    dq, delta, none = tfa.flash_attention_bwd_dq(q, k, v, q, do, lse, True)
+    assert none is None and dq.shape == q.shape and delta.shape == (2, 8)
+
+
+def test_missing_nvcc_raises_on_launch(monkeypatch):
+    """The flash wrappers' build step raises without the CUDA toolkit (the
+    C entry points: forward with 6 pointers, dq and dk/dv with 9): no quiet
+    fallback to the plain versions."""
+    from paddle_tpu_torch.ops.kernels import _build
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr(tfa, "_FNS", {})
+    monkeypatch.setattr(_build, "_LIBS", {})
+    for lib, name, n_ptr in (
+            ("flash_attention_fwd", "flash_attention_fwd", 6),
+            ("flash_attention_bwd", "flash_attention_bwd_dq", 9),
+            ("flash_attention_bwd", "flash_attention_bwd_dkv", 9)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tfa._kernel_fn(lib, name, n_ptr)
+    assert {"flash_attention_fwd", "flash_attention_bwd"} <= \
+        set(_build.sources())
 
 
 @pytest.mark.parametrize("T", [64, 128])
