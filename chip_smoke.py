@@ -10,17 +10,29 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. environment: card name and power limit, TF32 off, build every
      kernel under ops/kernels/csrc with nvcc (in parallel) and time it;
   2. each kernel against its plain PyTorch version at the shapes the main
-     path gives it (paged decode attention: B=8, H=12, D=64, pt=16, W=64,
-     P=513, lengths over 1..1024, plus edge cases), max abs error <= 1e-5;
-     kernel, plain and library (gather + scaled_dot_product_attention)
-     device times (CUDA events around the replay of a CUDA graph of many
-     calls, so the host's launch gaps are not counted; the eagerly
-     launched time is printed beside), and the memory/compute bound;
- 2b. the int8 kernels the same way: int8 paged attention on pools made by
-     quantize_kv at phase 2's shapes (<= 1e-4 against its plain version,
-     <= 0.05 against the fp32 attention of the unquantized pools; plus
-     head dims 16 and 128; library = gather + dequantize + sdpa), and,
-     after the HMMA count in the SASS of the int8 matmul's M > 8 kernel
+     path gives it. Paged decode attention (row 1, split-KV: a cluster of
+     8 CTAs per (b, h)): B=8, H=12, D=64, pt=16, W=64 over 12 layers with
+     lengths over 1..1024, its edges (length 1, page multiples, W*pt, a
+     length-1 row with an all-null table), lengths shorter than the split
+     (CTAs with no rows), GPT-3 1.3B's head shape (B=8, H=16, D=128, pt=16,
+     W=128) and its edges, D=16, 18 and 128 at a small shape and pools one
+     element past an aligned address (narrower copies), max abs error
+     <= 1e-5; two calls equal bit for bit; a CUDA graph of one call
+     replayed, then replayed again after its lengths and tables changed in
+     place, both within the gate; the kernel library's launch geometry
+     against decode_attention.split_geometry; registers and spills (the
+     build's -Xptxas -v log); kernel, plain and library (gather +
+     scaled_dot_product_attention) device times (CUDA events around the
+     replay of a CUDA graph of many calls, so the host's launch gaps are
+     not counted; the eagerly launched time is printed beside), and the
+     memory/compute bound, at the path's shape and at 1.3B's;
+ 2b. the int8 kernels the same way: int8 paged attention (row 2, the same
+     split-KV template) on pools made by quantize_kv at phase 2's cases
+     (<= 1e-4 against its plain version, <= 0.05 against the fp32
+     attention of the unquantized pools; library = gather + dequantize +
+     sdpa), with phase 2's bit-equality, graph, geometry, register and
+     timing checks; then, after the HMMA count in the SASS of the int8
+     matmul's M > 8 kernel
      (tensor cores on an exact three-piece bf16 split of x; 0 fails, as
      does any in the M <= 8 GEMV) and ragged shapes, the int8-weight
      matmul over one decode step's 48 block matmuls of the seed-0 GPT-2
@@ -284,221 +296,277 @@ def timings(torch, kernel, plain, library, iters):
             "eager_ms": cuda_ms(torch, kernel, iters)}
 
 
-# ------------------------------------------------------------ phase 2
+# ------------------------------------------------------- phases 2 and 2b
 
-def paged_attention_inputs(torch, np, rng, lengths, L, P, pt, H, D, W):
-    """A random [L, P, pt, H, D] K/V pool, q per layer, and block tables
-    giving every sequence its own random live pages (the rest null)."""
-    B = len(lengths)
-    g = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
-    k = torch.randn((L, P, pt, H, D), generator=g, device="cuda")
-    v = torch.randn((L, P, pt, H, D), generator=g, device="cuda")
-    q = torch.randn((L, B, H, D), generator=g, device="cuda")
+# B, H, D, pt, W of GPT-3 1.3B's heads on 2048-row sequences
+PAGED_1P3B = (8, 16, 128, 16, 128)
+
+
+def make_tables(np, rng, lengths, P, pt, W):
+    """Block tables giving every sequence its own random live pages out
+    of 1..P-1 (the rest null)."""
     perm = rng.permutation(np.arange(1, P))
-    tables = np.zeros((B, W), np.int32)
+    tables = np.zeros((len(lengths), W), np.int32)
     for b, n in enumerate(lengths):
         live = -(-int(n) // pt)
         tables[b, :live] = perm[b * W:b * W + live]
-    return (q, k, v, torch.from_numpy(tables).cuda(),
-            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+    return tables
 
 
-def phase_paged_attention(torch, np):
+class PagedCase:
+    """One shape's inputs over L layers: random fp32 pools [L, P, pt, H,
+    D] with P = B*W + 1 pages (for int8, their quantize_kv codes and
+    scales), q per layer, and block tables giving every sequence its own
+    random live pages; `call(li)` runs layer li's wrapper (kernel=None:
+    the kernel, "reference": the plain version)."""
+
+    def __init__(self, torch, np, rng, lens, L, pt, H, D, W, int8,
+                 null_row=None, keep_fp32=True, misalign=False):
+        from paddle_tpu_torch.quant.kv import quantize_kv
+        B, P = len(lens), len(lens) * W + 1
+        self.B, self.H, self.D, self.pt, self.W = B, H, D, pt, W
+        self.lens, self.int8 = lens, int8
+        g = torch.Generator(device="cuda").manual_seed(
+            int(rng.integers(1 << 30)))
+        k = torch.randn((L, P, pt, H, D), generator=g, device="cuda")
+        v = torch.randn((L, P, pt, H, D), generator=g, device="cuda")
+        self.q = torch.randn((L, B, H, D), generator=g, device="cuda")
+        self.tables = torch.from_numpy(
+            make_tables(np, rng, lens, P, pt, W)).cuda()
+        self.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if null_row is not None:
+            self.tables[null_row].zero_()
+        self.pools = (*quantize_kv(k), *quantize_kv(v)) if int8 else (k, v)
+        if misalign:    # K/V one element past an aligned address
+            self.pools = tuple(
+                t if t.dim() == 4 else torch.empty(
+                    t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+                .view(t.shape).copy_(t) for t in self.pools)
+        self.fp32 = (k, v) if keep_fp32 or not int8 else None
+
+    def call(self, da, li, kernel=None):
+        if self.int8:
+            kq, ks, vq, vs = (t[li] for t in self.pools)
+            return da.paged_decode_attention_quant(
+                self.q[li], kq, ks, vq, vs, self.tables, self.lengths,
+                kernel=kernel)
+        k, v = self.pools
+        return da.paged_decode_attention(self.q[li], k[li], v[li],
+                                         self.tables, self.lengths,
+                                         kernel=kernel)
+
+    def truth(self, da, li):
+        """The fp32 plain version on the unquantized pools."""
+        k, v = self.fp32
+        return da.paged_decode_attention(self.q[li], k[li], v[li],
+                                         self.tables, self.lengths,
+                                         kernel="reference")
+
+    def library(self, torch, F, li):
+        """Gather the table's pages (and dequantize), then one
+        scaled_dot_product_attention with a boolean mask of the live
+        rows."""
+        from paddle_tpu_torch.quant.kv import dequantize_kv
+        B, H, D, S = self.B, self.H, self.D, self.W * self.pt
+        idx = self.tables.long()
+        if self.int8:
+            kq, ks, vq, vs = (t[li] for t in self.pools)
+            kk = dequantize_kv(kq[idx], ks[idx])
+            vv = dequantize_kv(vq[idx], vs[idx])
+        else:
+            kk, vv = self.pools[0][li][idx], self.pools[1][li][idx]
+        live = (torch.arange(S, device="cuda")[None, :]
+                < self.lengths[:, None].long())[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            self.q[li][:, :, None, :],
+            kk.reshape(B, S, H, D).transpose(1, 2),
+            vv.reshape(B, S, H, D).transpose(1, 2), attn_mask=live)[:, :, 0]
+
+    def bytes_flops(self):
+        """What one call must move and compute on these lengths: q in,
+        out, the live K/V rows (int8: codes and a scale per row and
+        head), the live table entries and the lengths."""
+        B, H, D = self.B, self.H, self.D
+        rows = sum(self.lens)
+        pages = sum(-(-n // self.pt) for n in self.lens)
+        if self.int8:
+            return (4 * 2 * B * H * D + 2 * rows * H * (D + 4)
+                    + 4 * (pages + B), 6 * rows * H * D)
+        return 4 * (2 * B * H * D + 2 * rows * H * D + pages + B), \
+            4 * rows * H * D
+
+
+def graph_replay_errs(torch, np, rng, da, case):
+    """Capture one call of layer 0 in a CUDA graph, replay it, then change
+    the lengths and the tables in place (new lengths, new pages) and
+    replay it again: each replay's max abs error against the plain
+    version on the values it ran on."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        case.call(da, 0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = case.call(da, 0)
+    errs = []
+    for step in range(2):
+        if step:
+            lens = [int(x) for x in rng.integers(1, case.W * case.pt + 1,
+                                                 size=case.B)]
+            case.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+            case.tables.copy_(torch.from_numpy(make_tables(
+                np, rng, lens, case.B * case.W + 1, case.pt, case.W)))
+        graph.replay()
+        torch.cuda.synchronize()
+        errs.append((out - case.call(da, 0, "reference")).abs().max().item())
+    del graph
+    return errs
+
+
+def check_split_geometry(da, int8, tag):
+    """The kernel library's own launch geometry against decode_attention.py
+    `split_geometry` (what the CPU tests check), shapes it takes and one
+    it refuses."""
+    import ctypes
+    fn = da._geometry_fn(int8)
+    shapes = ((8, 12, 64, 16, 64), PAGED_1P3B, (3, 4, 16, 4, 8),
+              (1, 1, 2, 1, 1), (8, 12, 64, 16, 20000))
+    for shape in shapes:
+        out = (ctypes.c_int * 7)()
+        rc = fn(*shape, out)
+        try:
+            g = da.split_geometry(*shape, int8=int8)
+            want = [*g["grid"], g["cluster"][0], g["threads"],
+                    g["smem_bytes"], g["stage_rows"]]
+        except ValueError:
+            want = None
+        if (rc != 0) != (want is None) or (want and list(out) != want):
+            raise RuntimeError(f"{tag} geometry at {shape}: kernel rc {rc} "
+                               f"{list(out)}, split_geometry {want}")
+    log(f"{tag} split geometry: the kernel's equals split_geometry at "
+        f"{len(shapes)} shapes (one refused by both); main path "
+        f"{da.split_geometry(8, 12, 64, 16, 64, int8=int8)}")
+
+
+def log_ptxas(lib, tag):
+    """Each entry function's registers and spills from the build log."""
+    from paddle_tpu_torch.ops.kernels import _build
+    logf = _build.build([lib])[lib].with_suffix(".log")
+    if not logf.is_file():
+        raise RuntimeError(f"{tag}: no build log for {lib}")
+    for fn, res in sorted(ptxas_by_kernel(logf.read_text()).items()):
+        log(f"{tag} ptxas {lib} {fn}: registers {res.get('registers')}, "
+            f"spill stores {res.get('spill_stores')} B, spill loads "
+            f"{res.get('spill_loads')} B, static smem {res.get('smem')} B")
+
+
+def phase_paged_attention(torch, np, int8):
+    """Rows 1 (fp32, phase 2) and 2 (int8, phase 2b): the split-KV paged
+    decode-attention kernels against their plain versions at the decode
+    path's shape (B=8, H=12, D=64, pt=16, W=64 over 12 layers, seed-0
+    lengths), its edges (length 1, page multiples, W*pt, a length-1 row
+    with an all-null table), lengths shorter than the split, GPT-3 1.3B's
+    head shape and its edges, head dims 16, 18 and 128 at a small shape,
+    and pools one element past an aligned address;
+    int8 also against the fp32 plain version of the unquantized pools.
+    Then two calls bit-equal, a CUDA graph replayed after its lengths and
+    tables change in place, the geometry, registers and spills, and the
+    times at the path's shape and at 1.3B's."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import decode_attention as da
 
-    B, H, D, pt, W, P, L = 8, 12, 64, 16, 64, 513, 12
+    tag = "PHASE 2b" if int8 else "PHASE 2"
+    name = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
+    tol = INT8_KERNEL_TOL if int8 else KERNEL_TOL
+    B, H, D, pt, W, L = 8, 12, 64, 16, 64, 12
+    bB, bH, bD, bpt, bW = PAGED_1P3B
     rng = np.random.default_rng(0)
     main_len = [int(x) for x in rng.integers(1, W * pt + 1, size=B)]
-    # edge cases: length 1, exact page multiples, the full W*pt, a
-    # padded batch row (length 1, all-null table), one past a page
-    edge_len = [1, 16, 32, W * pt, 1, 17, 1008, 15]
-    err = 0.0
-    for lens in (main_len, edge_len):
-        q, k, v, tables, lengths = paged_attention_inputs(
-            torch, np, rng, lens, L, P, pt, H, D, W)
-        if lens is edge_len:
-            tables[4].zero_()
-        for li in range(L):
-            got = da.paged_decode_attention(q[li], k[li], v[li], tables,
-                                            lengths)
-            want = da.paged_decode_attention(q[li], k[li], v[li], tables,
-                                             lengths, kernel="reference")
+    big_len = [int(x) for x in rng.integers(1, bW * bpt + 1, size=bB)]
+    # tag, lengths, layers, pt, H, D, W, the all-null row; D=18 copies
+    # rows 8 (fp32) or 2 (int8) bytes at a time, "misaligned" pools 4 or 1
+    cases = (
+        ("main", main_len, L, pt, H, D, W, None),
+        ("edges", [1, 16, 32, W * pt, 1, 17, 1008, 15], L, pt, H, D, W, 4),
+        ("short", [1, 2, 3, 5, 7, 8, 9, 1], 2, pt, H, D, W, None),
+        ("1p3b", big_len, 2, bpt, bH, bD, bW, None),
+        ("1p3b-edges", [1, 16, bW * bpt, bW * bpt - 1, 1, 3, 129, 7], 2,
+         bpt, bH, bD, bW, 4),
+        ("d16", [1, 5, 32], 1, 4, 4, 16, 8, None),
+        ("d128", [1, 5, 32], 1, 4, 4, 128, 8, None),
+        ("d18", [1, 5, 32], 1, 4, 4, 18, 8, None),
+        ("misaligned", [1, 5, 32], 2, 4, 4, 64, 8, None))
+    errs, errs32 = {}, {}
+    for ctag, lens, layers, cpt, ch, cd, cw, null in cases:
+        case = PagedCase(torch, np, rng, lens, layers, cpt, ch, cd, cw, int8,
+                         null, misalign=ctag == "misaligned")
+        err = err32 = 0.0
+        for li in range(layers):
+            got = case.call(da, li)
+            want = case.call(da, li, "reference")
+            truth = case.truth(da, li) if int8 else want
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
-                raise RuntimeError("paged_decode_attention: non-finite")
-            err = max(err, (got - want).abs().max().item())
-    if err > KERNEL_TOL:
-        raise RuntimeError(f"paged_decode_attention max abs err {err} "
-                           f"> {KERNEL_TOL}")
-
-    # timing at the main path's shapes: rotate over the L layers' pools
-    # (~300 MB of live K/V) so each launch finds its pages outside L2,
-    # as a decode step's layer loop does
-    q, k, v, tables, lengths = paged_attention_inputs(
-        torch, np, rng, main_len, L, P, pt, H, D, W)
-    idx = tables.long()
-    live = (torch.arange(W * pt, device="cuda")[None, :]
-            < lengths[:, None].long())[:, None, None, :]       # [B,1,1,S]
-
-    def kernel(i):
-        li = i % L
-        return da.paged_decode_attention(q[li], k[li], v[li], tables,
-                                         lengths)
-
-    def plain(i):
-        li = i % L
-        return da.paged_decode_attention(q[li], k[li], v[li], tables,
-                                         lengths, kernel="reference")
-
-    def library(i):
-        li = i % L
-        kk = k[li][idx].reshape(B, W * pt, H, D).transpose(1, 2)
-        vv = v[li][idx].reshape(B, W * pt, H, D).transpose(1, 2)
-        return F.scaled_dot_product_attention(
-            q[li][:, :, None, :], kk, vv, attn_mask=live)[:, :, 0]
-
-    lib_err = (library(0) - plain(0)).abs().max().item()
-    t = timings(torch, kernel, plain, library, 240)
-    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
-    rows = sum(main_len)
-    pages = sum(-(-n // pt) for n in main_len)
-    nbytes = 4 * (2 * B * H * D            # q in, out
-                  + 2 * rows * H * D       # live K and V rows
-                  + pages + B)             # live table entries, lengths
-    flops = 4 * rows * H * D               # q.k and p.v, 2 flops each
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    rec = {"name": "paged_decode_attention", "route": "cuda",
-           "source": "paddle_tpu_torch/ops/kernels/csrc/"
-                     "paged_decode_attention.cu",
-           "replaces": "paddle_tpu/ops/pallas/decode_attention.py:156",
-           "launches": 0, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
-    log(f"PHASE 2 paged_decode_attention B={B} H={H} D={D} pt={pt} W={W} "
-        f"P={P} lengths={main_len} max_abs_err={err:.3e} "
-        f"(gate {KERNEL_TOL}) kernel_ms={ms:.6f} (graph replay; eager "
-        f"launches {t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
-        f"library_ms={library_ms:.6f} (library vs plain err "
-        f"{lib_err:.3e}) bound_ms={rec['bound_ms']:.6f} "
-        f"({rec['bound_by']}, {nbytes} bytes, {flops} flops) "
-        f"kernel_over_bound={ms / rec['bound_ms']:.2f}x")
-    del q, k, v
-    torch.cuda.empty_cache()
-    return rec
-
-
-# ----------------------------------------------------------- phase 2b
-
-def phase_paged_attention_int8(torch, np):
-    import torch.nn.functional as F
-    from paddle_tpu_torch.ops.kernels import decode_attention as da
-    from paddle_tpu_torch.quant.kv import dequantize_kv, quantize_kv
-
-    B, H, D, pt, W, P, L = 8, 12, 64, 16, 64, 513, 12
-    rng = np.random.default_rng(0)           # phase 2's lengths
-    main_len = [int(x) for x in rng.integers(1, W * pt + 1, size=B)]
-    edge_len = [1, 16, 32, W * pt, 1, 17, 1008, 15]
-    err = err32 = 0.0
-    for lens in (main_len, edge_len):
-        q, k, v, tables, lengths = paged_attention_inputs(
-            torch, np, rng, lens, L, P, pt, H, D, W)
-        if lens is edge_len:
-            tables[4].zero_()
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
-        for li in range(L):
-            args = (q[li], kq[li], ks[li], vq[li], vs[li], tables, lengths)
-            got = da.paged_decode_attention_quant(*args)
-            want = da.paged_decode_attention_quant(*args, kernel="reference")
-            truth = da.paged_decode_attention(q[li], k[li], v[li], tables,
-                                              lengths, kernel="reference")
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise RuntimeError("paged_decode_attention_quant: non-finite")
+                raise RuntimeError(f"{name} {ctag}: non-finite")
             err = max(err, (got - want).abs().max().item())
             err32 = max(err32, (got - truth).abs().max().item())
-        del k, v
-    # other head dims the wrapper takes: one char2 per lane (D <= 64) and
-    # two (D = 128)
-    for d in (16, 128):
-        lens = [1, 5, 32]
-        q, k, v, tables, lengths = paged_attention_inputs(
-            torch, np, rng, lens, 1, 3 * 8 + 1, 4, 4, d, 8)
-        kq, ks = quantize_kv(k[0])
-        vq, vs = quantize_kv(v[0])
-        args = (q[0], kq, ks, vq, vs, tables, lengths)
-        got = da.paged_decode_attention_quant(*args)
-        want = da.paged_decode_attention_quant(*args, kernel="reference")
-        torch.cuda.synchronize()
-        err = max(err, (got - want).abs().max().item())
-    if err > INT8_KERNEL_TOL or err32 > INT8_KV_TOL:
-        raise RuntimeError(f"paged_decode_attention_quant max abs err {err} "
-                           f"(gate {INT8_KERNEL_TOL}), vs fp32 {err32} "
-                           f"(gate {INT8_KV_TOL})")
+        errs[ctag], errs32[ctag] = err, err32
+        if ctag == "main":
+            a, b = case.call(da, 0), case.call(da, 0)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{name}: two calls differ")
+            graph_errs = graph_replay_errs(torch, np, rng, da, case)
+        del case
+    err, err32 = max(errs.values()), max(errs32.values())
+    if err > tol or max(graph_errs) > tol or (int8 and err32 > INT8_KV_TOL):
+        raise RuntimeError(f"{name} max abs err {errs} (gate {tol}), graph "
+                           f"replays {graph_errs}, vs fp32 {errs32}")
+    by_case = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+    log(f"{tag} {name} max_abs_err={err:.3e} ({by_case}; gate {tol})"
+        + (f" vs_fp32_err={err32:.3e} (gate {INT8_KV_TOL})" if int8 else "")
+        + f"; two calls bit-equal; CUDA graph replay {graph_errs[0]:.3e}, "
+        f"after the lengths and tables changed in place {graph_errs[1]:.3e}")
+    check_split_geometry(da, int8, tag)
+    log_ptxas(name, tag)
 
-    # timing at the main path's shapes, rotating over the L layers' pools
-    # (~78 MB of live int8 K/V, more than L2 holds) as a decode step does
-    q, k, v, tables, lengths = paged_attention_inputs(
-        torch, np, rng, main_len, L, P, pt, H, D, W)
-    kq, ks = quantize_kv(k)
-    vq, vs = quantize_kv(v)
-    del k, v
-    idx = tables.long()
-    live = (torch.arange(W * pt, device="cuda")[None, :]
-            < lengths[:, None].long())[:, None, None, :]       # [B,1,1,S]
+    def timed(lens, layers, cpt, ch, cd, cw):
+        """Times over `layers` pools in turn (past the 50 MB L2, as a
+        decode step's layer loop finds them)."""
+        case = PagedCase(torch, np, rng, lens, layers, cpt, ch, cd, cw, int8,
+                         keep_fp32=False)
+        lib_err = (case.library(torch, F, 0)
+                   - case.call(da, 0, "reference")).abs().max().item()
+        t = timings(torch, lambda i: case.call(da, i % layers),
+                    lambda i: case.call(da, i % layers, "reference"),
+                    lambda i: case.library(torch, F, i % layers), 240)
+        nbytes, flops = case.bytes_flops()
+        del case
+        torch.cuda.empty_cache()
+        return t, lib_err, nbytes, flops
 
-    def args(i):
-        li = i % L
-        return (q[li], kq[li], ks[li], vq[li], vs[li], tables, lengths)
-
-    def kernel(i):
-        return da.paged_decode_attention_quant(*args(i))
-
-    def plain(i):
-        return da.paged_decode_attention_quant(*args(i), kernel="reference")
-
-    def library(i):
-        li = i % L
-        kk = dequantize_kv(kq[li][idx], ks[li][idx])
-        vv = dequantize_kv(vq[li][idx], vs[li][idx])
-        kk = kk.reshape(B, W * pt, H, D).transpose(1, 2)
-        vv = vv.reshape(B, W * pt, H, D).transpose(1, 2)
-        return F.scaled_dot_product_attention(
-            q[li][:, :, None, :], kk, vv, attn_mask=live)[:, :, 0]
-
-    lib_err = (library(0) - plain(0)).abs().max().item()
-    t = timings(torch, kernel, plain, library, 240)
-    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
-    rows = sum(main_len)
-    pages = sum(-(-n // pt) for n in main_len)
-    nbytes = (4 * 2 * B * H * D            # q in, out (fp32)
-              + 2 * rows * H * (D + 4)     # live int8 K/V rows + scales
-              + 4 * (pages + B))           # live table entries, lengths
-    flops = 6 * rows * H * D               # dequantize k, v; q.k; p.v
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    rec = {"name": "paged_decode_attention_int8", "route": "cuda",
-           "source": "paddle_tpu_torch/ops/kernels/csrc/"
-                     "paged_decode_attention_int8.cu",
-           "replaces": "paddle_tpu/ops/pallas/decode_attention.py:278",
-           "launches": 0, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
-    log(f"PHASE 2b paged_decode_attention_int8 B={B} H={H} D={D} pt={pt} "
-        f"W={W} P={P} lengths={main_len} max_abs_err={err:.3e} (gate "
-        f"{INT8_KERNEL_TOL}) vs_fp32_err={err32:.3e} (gate {INT8_KV_TOL}) "
-        f"kernel_ms={ms:.6f} (graph replay; eager launches "
-        f"{t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
-        f"library_ms={library_ms:.6f} (library vs plain err "
+    t, lib_err, nbytes, flops = timed(main_len, L, pt, H, D, W)
+    rec = kernel_record(
+        name, f"{name}.cu",
+        "paddle_tpu/ops/pallas/decode_attention.py:"
+        + ("278" if int8 else "156"), err, t["ms"], t["plain_ms"],
+        t["library_ms"], nbytes, flops, FP32_FLOPS_PER_S)
+    log(f"{tag} {name} B={B} H={H} D={D} pt={pt} W={W} lengths={main_len} "
+        f"kernel_ms={t['ms']:.6f} (graph replay; eager launches "
+        f"{t['eager_ms']:.6f}) plain_ms={t['plain_ms']:.6f} "
+        f"library_ms={t['library_ms']:.6f} (library vs plain err "
         f"{lib_err:.3e}) bound_ms={rec['bound_ms']:.6f} "
         f"({rec['bound_by']}, {nbytes} bytes, {flops} flops) "
-        f"kernel_over_bound={ms / rec['bound_ms']:.2f}x")
-    del q, kq, vq
-    torch.cuda.empty_cache()
+        f"kernel_over_bound={t['ms'] / rec['bound_ms']:.2f}x")
+    t, lib_err, nbytes, flops = timed(big_len, 4, bpt, bH, bD, bW)
+    b_ms, b_by = bound(nbytes, flops, FP32_FLOPS_PER_S)
+    log(f"{tag} {name} at GPT-3 1.3B's head shape B={bB} H={bH} D={bD} "
+        f"pt={bpt} W={bW} lengths={big_len}: kernel_ms={t['ms']:.6f} "
+        f"(graph replay; eager {t['eager_ms']:.6f}) plain_ms="
+        f"{t['plain_ms']:.6f} library_ms={t['library_ms']:.6f} (library vs "
+        f"plain err {lib_err:.3e}) bound_ms={b_ms:.6f} ({b_by}, {nbytes} "
+        f"bytes) kernel_over_bound={t['ms'] / b_ms:.2f}x")
     return rec
 
 
@@ -1736,16 +1804,22 @@ def phase_flash(torch, power):
     return fwd_rec, dq_rec, dkv_rec, bwd_rec
 
 
-def kernel_record(name, src, replaces, err, ms, plain_ms, library_ms, nbytes,
-                  flops, peak):
+def bound(nbytes, flops, peak):
+    """The least ms the card could take, and what bounds it: the bytes
+    over the HBM rate or the operations over `peak`."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_record(name, src, replaces, err, ms, plain_ms, library_ms, nbytes,
+                  flops, peak):
+    bound_ms, bound_by = bound(nbytes, flops, peak)
     return {"name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 # ------------------------------------------------------------ phase 6
@@ -2595,8 +2669,8 @@ def main():
                                              params_from_numpy)
     from paddle_tpu_torch.quant.ptq import dequantize_params, quantize_params
 
-    records = [phase_paged_attention(torch, np),
-               phase_paged_attention_int8(torch, np)]
+    records = [phase_paged_attention(torch, np, int8=False),
+               phase_paged_attention(torch, np, int8=True)]
     cfg = gpt2_124m()
     t0 = time.perf_counter()
     arrays = init_params_numpy(cfg, seed=0)

@@ -1,8 +1,8 @@
-// The device body shared by the two fp32 decode-attention kernels
-// (q_len == 1): paged_decode_attention.cu walks a block table over a page
-// pool, decode_attention.cu addresses a contiguous [B, cap, H, D] cache in
-// place. Both run one CTA per (b, h); only the address of row t differs,
-// and each kernel passes it in as a functor.
+// The device body of the contiguous-cache fp32 decode-attention kernel
+// (q_len == 1), decode_attention.cu, which addresses a [B, cap, H, D] cache
+// in place. It runs one CTA per (b, h) and takes the address of row t as a
+// functor. (The paged kernels, fp32 and int8, split each (b, h) over a
+// cluster of CTAs instead: paged_decode_split.cuh.)
 //
 // Structure: the CTA's kWarps warps take a strided share of the rows, kRows
 // rows per iteration, so every warp keeps 2 * kRows row loads in flight; a

@@ -13,62 +13,19 @@
 // below the card's flop/byte balance, so it is memory-bound.
 //
 // Design. The TPU kernel walks a sequential (B, H, W) grid, carrying the
-// online-softmax state across grid steps in scratch. Blocks on a GPU run in
-// parallel and in no order, so here one CTA owns one (b, h) pair and loops
-// over the pages itself, reading tables[b, w] in the kernel (in place of
-// the TPU's scalar prefetch). It visits only the ceil(len / pt) pages that
-// hold live rows. The loop over the rows, the per-warp online softmax and
-// the merge are decode_attention_common.cuh's, shared with the contiguous
-// kernel (decode_attention.cu); this file gives it the address of row t,
-// through the block table.
-//
-// Known limit: at the main path's B = 8, H = 12 only 96 CTAs cover the
-// 132 SMs. Splitting each sequence across CTAs (flash-decoding) is later
-// work.
+// online-softmax state across grid steps in scratch. Here the rows of each
+// (b, h) are split over a thread-block cluster of eight CTAs, each CTA
+// streams its share of the rows through cp.async rings and keeps an online
+// softmax, and the cluster merges the eight partial states in rank order
+// through distributed shared memory (paged_decode_split.cuh, shared with
+// the int8 kernel). The block table is read in the kernel, in place of the
+// TPU's scalar prefetch, and only the pages that hold live rows are read.
 //
 // Contract: 1 <= lengths[b] <= W * pt (the kernel clamps to that range),
 // D even and D <= 128, every tensor contiguous; the Python wrapper checks
 // the static part of it.
 
-#include <cuda_runtime.h>
-
-#include "decode_attention_common.cuh"
-
-namespace {
-
-using decode_attn::kMaxD;
-using decode_attn::kWarps;
-
-// row t of sequence b, head h: page tables[b, t / pt], offset t % pt
-struct PagedRows {
-  const int* tbl;
-  int pt;
-  int H;
-  int h;
-  __device__ long long operator()(int t) const {
-    return (static_cast<long long>(tbl[t / pt]) * pt + t % pt) * H + h;
-  }
-};
-
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_attention_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k_pool,
-                              const float* __restrict__ v_pool,
-                              const int* __restrict__ tables,
-                              const int* __restrict__ lengths,
-                              float* __restrict__ out,
-                              int H, int D, int pt, int W, float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = min(max(lengths[b], 1), W * pt);
-  const long long bh = static_cast<long long>(b) * H + h;
-  decode_attn::attend(q + bh * D, k_pool, v_pool, out + bh * D, len, false,
-                      D, scale,
-                      PagedRows{tables + static_cast<long long>(b) * W, pt,
-                                H, h});
-}
-
-}  // namespace
+#include "paged_decode_split.cuh"
 
 // C entry point, bound with ctypes. Shapes: q [B, H, D], k_pool/v_pool
 // [P, pt, H, D], tables [B, W] int32, lengths [B] int32, out [B, H, D];
@@ -78,16 +35,24 @@ extern "C" int paged_decode_attention_f32(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* lengths, void* out, int B, int H, int D, int pt, int W,
     float scale, void* stream) {
-  if (B <= 0 || H <= 0 || D <= 0 || D > kMaxD || (D & 1) || pt <= 0 ||
-      W <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  dim3 grid(H, B);
-  paged_decode_attention_kernel<<<grid, kWarps * 32, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<float*>(out), H, D, pt,
-      W, scale);
-  return static_cast<int>(cudaGetLastError());
+  paged_split::Args<paged_split::F32Rows> a = {};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k_pool);
+  a.v = static_cast<const float*>(v_pool);
+  a.tables = static_cast<const int*>(tables);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<float*>(out);
+  a.H = H;
+  a.D = D;
+  a.pt = pt;
+  a.W = W;
+  a.scale = scale;
+  return paged_split::launch(a, B, static_cast<cudaStream_t>(stream));
+}
+
+// The launch geometry for (B, H, D, pt, W) into out[0..6]
+// (paged_decode_split.cuh `geometry`); 0, or cudaErrorInvalidValue.
+extern "C" int paged_decode_attention_f32_geometry(int B, int H, int D,
+                                                   int pt, int W, int* out) {
+  return paged_split::geometry<paged_split::F32Rows>(B, H, D, pt, W, out);
 }

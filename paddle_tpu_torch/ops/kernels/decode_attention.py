@@ -39,6 +39,13 @@ it on the card); any other value raises.
 kernel (`csrc/paged_decode_attention_int8.cu`), under the same dispatch
 rule.
 
+Both paged kernels split each (b, h) sequence over a thread-block cluster
+of `SPLIT` CTAs (split-KV, `csrc/paged_decode_split.cuh`): CTA r takes rows
+[r*len/SPLIT, (r+1)*len/SPLIT), and CTA 0 merges the partial softmax
+states in rank order. `split_geometry` gives their launch, a function of
+(B, H, D, pt, W) alone, so a CUDA graph of a call stays right when the
+lengths and tables change in place.
+
 `contig_launches` / `launches` / `quant_launches` count kernel launches
 made by this module, so a run can show that its decode path went through
 the kernels.
@@ -53,7 +60,13 @@ import torch
 from . import _build
 
 NEG_INF = -1e30       # the JAX package's mask constant (_common.py NEG_INF)
-MAX_HEAD_DIM = 128    # the kernel keeps up to 4 floats of a row per lane
+MAX_HEAD_DIM = 128    # the kernels keep up to 4 values of a row per lane
+
+# the paged kernels' split (csrc/paged_decode_split.cuh, mirrored here)
+SPLIT = 8                   # kSplit: CTAs per (b, h), one cluster
+SPLIT_WARPS = 4             # kWarps: warps per CTA
+SPLIT_STAGE_BYTES = 2048    # kStageBytes: one warp's stage of K and V rows
+SPLIT_TABLE_BYTES = 8192    # kMaxTableBytes: a CTA's staged table entries
 
 #: Kernel launches made by `decode_attention` in this process.
 contig_launches = 0
@@ -65,6 +78,7 @@ quant_launches = 0
 _CFN = None
 _FN = None
 _QFN = None
+_GEOM = {}
 
 
 def _contig_kernel_fn():
@@ -99,6 +113,49 @@ def _quant_kernel_fn():
         fn.restype = ctypes.c_int
         _QFN = fn
     return _QFN
+
+
+def _geometry_fn(int8):
+    """The kernel library's own `..._geometry` export (for checking
+    `split_geometry` against it on the card)."""
+    if int8 not in _GEOM:
+        lib, name = (("paged_decode_attention_int8",
+                      "paged_decode_attention_int8_geometry") if int8 else
+                     ("paged_decode_attention",
+                      "paged_decode_attention_f32_geometry"))
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _GEOM[int8] = fn
+    return _GEOM[int8]
+
+
+def split_geometry(B, H, D, pt, W, int8=False):
+    """The paged kernels' launch for static shapes (B, H, D, pt, W): the
+    grid (SPLIT, H, B) in clusters of (SPLIT, 1, 1), the threads of a CTA,
+    the dynamic shared memory for the most block-table entries a CTA
+    stages, the rows of one warp's cp.async stage, and the workspace the
+    wrapper allocates (none: the cluster merges in shared memory). It reads
+    no lengths and no tables. Raises ValueError for shapes the kernels do
+    not take; mirrors csrc/paged_decode_split.cuh `launch_shape` and
+    `stage_rows`."""
+    what = "paged_decode_attention"
+    _check_head_dim(what, D)
+    if min(B, H, D, pt, W) <= 0 or max(B, H) > 65535 or W * pt > 1 << 30:
+        raise ValueError(f"{what}: B={B}, H={H}, pt={pt}, W={W} out of the "
+                         "kernels' range")
+    rows = -(-W * pt // SPLIT)              # most rows a CTA takes
+    slots = -(-rows // pt) + 1              # most table entries they span
+    if 4 * slots > SPLIT_TABLE_BYTES:
+        raise ValueError(f"{what}: a block table of W={W} pages of {pt} "
+                         f"rows is too wide for the kernels ({slots} "
+                         f"entries a CTA, at most {SPLIT_TABLE_BYTES // 4})")
+    pairs = 1 if D <= 64 else 2
+    elem = 1 if int8 else 4
+    return {"grid": (SPLIT, H, B), "cluster": (SPLIT, 1, 1),
+            "threads": 32 * SPLIT_WARPS, "smem_bytes": 4 * slots,
+            "stage_rows": SPLIT_STAGE_BYTES // (2 * 64 * pairs * elem),
+            "workspace_bytes": 0}
 
 
 def decode_attention_reference(q, k, v, lengths):
@@ -173,6 +230,8 @@ def _check_shapes(what, q, k_pool, v_pool, tables, lengths):
         raise ValueError(f"{what}: tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {B}")
     _check_head_dim(what, D)
+    if B and H:
+        split_geometry(B, H, D, k_pool.shape[1], tables.shape[1])
 
 
 def _check_contig(q, k, v, lengths):

@@ -18,6 +18,12 @@ kernels and through the port's:
     TPU-profile approximations on the CPU (~3e-5), as in
     tests/test_torch_paged_attention.py; and against the fp32 attention of
     the unquantized pools within 0.05 (the documented int8-KV tolerance);
+  * the int8 kernel's split-KV arithmetic (test_torch_paged_attention.py
+    `split_emulation` with the scales folded as the kernel folds them)
+    within 1e-4 of the plain version, 5e-5 of JAX's reference and Pallas
+    kernel, 1e-4 of float64 over the dequantized pools and 0.05 of the
+    fp32 attention of the unquantized pools; with one CTA's partial state
+    left out it fails the 1e-4 gate;
   * the pool ops on (data, scale) pairs, and the wrappers' checks.
 
 The CUDA kernels run only on a GPU; chip_smoke.py holds them against the
@@ -47,9 +53,12 @@ from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import decode_attention as tda  # noqa: E402
 from paddle_tpu_torch.ops.kernels import quant_matmul as tqm  # noqa: E402
+from tests.test_torch_paged_attention import (  # noqa: E402
+    _split_cases, float64_attention, split_emulation)
 
 ATOL_MM = 1e-5
 ATOL_ATTN = 5e-5
+INT8_KERNEL_TOL = 1e-4    # the int8 attention kernel against its plain version
 INT8_KV_TOL = 0.05
 H = 4
 
@@ -291,6 +300,45 @@ def test_quant_attention_plain_matches_jax(B, D, pt, W, lengths, null_rows):
     truth = tda.paged_decode_attention(
         *(torch.from_numpy(a) for a in (q, k, v, tables, lens))).numpy()
     assert np.abs(got - truth).max() < INT8_KV_TOL
+
+
+@pytest.mark.parametrize("D,pt,W,lengths,null_rows", _split_cases())
+def test_split_emulation_int8_matches_plain_jax_float64_and_fp32(
+        D, pt, W, lengths, null_rows):
+    B = len(lengths)
+    q, (k, v), quant, tables, lens = _attn_inputs(
+        D * 100 + pt + W, B, D, pt, W, lengths, null_rows)
+    kq, ks, vq, vs = (torch.from_numpy(a) for a in quant)
+    tq, tt, tl = (torch.from_numpy(a) for a in (q, tables, lens))
+    got = split_emulation(tq, kq, vq, tt, tl, scales=(ks, vs)).numpy()
+    plain = tda.paged_decode_attention_quant(tq, kq, ks, vq, vs, tt,
+                                             tl).numpy()
+    jargs = [jnp.asarray(a) for a in (q, *quant, tables, lens)]
+    want_pallas = np.asarray(jda.paged_decode_attention_quant(
+        *jargs, kernel="pallas"))
+    deq = [quant[0] * quant[1][..., None], quant[2] * quant[3][..., None]]
+    exact = float64_attention(q, *deq, tables, lens)
+    truth = tda.paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, k, v, tables, lens))).numpy()
+    assert got.shape == (B, H, D) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=INT8_KERNEL_TOL)
+    np.testing.assert_allclose(got, want_pallas, rtol=0, atol=ATOL_ATTN)
+    np.testing.assert_allclose(got, exact, rtol=0, atol=INT8_KERNEL_TOL)
+    assert np.abs(got - truth).max() < INT8_KV_TOL
+
+
+def test_split_emulation_int8_with_a_split_left_out_fails_the_gate():
+    q, _, quant, tables, lens = _attn_inputs(11, 3, 64, 16, 4, [64, 41, 9])
+    kq, ks, vq, vs = (torch.from_numpy(a) for a in quant)
+    tq, tt, tl = (torch.from_numpy(a) for a in (q, tables, lens))
+    plain = tda.paged_decode_attention_quant(tq, kq, ks, vq, vs, tt,
+                                             tl).numpy()
+    full = split_emulation(tq, kq, vq, tt, tl, scales=(ks, vs)).numpy()
+    assert np.abs(full - plain).max() <= INT8_KERNEL_TOL
+    for drop in (0, tda.SPLIT - 1):
+        err = np.abs(split_emulation(tq, kq, vq, tt, tl, scales=(ks, vs),
+                                     drop=drop).numpy() - plain).max()
+        assert not err <= INT8_KERNEL_TOL, (drop, err)
 
 
 def test_pool_ops_on_pairs_and_copy_on_write():
