@@ -31,26 +31,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      (<= 1e-4 against its plain version, <= 0.05 against the fp32
      attention of the unquantized pools; library = gather + dequantize +
      sdpa), with phase 2's bit-equality, graph, geometry, register and
-     timing checks; then, after the HMMA count in the SASS of the int8
-     matmul's M > 8 kernel
-     (tensor cores on an exact three-piece bf16 split of x; 0 fails, as
-     does any in the M <= 8 GEMV) and ragged shapes, the int8-weight
-     matmul over one decode step's 48 block matmuls of the seed-0 GPT-2
-     weights quantized by quantize_params, at M=8 and M=512 (<= 1e-4
-     against its plain version; library = torch.matmul on the fp32
-     weights; at M=512 the bound of the three-product route beside the
-     fp32 one); then one paged_prefill of a 512-token prompt on int8
-     weights and pages beside the fp32 one, in device ms by kernel (the
-     int8 path's time to first token on the card);
- 2c. the contiguous-cache decode attention kernel (row 3) against its
+     timing checks; then the int8-weight matmul: the HMMA count in the
+     SASS of both of its tensor-core kernels (the M > 8 tiled kernel and
+     the M <= 8 GEMV, which splits K over a thread-block cluster, on an
+     exact three-piece bf16 split of x; 0 fails, as does any in the
+     split-K reduce), the GEMV's registers and spills (a spill fails) and
+     its launch geometry against quant_matmul.gemv_geometry, ragged shapes
+     (unaligned operands, K in several passes), then the step's 48 block
+     matmuls of the seed-0 GPT-2 weights quantized by quantize_params, at
+     M=1, 2, 4 and 8 (the GEMV: two calls bit-equal, a CUDA graph replayed
+     after x changed in place) and M=512 (<= 1e-4 against its plain
+     version; library = torch.matmul on the fp32 weights; the bound of
+     the three bf16 products beside the fp32 one), with one launch of
+     each shape timed with its weight in L2; then one paged_prefill of a
+     512-token prompt on int8 weights and pages beside the fp32 one, in
+     device ms by kernel (the int8 path's time to first token on the
+     card);
+ 2c. the contiguous-cache decode attention kernel (row 3: the split-KV
+     template of rows 1-2 with the contiguous row address) against its
      plain version, <= 1e-5 with TF32 off, at the contiguous decode path's
      B=8, H=12, D=64, cap=1024 (lengths over 1..1024), at GPT-3 1.3B's
      head shape (H=16, D=128, cap=2048), at the edge lengths 0, 1, cap
-     and cap+5, and at a ragged B=3, cap=32, H=4, D=16; kernel, plain and
-     library (scaled_dot_product_attention over the [B, H, cap, D] views
-     with a boolean mask of the live rows) device times by graph replay,
-     eager beside them, and the bound, at the path's shape and the 1.3B
-     shape;
+     and cap+5, at lengths shorter than the split (CTAs with no rows), at
+     a cap of 5, at D=16 and 128 and at a ragged B=3, cap=32, H=4, D=16;
+     two calls equal bit for bit; a CUDA graph of one call replayed, then
+     replayed again after its lengths changed in place (0, 1, cap, cap+5
+     among them); the library's launch geometry against
+     decode_attention.contig_split_geometry; registers and spills (a
+     spill fails); kernel, plain and library (scaled_dot_product_attention
+     over the [B, H, cap, D] views with a boolean mask of the live rows)
+     device times by graph replay, eager beside them, and the bound, at
+     the path's shape and the 1.3B shape;
   3. the main path: GPT-2 124M (random weights from seed 0) served by the
      paged DecodeEngine, 8 greedy requests (two sharing a 64-token head),
      every stream done, each token checked against a full forward
@@ -429,7 +440,7 @@ def check_split_geometry(da, int8, tag):
     `split_geometry` (what the CPU tests check), shapes it takes and one
     it refuses."""
     import ctypes
-    fn = da._geometry_fn(int8)
+    fn = da._geometry_fn("int8" if int8 else "paged")
     shapes = ((8, 12, 64, 16, 64), PAGED_1P3B, (3, 4, 16, 4, 8),
               (1, 1, 2, 1, 1), (8, 12, 64, 16, 20000))
     for shape in shapes:
@@ -449,8 +460,9 @@ def check_split_geometry(da, int8, tag):
         f"{da.split_geometry(8, 12, 64, 16, 64, int8=int8)}")
 
 
-def log_ptxas(lib, tag):
-    """Each entry function's registers and spills from the build log."""
+def log_ptxas(lib, tag, no_spills=()):
+    """Each entry function's registers and spills from the build log;
+    raises if a function whose name holds one of `no_spills` spills."""
     from paddle_tpu_torch.ops.kernels import _build
     logf = _build.build([lib])[lib].with_suffix(".log")
     if not logf.is_file():
@@ -459,6 +471,9 @@ def log_ptxas(lib, tag):
         log(f"{tag} ptxas {lib} {fn}: registers {res.get('registers')}, "
             f"spill stores {res.get('spill_stores')} B, spill loads "
             f"{res.get('spill_loads')} B, static smem {res.get('smem')} B")
+        if any(stem in fn for stem in no_spills) and (
+                res.get("spill_stores") or res.get("spill_loads")):
+            raise RuntimeError(f"{tag}: {lib} {fn} spills: {res}")
 
 
 def phase_paged_attention(torch, np, int8):
@@ -570,17 +585,80 @@ def phase_paged_attention(torch, np, int8):
     return rec
 
 
+GEMV_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))   # K, N
+
+
+def check_gemv_geometry(qm, tag):
+    """The kernel library's own GEMV launch geometry against
+    quant_matmul.py `gemv_geometry` (what the CPU tests check): the step's
+    four shapes at every batch rung, ragged ones, and shapes both refuse."""
+    import ctypes
+    fn = qm._geometry_fn()
+    shapes = [(M, N, K) for K, N in GEMV_SHAPES for M in (1, 2, 4, 8)]
+    shapes += [(1, 45, 37), (3, 770, 768), (2, 16, 20000), (9, 768, 768),
+               (0, 768, 768)]
+    for M, N, K in shapes:
+        out = (ctypes.c_int * 8)()
+        rc = fn(M, N, K, out)
+        try:
+            g = qm.gemv_geometry(M, N, K)
+            want = [g["grid"][0], g["grid"][1], g["cluster"][0],
+                    g["threads"], g["smem_bytes"], g["strip"], g["k_steps"],
+                    g["pass_steps"]]
+        except ValueError:
+            want = None
+        if (rc != 0) != (want is None) or (want and list(out) != want):
+            raise RuntimeError(f"{tag} GEMV geometry at M={M} N={N} K={K}: "
+                               f"kernel rc {rc} {list(out)}, gemv_geometry "
+                               f"{want}")
+    log(f"{tag} GEMV geometry: the kernel's equals gemv_geometry at "
+        f"{len(shapes)} shapes (two refused by both); the step's shapes "
+        + ", ".join(f"{K}x{N}: {qm.gemv_geometry(8, N, K)['grid'][:2]}"
+                    for K, N in GEMV_SHAPES))
+
+
+def gemv_graph_errs(torch, qm, g, x, w, s):
+    """Capture one GEMV call in a CUDA graph, replay it, then write new
+    values into x in place and replay again: each replay's max abs error
+    against the plain version on the values it ran on."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.int8_weight_matmul(x, w, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.int8_weight_matmul(x, w, s)
+    errs = []
+    for step in range(2):
+        if step:
+            x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        errs.append((out - qm.int8_weight_matmul(
+            x, w, s, kernel="reference")).abs().max().item())
+    del graph
+    return errs
+
+
 def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
     """The int8-weight matmul over one decode step's 48 block matmuls (12
     layers x qkv, proj, fc1, fc2 of the seed-0 weights), in the step's
     order, so the 85 MB of int8 weights stream from device memory as they
-    do in a step; at M=8 (a decode step at 8 slots: the GEMV, bound by
-    bytes) and M=512 (a prefill of 512 prompt rows: the tensor-core
-    kernel, whose bound is its three bf16 products, the fp32 bound beside
-    it). Returns the M=8 record."""
+    do in a step; at M=1, 2, 4 and 8 (a decode step at each batch rung:
+    the GEMV, a K split in a thread-block cluster on the tensor cores,
+    bound by bytes) and M=512 (a prefill of 512 prompt rows: the tiled
+    tensor-core kernel, whose bound is its three bf16 products, the fp32
+    bound beside it). Before that: the SASS and spills of both kernels,
+    ragged shapes (the scalar, bounds-checked staging; several passes
+    over K), the GEMV's geometry, two GEMV calls bit-equal and a CUDA
+    graph of one replayed after x changed in place. Returns the M=8
+    record."""
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 
     tensor_cores(INT8_TC_KERNELS, "PHASE 2b")
+    log_ptxas("int8_weight_matmul", "PHASE 2b", no_spills=INT8_NO_SPILLS)
+    check_gemv_geometry(qm, "PHASE 2b")
     ws = []
     for i in range(cfg.layers):
         for rel in MATMULS:
@@ -589,24 +667,37 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
                        torch.from_numpy(qarrays[name + "::scale"]).cuda(),
                        torch.from_numpy(arrays[name]).cuda()))
     g = torch.Generator(device="cuda").manual_seed(3)
-    # ragged shapes first: the scalar (unaligned) paths of both kernels
-    err = 0.0
-    for M, K, N in ((1, 37, 45), (3, 768, 770), (8, 36, 48), (70, 37, 45),
-                    (129, 100, 64)):
-        x = torch.randn((M, K), generator=g, device="cuda")
+    # ragged shapes first: the scalar (unaligned) paths of both kernels,
+    # and K in several passes (K=20000 at one 16-column strip). The scales
+    # shrink with sqrt(K / 768) past K=768, so every output has the
+    # magnitude the absolute gate was set for (a sum of K fp32 products
+    # grows as sqrt(K), and so does its rounding)
+    errs = {}
+    for M, K, N, off in ((1, 37, 45, 0), (3, 768, 770, 0), (8, 36, 48, 0),
+                         (2, 1000, 200, 0), (4, 20000, 16, 0),
+                         (8, 768, 768, 1), (70, 37, 45, 0),
+                         (129, 100, 64, 0)):
+        # off=1: x one float past an aligned address (the scalar staging)
+        x = torch.randn((M * K + off,), generator=g, device="cuda")[off:] \
+            .view(M, K)
         w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
                           dtype=torch.int8)
-        s = torch.rand((N,), generator=g, device="cuda") / 127
+        s = torch.rand((N,), generator=g, device="cuda") / 127 \
+            * min(1.0, math.sqrt(768 / K))
         got = qm.int8_weight_matmul(x, w, s)
         want = qm.int8_weight_matmul(x, w, s, kernel="reference")
         torch.cuda.synchronize()
-        err = max(err, (got - want).abs().max().item())
+        errs[f"{M}x{K}x{N}" + ("+1" if off else "")] = \
+            (got - want).abs().max().item()
+    err = max(errs.values())
+    by_shape = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
     if err > INT8_KERNEL_TOL:
         raise RuntimeError(f"int8_weight_matmul ragged shapes max abs err "
-                           f"{err} > {INT8_KERNEL_TOL}")
-    log(f"PHASE 2b int8_weight_matmul ragged shapes max_abs_err={err:.3e}")
+                           f"{by_shape} (gate {INT8_KERNEL_TOL})")
+    log(f"PHASE 2b int8_weight_matmul ragged shapes (M x K x N, +1: x off "
+        f"16-byte alignment) max_abs_err={err:.3e} ({by_shape})")
     out = {}
-    for M in (8, 512):
+    for M in (1, 2, 4, 8, 512):
         xs = {K: torch.randn((M, K), generator=g, device="cuda")
               for K in {w.shape[0] for w, _, _ in ws}}
         err = 0.0
@@ -621,6 +712,25 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
         if err > INT8_KERNEL_TOL:
             raise RuntimeError(f"int8_weight_matmul M={M} max abs err {err} "
                                f"> {INT8_KERNEL_TOL}")
+        extra = ""
+        if M <= qm.GEMV_M:
+            for w, s, _ in ws[:len(MATMULS)]:
+                x = xs[w.shape[0]]
+                a = qm.int8_weight_matmul(x, w, s)
+                b = qm.int8_weight_matmul(x, w, s)
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"int8_weight_matmul M={M}: two "
+                                       f"calls differ")
+            w, s, _ = ws[0]
+            graph_errs = gemv_graph_errs(torch, qm, g,
+                                         xs[w.shape[0]].clone(), w, s)
+            if max(graph_errs) > INT8_KERNEL_TOL:
+                raise RuntimeError(f"int8_weight_matmul M={M} CUDA graph "
+                                   f"replays {graph_errs}")
+            extra = (f"; two calls bit-equal; CUDA graph replay "
+                     f"{graph_errs[0]:.3e}, after x changed in place "
+                     f"{graph_errs[1]:.3e}")
 
         def step(fn):
             def run(_):
@@ -640,10 +750,11 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
         flops = sum(2 * M * w.numel() + M * w.shape[1] for w, _, _ in ws)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_fp32 = flops / FP32_FLOPS_PER_S * 1e3
-        # M > 8 runs three bf16 products on the tensor cores
-        t_ops = (t_fp32 if M <= 8
-                 else 3 * 2 * M * sum(w.numel() for w, _, _ in ws)
-                 / BF16_FLOPS_PER_S * 1e3)
+        # both kernels run three bf16 products on the tensor cores (the
+        # GEMV's 8-row B tile whatever M); the bound counts the M rows
+        # the function needs
+        t_ops = 3 * 2 * M * sum(w.numel() for w, _, _ in ws) \
+            / BF16_FLOPS_PER_S * 1e3
         out[M] = {"name": "int8_weight_matmul", "route": "cuda",
                   "source": "paddle_tpu_torch/ops/kernels/csrc/"
                             "int8_weight_matmul.cu",
@@ -655,23 +766,20 @@ def phase_int8_matmul(torch, np, cfg, qarrays, arrays):
         log(f"PHASE 2b int8_weight_matmul M={M} over one step's "
             f"{len(ws)} block matmuls (K x N: 768x2304, 768x768, 768x3072, "
             f"3072x768 per layer) max_abs_err={err:.3e} (gate "
-            f"{INT8_KERNEL_TOL}) kernel_ms={ms:.6f} (graph replay; eager "
-            f"launches {t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
+            f"{INT8_KERNEL_TOL}){extra} kernel_ms={ms:.6f} (graph replay; "
+            f"eager launches {t['eager_ms']:.6f}) plain_ms={plain_ms:.6f} "
             f"library_ms={library_ms:.6f} (fp32 torch.matmul) "
             f"bound_ms={out[M]['bound_ms']:.6f} ({out[M]['bound_by']}, "
-            f"{nbytes} bytes, {flops} flops"
-            + ("" if M <= 8 else f"; 3 bf16 products on the tensor cores: "
-               f"{t_ops:.6f}; the fp32 bound 2MKN / 67 TFLOP/s: "
-               f"{t_fp32:.6f}") + ") "
-            f"kernel_over_bound={ms / out[M]['bound_ms']:.2f}x")
+            f"{nbytes} bytes, {flops} flops; 3 bf16 products on the tensor "
+            f"cores: {t_ops:.6f}; the fp32 bound 2MKN / 67 TFLOP/s: "
+            f"{t_fp32:.6f}) kernel_over_bound={ms / out[M]['bound_ms']:.2f}x")
         for kn in sorted({tuple(w.shape) for w, _, _ in ws}):
             w, s, wf = next(t for t in ws if tuple(t[0].shape) == kn)
             one = graph_ms(torch, lambda _: qm.int8_weight_matmul(
                 xs[w.shape[0]], w, s), 50)
             b1 = (w.numel() + 4 * (s.numel() + M * w.shape[0]
                                    + M * w.shape[1])) / HBM_BYTES_PER_S
-            f1 = (2 if M <= 8 else 6) * M * w.numel() / (
-                FP32_FLOPS_PER_S if M <= 8 else BF16_FLOPS_PER_S)
+            f1 = 6 * M * w.numel() / BF16_FLOPS_PER_S
             log(f"PHASE 2b int8_weight_matmul M={M} K x N={kn[0]}x"
                 f"{kn[1]} one launch (weight in L2) kernel_ms="
                 f"{one:.6f} bound_ms={max(b1, f1) * 1e3:.6f}")
@@ -740,11 +848,71 @@ def contiguous_attention_inputs(torch, g, L, lengths, cap, H, D):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
+def contig_graph_errs(torch, np, rng, da, q, k, v, lengths):
+    """Capture one decode_attention call in a CUDA graph, replay it, then
+    write new lengths in place (0, 1, cap and past it among them) and
+    replay again: each replay's max abs error against the plain version on
+    the values it ran on."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, v, lengths)
+    errs = []
+    cap = k.shape[1]
+    for step in range(2):
+        if step:
+            lens = [0, 1, cap, cap + 5] + [
+                int(x) for x in rng.integers(1, cap + 1,
+                                             size=len(lengths) - 4)]
+            lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        errs.append((out - da.decode_attention(
+            q, k, v, lengths, kernel="reference")).abs().max().item())
+    del graph
+    return errs
+
+
+def check_contig_geometry(da, tag):
+    """The kernel library's own launch geometry against decode_attention.py
+    `contig_split_geometry` (what the CPU tests check), shapes it takes and
+    ones it refuses."""
+    import ctypes
+    fn = da._geometry_fn("contig")
+    shapes = ((8, 12, 64, 1024), (8, 16, 128, 2048), (3, 4, 16, 32),
+              (1, 1, 2, 1), (4, 4, 64, 5), (8, 12, 63, 1024),
+              (8, 12, 64, 0))
+    for shape in shapes:
+        out = (ctypes.c_int * 7)()
+        rc = fn(*shape, out)
+        try:
+            g = da.contig_split_geometry(*shape)
+            want = [*g["grid"], g["cluster"][0], g["threads"],
+                    g["smem_bytes"], g["stage_rows"]]
+        except ValueError:
+            want = None
+        if (rc != 0) != (want is None) or (want and list(out) != want):
+            raise RuntimeError(f"{tag} geometry at {shape}: kernel rc {rc} "
+                               f"{list(out)}, contig_split_geometry {want}")
+    log(f"{tag} contiguous split geometry: the kernel's equals "
+        f"contig_split_geometry at {len(shapes)} shapes (two refused by "
+        f"both); main path {da.contig_split_geometry(8, 12, 64, 1024)}")
+
+
 def phase_decode_attention(torch, np):
-    """Row 3's kernel (contiguous-cache decode attention) against its
-    plain version at the contiguous decode path's shape, GPT-3 1.3B's head
-    shape, the edge lengths 0, 1, cap and cap + 5, and a ragged small
-    case; then its times at the path's shape, and the 1.3B shape's."""
+    """Row 3's kernel (contiguous-cache decode attention, the split-KV
+    template with the contiguous row address) against its plain version
+    at the contiguous decode path's shape, GPT-3 1.3B's head shape, the
+    edge lengths 0, 1, cap and cap + 5, lengths shorter than the split
+    (CTAs with no rows), a cap shorter than the split, head dims 16 and
+    128 at a small shape, and a ragged small case; two calls bit-equal, a
+    CUDA graph replayed after its lengths change in place, the geometry,
+    registers and spills; then its times at the path's shape, and the
+    1.3B shape's."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import decode_attention as da
 
@@ -755,8 +923,12 @@ def phase_decode_attention(torch, np):
     big_len = [int(x) for x in rng.integers(1, 2048 + 1, size=B)]
     cases = (("gpt2", main_len, cap, H, D),
              ("gpt2-edges", [0, 1, cap, cap + 5], cap, H, D),
+             ("short", [1, 2, 3, 5, 7, 8, 9, 0], cap, H, D),
              ("1p3b", big_len, 2048, 16, 128),
              ("1p3b-edges", [0, 1, 2048, 2048 + 5], 2048, 16, 128),
+             ("cap5", [0, 2, 5, 7], 5, 4, 64),
+             ("d16", [0, 3, 7, 40], 40, 4, 16),
+             ("d128", [0, 3, 7, 40], 40, 4, 128),
              ("ragged", [1, 17, 32], 32, 4, 16))
     errs = {}
     for tag, lens, c, h, d in cases:
@@ -772,11 +944,24 @@ def phase_decode_attention(torch, np):
                 raise RuntimeError(f"decode_attention {tag}: non-finite")
             err = max(err, (got - want).abs().max().item())
         errs[tag] = err
+        if tag == "gpt2":
+            a = da.decode_attention(q[0], k[0], v[0], lengths)
+            b = da.decode_attention(q[0], k[0], v[0], lengths)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise RuntimeError("decode_attention: two calls differ")
+            graph_errs = contig_graph_errs(torch, np, rng, da, q[0], k[0],
+                                           v[0], lengths)
         del q, k, v
     err = max(errs.values())
-    if err > KERNEL_TOL:
-        raise RuntimeError(f"decode_attention max abs err {errs} > "
-                           f"{KERNEL_TOL}")
+    if err > KERNEL_TOL or max(graph_errs) > KERNEL_TOL:
+        raise RuntimeError(f"decode_attention max abs err {errs}, graph "
+                           f"replays {graph_errs} (gate {KERNEL_TOL})")
+    log(f"PHASE 2c decode_attention two calls bit-equal; CUDA graph replay "
+        f"{graph_errs[0]:.3e}, after the lengths changed in place (0, 1, "
+        f"cap, cap+5 among them) {graph_errs[1]:.3e}")
+    check_contig_geometry(da, "PHASE 2c")
+    log_ptxas("decode_attention", "PHASE 2c", no_spills=("split_kernel",))
 
     def timed(lens, c, h, d, layers):
         """Times over `layers` caches in turn (past the 50 MB L2, as a
@@ -1497,11 +1682,14 @@ def profile_kernels(torch, fn, calls):
 
 # the tensor-core kernels, by library, with their count of instantiations:
 # phases 2b, 5 and 8 require HMMA or HGMMA instructions in the SASS of each
-# instantiation (the int8 matmul at M > 8: aligned and scalar loads;
-# flash: D <= 64, 128; the CE forward: one; the CE backward: dx, dW) and
-# none in the library's other (fp32 or GEMV, CUDA-core) kernels; the flash
-# kernels run on wgmma, so phase 5 requires HGMMA and no HMMA in each
-INT8_TC_KERNELS = {"int8_weight_matmul": {"int8_mma_kernel": 2}}
+# instantiation (the int8 matmul: at M > 8 aligned and scalar loads, the
+# M <= 8 GEMV one; flash: D <= 64, 128; the CE forward: one; the CE
+# backward: dx, dW) and none in the library's other (fp32 or split-K
+# reduce, CUDA-core) kernels; the flash kernels run on wgmma, so phase 5
+# requires HGMMA and no HMMA in each
+INT8_TC_KERNELS = {"int8_weight_matmul": {"int8_mma_kernel": 2,
+                                          "int8_gemv_mma_kernel": 1}}
+INT8_NO_SPILLS = ("int8_gemv_mma_kernel",)   # phase 2b's spill gate
 FLASH_TC_KERNELS = {"flash_attention_fwd": {"flash_fwd_wgmma_kernel": 2},
                     "flash_attention_bwd": {"flash_bwd_dq_wgmma_kernel": 2,
                                             "flash_bwd_dkv_wgmma_kernel": 2}}

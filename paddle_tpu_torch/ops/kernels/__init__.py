@@ -6,6 +6,9 @@
   * `decode_attention.paged_decode_attention_quant` — CUDA C++
     (`csrc/paged_decode_attention_int8.cu`), replaces `_paged_quant_kernel`
     of the same file;
+  * `decode_attention.decode_attention` — CUDA C++
+    (`csrc/decode_attention.cu`), replaces `_kernel` of the same file; the
+    three decode-attention kernels share `csrc/paged_decode_split.cuh`;
   * `quant_matmul.int8_weight_matmul` — CUDA C++
     (`csrc/int8_weight_matmul.cu`), replaces `ops/pallas/quant_matmul.py`
     `_mm_kernel`;

@@ -13,61 +13,26 @@
 //
 // What bounds it: bytes. Per launch it must read 2 * H * sum(len) * D * 4
 // bytes of K/V (len = live rows of each sequence) and does 4 flops per K/V
-// element pair, far below the card's flop/byte balance.
+// element pair, far below the card's flop/byte balance. At the decode
+// path's B = 8, H = 12 one CTA per (b, h) left 96 CTAs on 132 SMs, the
+// longest sequence's CTA walking its rows alone: 6.7x the bound.
 //
 // Design. The TPU kernel streams each (b, h) pair's whole [cap, D] panel
 // into VMEM, after the wrapper has transposed k and v to [B*H, cap, D] and
 // built a [1, cap] additive mask row per pair. Here there is no mask
-// tensor and no transposed copy: one CTA owns one (b, h) pair and reads
-// row t of head h in place, at ((b * cap + t) * H + h) * D, and only the
-// live rows. The loop over the rows, the per-warp online softmax and the
-// merge are decode_attention_common.cuh's, shared with the paged kernel
-// (paged_decode_attention.cu), which differs only in how it finds row t.
-//
-// Known limit: at the main path's B = 8, H = 12 only 96 CTAs cover the
-// 132 SMs. Splitting each sequence across CTAs (flash-decoding) is later
-// work.
+// tensor and no transposed copy: the split-KV template of the paged kernels
+// (paged_decode_split.cuh) runs with the contiguous row address
+// `ContiguousRows`, row t of head h at ((b * cap + t) * H + h) * D. Each
+// (b, h) is a cluster of eight CTAs that take an eighth of its live rows
+// each through per-warp cp.async rings and merge their partial softmax
+// states in rank order through distributed shared memory; only live rows
+// are read, and with no block table a row's address needs no load.
 //
 // Contract: any lengths[b] (the kernel clamps it to [0, cap]), cap >= 1,
 // D even and D <= 128, every tensor contiguous; the Python wrapper checks
-// the static part of it.
+// the static part of it. The launch depends on (B, H, D, cap) alone.
 
-#include <cuda_runtime.h>
-
-#include "decode_attention_common.cuh"
-
-namespace {
-
-using decode_attn::kMaxD;
-using decode_attn::kWarps;
-
-// row t of one (b, h) pair: base = b * cap * H + h, then H rows per t
-struct ContiguousRows {
-  long long base;
-  int H;
-  __device__ long long operator()(int t) const {
-    return base + static_cast<long long>(t) * H;
-  }
-};
-
-__global__ void __launch_bounds__(kWarps * 32)
-decode_attention_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ out, int H, int D, int cap,
-                        float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = min(max(lengths[b], 0), cap);
-  const long long bh = static_cast<long long>(b) * H + h;
-  decode_attn::attend(q + bh * D, k, v, out + bh * D, len == 0 ? cap : len,
-                      len == 0, D, scale,
-                      ContiguousRows{static_cast<long long>(b) * cap * H + h,
-                                     H});
-}
-
-}  // namespace
+#include "paged_decode_split.cuh"
 
 // C entry point, bound with ctypes. Shapes: q [B, H, D], k/v
 // [B, cap, H, D], lengths [B] int32, out [B, H, D]; all fp32 unless
@@ -77,14 +42,24 @@ extern "C" int decode_attention_f32(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* out, int B, int H, int D, int cap,
                                     float scale, void* stream) {
-  if (B <= 0 || H <= 0 || D <= 0 || D > kMaxD || (D & 1) || cap <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  dim3 grid(H, B);
-  decode_attention_kernel<<<grid, kWarps * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(out), H, D, cap, scale);
-  return static_cast<int>(cudaGetLastError());
+  paged_split::Args<paged_split::F32Rows, paged_split::ContiguousRows> a =
+      {};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<float*>(out);
+  a.rows = {cap};
+  a.H = H;
+  a.D = D;
+  a.scale = scale;
+  return paged_split::launch(a, B, static_cast<cudaStream_t>(stream));
+}
+
+// The launch geometry for (B, H, D, cap) into out[0..6]
+// (paged_decode_split.cuh `geometry`); 0, or cudaErrorInvalidValue.
+extern "C" int decode_attention_f32_geometry(int B, int H, int D, int cap,
+                                             int* out) {
+  return paged_split::geometry<paged_split::F32Rows>(
+      B, H, D, paged_split::ContiguousRows{cap}, out);
 }

@@ -18,7 +18,7 @@
 // streams its share of the rows through cp.async rings and keeps an online
 // softmax, and the cluster merges the eight partial states in rank order
 // through distributed shared memory (paged_decode_split.cuh, shared with
-// the int8 kernel). The block table is read in the kernel, in place of the
+// the int8 kernel and the contiguous one). The block table is read in the kernel, in place of the
 // TPU's scalar prefetch, and only the pages that hold live rows are read.
 //
 // Contract: 1 <= lengths[b] <= W * pt (the kernel clamps to that range),
@@ -35,17 +35,15 @@ extern "C" int paged_decode_attention_f32(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* lengths, void* out, int B, int H, int D, int pt, int W,
     float scale, void* stream) {
-  paged_split::Args<paged_split::F32Rows> a = {};
+  paged_split::Args<paged_split::F32Rows, paged_split::PagedRows> a = {};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k_pool);
   a.v = static_cast<const float*>(v_pool);
-  a.tables = static_cast<const int*>(tables);
   a.lengths = static_cast<const int*>(lengths);
   a.out = static_cast<float*>(out);
+  a.rows = {static_cast<const int*>(tables), pt, W};
   a.H = H;
   a.D = D;
-  a.pt = pt;
-  a.W = W;
   a.scale = scale;
   return paged_split::launch(a, B, static_cast<cudaStream_t>(stream));
 }
@@ -54,5 +52,6 @@ extern "C" int paged_decode_attention_f32(
 // (paged_decode_split.cuh `geometry`); 0, or cudaErrorInvalidValue.
 extern "C" int paged_decode_attention_f32_geometry(int B, int H, int D,
                                                    int pt, int W, int* out) {
-  return paged_split::geometry<paged_split::F32Rows>(B, H, D, pt, W, out);
+  return paged_split::geometry<paged_split::F32Rows>(
+      B, H, D, paged_split::PagedRows{nullptr, pt, W}, out);
 }

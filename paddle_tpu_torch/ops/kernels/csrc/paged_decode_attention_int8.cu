@@ -43,19 +43,17 @@ extern "C" int paged_decode_attention_int8(
     const void* v_pool, const void* v_scale, const void* tables,
     const void* lengths, void* out, int B, int H, int D, int pt, int W,
     float scale, void* stream) {
-  paged_split::Args<paged_split::I8Rows> a = {};
+  paged_split::Args<paged_split::I8Rows, paged_split::PagedRows> a = {};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const signed char*>(k_pool);
   a.v = static_cast<const signed char*>(v_pool);
   a.k_scale = static_cast<const float*>(k_scale);
   a.v_scale = static_cast<const float*>(v_scale);
-  a.tables = static_cast<const int*>(tables);
   a.lengths = static_cast<const int*>(lengths);
   a.out = static_cast<float*>(out);
+  a.rows = {static_cast<const int*>(tables), pt, W};
   a.H = H;
   a.D = D;
-  a.pt = pt;
-  a.W = W;
   a.scale = scale;
   return paged_split::launch(a, B, static_cast<cudaStream_t>(stream));
 }
@@ -65,5 +63,6 @@ extern "C" int paged_decode_attention_int8(
 extern "C" int paged_decode_attention_int8_geometry(int B, int H, int D,
                                                     int pt, int W,
                                                     int* out) {
-  return paged_split::geometry<paged_split::I8Rows>(B, H, D, pt, W, out);
+  return paged_split::geometry<paged_split::I8Rows>(
+      B, H, D, paged_split::PagedRows{nullptr, pt, W}, out);
 }

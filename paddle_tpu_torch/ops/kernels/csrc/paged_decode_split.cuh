@@ -1,27 +1,35 @@
-// Split-KV ("flash-decoding") paged decode attention for Hopper (sm_90a):
-// the device template behind paged_decode_attention.cu (fp32 pages) and
+// Split-KV ("flash-decoding") decode attention for Hopper (sm_90a): the
+// device template behind paged_decode_attention.cu (fp32 pages),
 // paged_decode_attention_int8.cu (int8 codes with one fp32 scale per
-// (page, row, head)). Both compute softmax(q.k / sqrt(D)) . v over the rows
-// [0, len) of sequence b, row t at page tables[b, t / pt], offset t % pt.
+// (page, row, head)) and decode_attention.cu (a contiguous fp32 cache).
+// All compute softmax(q.k / sqrt(D)) . v over the rows [0, len) of
+// sequence b. Two things vary, each a template parameter:
+//   * the row type R (F32Rows, I8Rows): how a row's pair of elements
+//     becomes floats, and whether scales ride beside the rows;
+//   * the row address A (PagedRows, ContiguousRows): where row t of
+//     sequence b lives. Paged: at page tables[b, t / pt], offset t % pt,
+//     the CTA's table entries staged in shared memory first. Contiguous:
+//     row t of the [B, cap, H, D] cache, index (b cap + t) H + h, with no
+//     table and no dynamic shared memory.
 //
 // Why split. One CTA per (b, h) leaves the time to the longest sequence:
 // at B = 8, H = 12 that is 96 CTAs on 132 SMs, and the CTA of the longest
-// sequence walks its rows in a chain of dependent loads (table entry, then
-// row) long after the others have finished. Here each (b, h) is a
-// thread-block cluster of kSplit CTAs, grid (kSplit, H, B), and CTA r of
-// the cluster takes rows [r len / kSplit, (r + 1) len / kSplit).
+// sequence walks its rows alone long after the others have finished. Here
+// each (b, h) is a thread-block cluster of kSplit CTAs, grid (kSplit, H,
+// B), and CTA r of the cluster takes rows [r len / kSplit, (r + 1) len /
+// kSplit).
 //
 // Per CTA:
-//   1. its range's block-table entries (at most as many as launch_shape
-//      sizes the dynamic shared memory for) go to shared memory once, so
-//      no row copy waits on a table load;
+//   1. (paged) its range's block-table entries (at most as many as
+//      launch_shape sizes the dynamic shared memory for) go to shared
+//      memory once, so no row copy waits on a table load;
 //   2. its kWarps warps take the range's chunks of kRows rows in turn
 //      (chunk c to warp c mod kWarps); each warp streams its chunks through
 //      its own ring of kStages stages by cp.async, kStages - 1 chunks in
-//      flight while it computes one. Every row's address comes from the
-//      staged table, so every copy issues without waiting on a load; the
-//      warp reads back only what it copied, so the rings need no block
-//      barrier, only cp.async.wait_group and __syncwarp;
+//      flight while it computes one. Every row's address is known without
+//      a load, so every copy issues at once; the warp reads back only what
+//      it copied, so the rings need no block barrier, only
+//      cp.async.wait_group and __syncwarp;
 //   3. each warp keeps its own online softmax (max, denominator,
 //      accumulator) in fp32 registers, lane p holding the pairs p and
 //      p + 32 of the head dim. A chunk's kRows dot products are summed
@@ -38,15 +46,22 @@
 // in a fixed order, so two calls give the same bits. A second cluster
 // barrier keeps every CTA's shared memory alive until CTA 0 has read it.
 //
+// Lengths. Paged: clamped to [1, W pt]. Contiguous: clamped to [0, cap],
+// and a length of 0 makes every one of the cap rows live with the same
+// score -1e30 (the plain version masks them all, so its softmax is
+// uniform): p = e^0 = 1 a row, every warp and CTA arrives with m = -1e30,
+// the merge weighs them all e^0 = 1, and o is the mean of v's cap rows.
+//
 // Measured on the H100 (PERF.md): per-row instructions, not bytes, set
 // the time of the first version (one shuffle chain and one exponent a row
 // in every lane, a copy loop of a dozen instructions a row); shared memory
 // sets how many CTAs an SM holds, and three stages of 2 KB beat four.
 //
-// The launch depends on B, H, D, pt and W alone (launch_shape): the
-// lengths are read and clamped to [1, W pt] on the device, so a CUDA graph
-// captured once stays right when the lengths and tables change in place.
-// ops/kernels/decode_attention.py `split_geometry` mirrors launch_shape and
+// The launch depends on the static shapes alone (launch_shape: B, H, D
+// and the row address's pt, W or cap): the lengths are read and clamped on
+// the device, so a CUDA graph captured once stays right when the lengths
+// (and tables) change in place. ops/kernels/decode_attention.py
+// `split_geometry` and `contig_split_geometry` mirror launch_shape and
 // stage_rows, and its tests emulate this arithmetic on the CPU.
 
 #pragma once
@@ -103,17 +118,89 @@ struct I8Rows {
   }
 };
 
-template <class R>
+// Row t of sequence b in a paged pool [P, pt, H, D]: page tables[b, t /
+// pt], offset t % pt. A CTA stages the table entries of its rows in
+// dynamic shared memory first. Lengths clamp to [1, W pt].
+struct PagedRows {
+  static constexpr bool kEmptyIsUniform = false;
+  const int* tables;              // [B, W]
+  int pt, W;
+
+  __host__ __device__ int capacity() const { return W * pt; }
+
+  // the dynamic shared memory for the most table entries a CTA stages;
+  // false when they do not fit
+  bool smem_bytes(int* bytes) const {
+    if (pt <= 0 || W <= 0 || static_cast<long long>(W) * pt > (1LL << 30)) {
+      return false;
+    }
+    const long long rows = (static_cast<long long>(W) * pt + kSplit - 1) /
+                           kSplit;             // most rows a CTA takes
+    const long long slots = (rows + pt - 1) / pt + 1;
+    if (4 * slots > kMaxTableBytes) return false;
+    *bytes = static_cast<int>(4 * slots);
+    return true;
+  }
+
+  // one CTA's rows: row t's index in the pool's [P pt] rows of one head
+  struct Cta {
+    const int* tbl;
+    int pg0, pt;
+    __device__ long long operator()(int t) const {
+      return static_cast<long long>(tbl[t / pt - pg0]) * pt + t % pt;
+    }
+  };
+
+  // stage the table entries of rows [r0, r1) of sequence b into `smem`
+  // (all threads call it; the caller's __syncthreads completes it)
+  __device__ Cta stage(int b, int r0, int r1, int* smem) const {
+    const int pg0 = r0 / pt;
+    if (r1 > r0) {
+      const int* src = tables + static_cast<long long>(b) * W + pg0;
+      const int npg = (r1 - 1) / pt - pg0 + 1;
+      for (int i = threadIdx.x; i < npg; i += kThreads) smem[i] = src[i];
+    }
+    return Cta{smem, pg0, pt};
+  }
+};
+
+// Row t of sequence b in a contiguous cache [B, cap, H, D]: row b cap + t
+// of one head. Nothing to stage. Lengths clamp to [0, cap], and 0 makes
+// every row live with the same score (the plain version's uniform
+// softmax over a fully masked sequence).
+struct ContiguousRows {
+  static constexpr bool kEmptyIsUniform = true;
+  int cap;
+
+  __host__ __device__ int capacity() const { return cap; }
+
+  bool smem_bytes(int* bytes) const {
+    if (cap <= 0 || cap > (1 << 30)) return false;
+    *bytes = 0;
+    return true;
+  }
+
+  struct Cta {
+    long long base;                 // b cap
+    __device__ long long operator()(int t) const { return base + t; }
+  };
+
+  __device__ Cta stage(int b, int, int, int*) const {
+    return Cta{static_cast<long long>(b) * cap};
+  }
+};
+
+template <class R, class A>
 struct Args {
   const float* q;                 // [B, H, D]
-  const typename R::T* k;         // [P, pt, H, D]
+  const typename R::T* k;         // [P, pt, H, D] or [B, cap, H, D]
   const typename R::T* v;
   const float* k_scale;           // [P, pt, H]; int8 only
   const float* v_scale;
-  const int* tables;              // [B, W]
   const int* lengths;             // [B]
   float* out;                     // [B, H, D]
-  int H, D, pt, W;
+  A rows;                         // where row t of sequence b lives
+  int H, D;
   int vec;                        // bytes per copy: 16, 8, 4 (cp.async), 2, 1
   float scale;
 };
@@ -189,19 +276,17 @@ __device__ __forceinline__ CopyPlan copy_plan(int row_bytes, int vec) {
 // One warp: copy rows [t0, t0 + n) of the sequence (n <= kRows), head h,
 // into a stage: K rows to kb, V rows to vb (row i at i * kElems), and for
 // int8 their scales to sb[i] and sb[kRows + i]. Lane i < n finds row
-// t0 + i through the staged table, and the warp's lanes then copy the
-// rows' bytes as the plan says.
-template <class R, int kRows, int kElems>
-__device__ __forceinline__ void issue(const Args<R>& a, const CopyPlan& c,
-                                      const int* tbl, int pg0, int h, int t0,
-                                      int n, typename R::T* kb,
+// t0 + i through the CTA's row address `at` (paged: the staged table),
+// and the warp's lanes then copy the rows' bytes as the plan says.
+template <class R, class A, int kRows, int kElems>
+__device__ __forceinline__ void issue(const Args<R, A>& a, const CopyPlan& c,
+                                      const typename A::Cta& at, int h,
+                                      int t0, int n, typename R::T* kb,
                                       typename R::T* vb, float* sb) {
   const int lane = threadIdx.x & 31;
-  long long row = 0;                // (page, offset, head) index of row t
+  long long row = 0;                // (row, head) index of row t
   if (lane < n) {
-    const int t = t0 + lane;
-    row = (static_cast<long long>(tbl[t / a.pt - pg0]) * a.pt + t % a.pt) *
-              a.H + h;
+    row = at(t0 + lane) * a.H + h;
     if (R::kScaled) {
       copy_unit(sb + lane, a.k_scale + row, 4);
       copy_unit(sb + kRows + lane, a.v_scale + row, 4);
@@ -255,12 +340,13 @@ __device__ __forceinline__ float sum_rows(float (&s)[kRows]) {
 // One warp: fold the n rows of a stage into its online softmax (m, l, acc).
 // The lanes of row r = lane / (32 / kRows) hold its score; int8: the score
 // is (q . k_code) * k_scale / sqrt(D), and a row's weight p is scaled by
-// v_scale before it multiplies v_code; the denominator sums p.
+// v_scale before it multiplies v_code; the denominator sums p. With
+// `uniform` every row scores -1e30 (a contiguous sequence of length 0).
 template <class R, int kPairs, int kRows, int kElems>
 __device__ __forceinline__ void consume(const typename R::T* kb,
                                         const typename R::T* vb,
                                         const float* sb, int n, int pairs,
-                                        float scale,
+                                        float scale, bool uniform,
                                         const float2 (&qv)[kPairs],
                                         float& m, float& l,
                                         float2 (&acc)[kPairs]) {
@@ -282,14 +368,15 @@ __device__ __forceinline__ void consume(const typename R::T* kb,
   const int r = lane / kGroup;
   const bool live = r < n;                  // a row past the chunk adds
   float x = sum_rows<kRows>(s);             // nothing
-  x = live ? (R::kScaled ? x * sb[r] * scale : x * scale) : kNegInf;
+  x = live && !uniform ? (R::kScaled ? x * sb[r] * scale : x * scale)
+                       : kNegInf;
   float mx = x;
 #pragma unroll
   for (int off = 16; off >= kGroup; off >>= 1) {
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
   }
   const float m_new = fmaxf(m, mx);
-  const float p = live ? expf(x - m_new) : 0.f;
+  const float p = live ? expf(x - m_new) : 0.f;     // uniform: e^0 = 1
   float ps = p;
 #pragma unroll
   for (int off = 16; off >= kGroup; off >>= 1) {
@@ -322,9 +409,9 @@ __device__ __forceinline__ void consume(const typename R::T* kb,
 }
 
 // kPairs pairs of the head dim a lane: D <= 64 * kPairs
-template <class R, int kPairs>
+template <class R, class A, int kPairs>
 __global__ void __launch_bounds__(kThreads)
-paged_split_kernel(const Args<R> a) {
+split_kernel(const Args<R, A> a) {
   using T = typename R::T;
   constexpr int kElems = 64 * kPairs;   // a ring row, longest D
   constexpr int kRows = stage_rows(sizeof(T), kPairs);
@@ -338,7 +425,7 @@ paged_split_kernel(const Args<R> a) {
   __shared__ float part_m;              // the CTA's partial state, read by
   __shared__ float part_l;              // CTA 0 of the cluster
   __shared__ float part_acc[kElems];
-  extern __shared__ int tbl[];          // the range's table entries
+  extern __shared__ int tbl[];          // paged: the range's table entries
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -348,16 +435,14 @@ paged_split_kernel(const Args<R> a) {
   const int warp = threadIdx.x >> 5;
   const int D = a.D;
   const int pairs = D / 2;
-  const int len = min(max(a.lengths[b], 1), a.W * a.pt);
+  const int cap = a.rows.capacity();
+  int len = min(max(a.lengths[b], 0), cap);
+  const bool uniform = A::kEmptyIsUniform && len == 0;
+  if (len == 0) len = A::kEmptyIsUniform ? cap : 1;
   const int r0 = static_cast<int>(static_cast<long long>(rank) * len / kSplit);
   const int r1 =
       static_cast<int>(static_cast<long long>(rank + 1) * len / kSplit);
-  const int pg0 = r0 / a.pt;
-  if (r1 > r0) {
-    const int* src = a.tables + static_cast<long long>(b) * a.W + pg0;
-    const int npg = (r1 - 1) / a.pt - pg0 + 1;
-    for (int i = threadIdx.x; i < npg; i += kThreads) tbl[i] = src[i];
-  }
+  const typename A::Cta at = a.rows.stage(b, r0, r1, tbl);
   const long long bh = static_cast<long long>(b) * a.H + h;
   float2 qv[kPairs];
 #pragma unroll
@@ -367,7 +452,7 @@ paged_split_kernel(const Args<R> a) {
                                     a.q[bh * D + 2 * p + 1])
                       : make_float2(0.f, 0.f);
   }
-  __syncthreads();                      // the table is staged
+  __syncthreads();                      // (paged) the table is staged
 
   float m = kNegInf;                    // this warp's running max,
   float l = 0.f;                        // denominator
@@ -385,9 +470,9 @@ paged_split_kernel(const Args<R> a) {
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < chunks) {
       const int t0 = first + c * kStride;
-      issue<R, kRows, kElems>(a, plan, tbl, pg0, h, t0,
-                              min(kRows, r1 - t0), ring_k[warp][c],
-                              ring_v[warp][c], ring_s[warp][c]);
+      issue<R, A, kRows, kElems>(a, plan, at, h, t0, min(kRows, r1 - t0),
+                                 ring_k[warp][c], ring_v[warp][c],
+                                 ring_s[warp][c]);
     }
     cp_commit();
   }
@@ -396,9 +481,9 @@ paged_split_kernel(const Args<R> a) {
     if (next < chunks) {
       const int t0 = first + next * kStride;
       const int st = next % kStages;
-      issue<R, kRows, kElems>(a, plan, tbl, pg0, h, t0,
-                              min(kRows, r1 - t0), ring_k[warp][st],
-                              ring_v[warp][st], ring_s[warp][st]);
+      issue<R, A, kRows, kElems>(a, plan, at, h, t0, min(kRows, r1 - t0),
+                                 ring_k[warp][st], ring_v[warp][st],
+                                 ring_s[warp][st]);
     }
     cp_commit();
     cp_wait<kStages - 1>();             // chunk c's group is complete
@@ -407,7 +492,8 @@ paged_split_kernel(const Args<R> a) {
     const int t0 = first + c * kStride;
     consume<R, kPairs, kRows, kElems>(ring_k[warp][st], ring_v[warp][st],
                                       ring_s[warp][st], min(kRows, r1 - t0),
-                                      pairs, a.scale, qv, m, l, acc);
+                                      pairs, a.scale, uniform, qv, m, l,
+                                      acc);
     __syncwarp();                       // read before the stage is reused
   }
   cp_wait<0>();
@@ -472,23 +558,17 @@ paged_split_kernel(const Args<R> a) {
   cluster.sync();                       // CTA 0 is done reading
 }
 
-// The launch for (B, H, D, pt, W): grid (kSplit, H, B) in clusters of
-// (kSplit, 1, 1), kThreads threads, `table_bytes` of dynamic shared memory
-// for the most table entries a CTA stages. False for shapes the kernels do
-// not take.
-inline bool launch_shape(int B, int H, int D, int pt, int W,
-                         int* table_bytes) {
-  if (B <= 0 || H <= 0 || D <= 0 || D > kMaxD || (D & 1) || pt <= 0 ||
-      W <= 0 || B > 65535 || H > 65535 ||
-      static_cast<long long>(W) * pt > (1LL << 30)) {
+// The launch for (B, H, D) and the row address `rows` (pt and W, or cap):
+// grid (kSplit, H, B) in clusters of (kSplit, 1, 1), kThreads threads,
+// `smem_bytes` of dynamic shared memory (paged: the most table entries a
+// CTA stages; contiguous: none). False for shapes the kernels do not take.
+template <class A>
+bool launch_shape(int B, int H, int D, const A& rows, int* smem_bytes) {
+  if (B <= 0 || H <= 0 || D <= 0 || D > kMaxD || (D & 1) || B > 65535 ||
+      H > 65535) {
     return false;
   }
-  const long long rows = (static_cast<long long>(W) * pt + kSplit - 1) /
-                         kSplit;               // most rows a CTA takes
-  const long long slots = (rows + pt - 1) / pt + 1;
-  if (4 * slots > kMaxTableBytes) return false;
-  *table_bytes = static_cast<int>(4 * slots);
-  return true;
+  return rows.smem_bytes(smem_bytes);
 }
 
 // bytes per copy: the widest of 16, 8, 4, 2, 1 that divides the pools'
@@ -504,15 +584,15 @@ inline int copy_bytes(const void* k, const void* v, int row_bytes) {
 
 // out[0..6] = grid x, y, z, cluster x, threads, dynamic shared memory
 // bytes, rows of a warp's stage; for the checks of chip_smoke.py against
-// decode_attention.py `split_geometry`
-template <class R>
-int geometry(int B, int H, int D, int pt, int W, int* out) {
-  int table_bytes = 0;
-  if (!launch_shape(B, H, D, pt, W, &table_bytes)) {
+// decode_attention.py `split_geometry` and `contig_split_geometry`
+template <class R, class A>
+int geometry(int B, int H, int D, const A& rows, int* out) {
+  int smem_bytes = 0;
+  if (!launch_shape(B, H, D, rows, &smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int pairs = D <= 64 ? 1 : 2;
-  const int v[7] = {kSplit, H, B, kSplit, kThreads, table_bytes,
+  const int v[7] = {kSplit, H, B, kSplit, kThreads, smem_bytes,
                     stage_rows(static_cast<int>(sizeof(typename R::T)),
                                pairs)};
   for (int i = 0; i < 7; ++i) out[i] = v[i];
@@ -522,10 +602,10 @@ int geometry(int B, int H, int D, int pt, int W, int* out) {
 // Launches on `stream`; returns cudaGetLastError() after the launch
 // (0 = cudaSuccess), or cudaErrorInvalidValue for shapes the kernels do
 // not take.
-template <class R>
-int launch(Args<R> a, int B, cudaStream_t stream) {
-  int table_bytes = 0;
-  if (!launch_shape(B, a.H, a.D, a.pt, a.W, &table_bytes)) {
+template <class R, class A>
+int launch(Args<R, A> a, int B, cudaStream_t stream) {
+  int smem_bytes = 0;
+  if (!launch_shape(B, a.H, a.D, a.rows, &smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.vec = copy_bytes(a.k, a.v,
@@ -533,7 +613,7 @@ int launch(Args<R> a, int B, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kSplit, a.H, B);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = table_bytes;
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -542,8 +622,8 @@ int launch(Args<R> a, int B, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void (*kernel)(const Args<R>) =
-      a.D <= 64 ? &paged_split_kernel<R, 1> : &paged_split_kernel<R, 2>;
+  void (*kernel)(const Args<R, A>) =
+      a.D <= 64 ? &split_kernel<R, A, 1> : &split_kernel<R, A, 2>;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

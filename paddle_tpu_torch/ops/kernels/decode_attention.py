@@ -39,12 +39,14 @@ it on the card); any other value raises.
 kernel (`csrc/paged_decode_attention_int8.cu`), under the same dispatch
 rule.
 
-Both paged kernels split each (b, h) sequence over a thread-block cluster
-of `SPLIT` CTAs (split-KV, `csrc/paged_decode_split.cuh`): CTA r takes rows
-[r*len/SPLIT, (r+1)*len/SPLIT), and CTA 0 merges the partial softmax
-states in rank order. `split_geometry` gives their launch, a function of
-(B, H, D, pt, W) alone, so a CUDA graph of a call stays right when the
-lengths and tables change in place.
+All three kernels split each (b, h) sequence over a thread-block cluster
+of `SPLIT` CTAs (split-KV, one template, `csrc/paged_decode_split.cuh`):
+CTA r takes rows [r*len/SPLIT, (r+1)*len/SPLIT), and CTA 0 merges the
+partial softmax states in rank order. `split_geometry` gives the paged
+kernels' launch, a function of (B, H, D, pt, W) alone, and
+`contig_split_geometry` the contiguous kernel's, a function of (B, H, D,
+cap) alone, so a CUDA graph of a call stays right when the lengths (and
+tables) change in place.
 
 `contig_launches` / `launches` / `quant_launches` count kernel launches
 made by this module, so a run can show that its decode path went through
@@ -62,7 +64,7 @@ from . import _build
 NEG_INF = -1e30       # the JAX package's mask constant (_common.py NEG_INF)
 MAX_HEAD_DIM = 128    # the kernels keep up to 4 values of a row per lane
 
-# the paged kernels' split (csrc/paged_decode_split.cuh, mirrored here)
+# the kernels' split (csrc/paged_decode_split.cuh, mirrored here)
 SPLIT = 8                   # kSplit: CTAs per (b, h), one cluster
 SPLIT_WARPS = 4             # kWarps: warps per CTA
 SPLIT_STAGE_BYTES = 2048    # kStageBytes: one warp's stage of K and V rows
@@ -115,19 +117,39 @@ def _quant_kernel_fn():
     return _QFN
 
 
-def _geometry_fn(int8):
-    """The kernel library's own `..._geometry` export (for checking
-    `split_geometry` against it on the card)."""
-    if int8 not in _GEOM:
-        lib, name = (("paged_decode_attention_int8",
-                      "paged_decode_attention_int8_geometry") if int8 else
-                     ("paged_decode_attention",
-                      "paged_decode_attention_f32_geometry"))
+_GEOMETRY_EXPORTS = {
+    "paged": ("paged_decode_attention", "paged_decode_attention_f32_geometry",
+              5),
+    "int8": ("paged_decode_attention_int8",
+             "paged_decode_attention_int8_geometry", 5),
+    "contig": ("decode_attention", "decode_attention_f32_geometry", 4)}
+
+
+def _geometry_fn(kind):
+    """The kernel library's own `..._geometry` export for `kind` ("paged",
+    "int8" or "contig"), for checking `split_geometry` and
+    `contig_split_geometry` against it on the card."""
+    if kind not in _GEOM:
+        lib, name, n_ints = _GEOMETRY_EXPORTS[kind]
         fn = getattr(_build.load(lib), name)
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _GEOM[int8] = fn
-    return _GEOM[int8]
+        _GEOM[kind] = fn
+    return _GEOM[kind]
+
+
+def _check_split_dims(what, B, H, D):
+    _check_head_dim(what, D)
+    if min(B, H, D) <= 0 or max(B, H) > 65535:
+        raise ValueError(f"{what}: B={B}, H={H} out of the kernels' range")
+
+
+def _geometry(B, H, D, smem_bytes, elem):
+    pairs = 1 if D <= 64 else 2
+    return {"grid": (SPLIT, H, B), "cluster": (SPLIT, 1, 1),
+            "threads": 32 * SPLIT_WARPS, "smem_bytes": smem_bytes,
+            "stage_rows": SPLIT_STAGE_BYTES // (2 * 64 * pairs * elem),
+            "workspace_bytes": 0}
 
 
 def split_geometry(B, H, D, pt, W, int8=False):
@@ -137,25 +159,34 @@ def split_geometry(B, H, D, pt, W, int8=False):
     stages, the rows of one warp's cp.async stage, and the workspace the
     wrapper allocates (none: the cluster merges in shared memory). It reads
     no lengths and no tables. Raises ValueError for shapes the kernels do
-    not take; mirrors csrc/paged_decode_split.cuh `launch_shape` and
-    `stage_rows`."""
+    not take; mirrors csrc/paged_decode_split.cuh `launch_shape`,
+    `PagedRows.smem_bytes` and `stage_rows`."""
     what = "paged_decode_attention"
-    _check_head_dim(what, D)
-    if min(B, H, D, pt, W) <= 0 or max(B, H) > 65535 or W * pt > 1 << 30:
-        raise ValueError(f"{what}: B={B}, H={H}, pt={pt}, W={W} out of the "
-                         "kernels' range")
+    _check_split_dims(what, B, H, D)
+    if min(pt, W) <= 0 or W * pt > 1 << 30:
+        raise ValueError(f"{what}: pt={pt}, W={W} out of the kernels' "
+                         "range")
     rows = -(-W * pt // SPLIT)              # most rows a CTA takes
     slots = -(-rows // pt) + 1              # most table entries they span
     if 4 * slots > SPLIT_TABLE_BYTES:
         raise ValueError(f"{what}: a block table of W={W} pages of {pt} "
                          f"rows is too wide for the kernels ({slots} "
                          f"entries a CTA, at most {SPLIT_TABLE_BYTES // 4})")
-    pairs = 1 if D <= 64 else 2
-    elem = 1 if int8 else 4
-    return {"grid": (SPLIT, H, B), "cluster": (SPLIT, 1, 1),
-            "threads": 32 * SPLIT_WARPS, "smem_bytes": 4 * slots,
-            "stage_rows": SPLIT_STAGE_BYTES // (2 * 64 * pairs * elem),
-            "workspace_bytes": 0}
+    return _geometry(B, H, D, 4 * slots, 1 if int8 else 4)
+
+
+def contig_split_geometry(B, H, D, cap):
+    """The contiguous kernel's launch for static shapes (B, H, D, cap):
+    `split_geometry`'s grid, cluster, threads and stage rows (fp32 rows),
+    no dynamic shared memory (no table to stage) and no workspace. It
+    reads no lengths. Raises ValueError for shapes the kernel does not
+    take; mirrors csrc/paged_decode_split.cuh `launch_shape`,
+    `ContiguousRows.smem_bytes` and `stage_rows`."""
+    what = "decode_attention"
+    _check_split_dims(what, B, H, D)
+    if cap <= 0 or cap > 1 << 30:
+        raise ValueError(f"{what}: cap={cap} out of the kernel's range")
+    return _geometry(B, H, D, 0, 4)
 
 
 def decode_attention_reference(q, k, v, lengths):
@@ -251,6 +282,8 @@ def _check_contig(q, k, v, lengths):
     if k.shape[1] == 0:
         raise ValueError(f"{what}: the cache has no rows (cap 0)")
     _check_head_dim(what, D)
+    if B and H:
+        contig_split_geometry(B, H, D, k.shape[1])
 
 
 def _check(q, k_pool, v_pool, tables, lengths):

@@ -13,10 +13,12 @@ instead of an fp32 copy of the weight.
 `int8_weight_matmul(x [..., K] f32, w_q [K, N] int8, scale [N] f32)`
 dispatches on the tensors' device: a CPU tensor takes the plain PyTorch
 version (`int8_weight_matmul_reference`), a CUDA tensor launches the
-hand-written Hopper kernels (`csrc/int8_weight_matmul.cu`: a CUDA-core
-GEMV for M <= 8 rows, the tensor cores on an exact three-piece bf16 split
-of x above) or raises. Where the M > 8 kernel splits K across CTAs, the
-wrapper allocates its fp32 workspace (`torch.empty`).
+hand-written Hopper kernels (`csrc/int8_weight_matmul.cu`, both on the
+tensor cores over an exact three-piece bf16 split of x) or raises. For M
+<= 8 rows the GEMV splits K over a thread-block cluster and sums the
+ranges in shared memory (`gemv_geometry` gives its launch, a function of
+(M, N, K) alone); above, where the tiled kernel splits K across CTAs,
+the wrapper allocates its fp32 workspace (`torch.empty`).
 ``kernel="reference"`` forces the plain version (for tests and for
 holding the kernel against it on the card).
 
@@ -34,7 +36,20 @@ from . import _build
 #: Kernel launches made by `int8_weight_matmul` in this process.
 launches = 0
 
+# the M <= 8 GEMV's launch (csrc/int8_weight_matmul.cu `gemv_plan`,
+# mirrored here)
+GEMV_M = 8                  # kGemvM: most rows of x it takes
+GEMV_WARPS = 4              # kGemvWarps: warps per CTA, 16 columns each
+GEMV_MAX_SPLIT = 8          # kGemvMaxSplit: CTAs of a cluster (K ranges)
+GEMV_TARGET_CTAS = 264      # kGemvTargetCtas: two CTAs on each of 132 SMs
+GEMV_STEP = 16              # kStep: k of one mma
+# k steps staged at once, by strip width: the boxes stay within 48 KB
+GEMV_MAX_PASS = {16: 32, 32: 16, 64: 16}
+GEMV_X_STEP_BYTES = GEMV_M * 16 * 4  # kXStepBytes: a step's box of x
+GEMV_BOX_ALIGN = 1024               # kBoxAlign: slack to align the boxes
+
 _FN = None
+_GEOM = None
 
 
 def _kernel_fn():
@@ -51,6 +66,49 @@ def _kernel_fn():
         ws.restype = ctypes.c_longlong
         _FN = fn, ws
     return _FN
+
+
+def _geometry_fn():
+    """The kernel library's own `int8_gemv_geometry` export (for checking
+    `gemv_geometry` against it on the card)."""
+    global _GEOM
+    if _GEOM is None:
+        fn = _build.load("int8_weight_matmul").int8_gemv_geometry
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _GEOM = fn
+    return _GEOM
+
+
+def gemv_geometry(M, N, K):
+    """The M <= 8 GEMV's launch for static shapes: grid (split, strips) in
+    clusters of (split, 1, 1), the threads of a CTA, its dynamic shared
+    memory, the columns of out a CTA owns (`strip`: the widest of 64, 32,
+    16 that keeps GEMV_TARGET_CTAS CTAs), the 16-deep k steps of each of
+    the `split` K ranges, the k steps staged at once, and the workspace
+    (none: the cluster sums its ranges in shared memory). Raises
+    ValueError for shapes the GEMV does not take; mirrors
+    csrc/int8_weight_matmul.cu `gemv_plan`."""
+    if not 0 < M <= GEMV_M or N <= 0 or K <= 0:
+        raise ValueError(f"int8_weight_matmul GEMV: M={M}, N={N}, K={K} "
+                         f"out of its range (1 <= M <= {GEMV_M})")
+    steps = -(-K // GEMV_STEP)
+    strip = next((w for w in (64, 32) if -(-N // w) * GEMV_MAX_SPLIT
+                  >= GEMV_TARGET_CTAS), 16)
+    strips = -(-N // strip)
+    if strips > 65535:
+        raise ValueError(f"int8_weight_matmul GEMV: N={N} is too wide")
+    split = min(GEMV_MAX_SPLIT, -(-GEMV_TARGET_CTAS // strips), steps)
+    chunk = -(-steps // split)
+    pass_steps = min(chunk, GEMV_MAX_PASS[strip])
+    box_rows = min(pass_steps * GEMV_STEP, 256)
+    wrows = -(-pass_steps * GEMV_STEP // box_rows) * box_rows
+    return {"grid": (split, strips, 1), "cluster": (split, 1, 1),
+            "threads": 32 * GEMV_WARPS,
+            "smem_bytes": wrows * strip + pass_steps * GEMV_X_STEP_BYTES
+            + GEMV_BOX_ALIGN,
+            "strip": strip, "k_steps": chunk, "pass_steps": pass_steps,
+            "workspace_bytes": 0}
 
 
 def int8_weight_matmul_reference(x, w_q, scale):

@@ -9,6 +9,17 @@ JAX package.
     rows of v) and lengths past cap (every row live). The CUDA kernel
     itself runs only on a GPU and is held against the same plain version
     by chip_smoke.py (phase 2c).
+  * the kernel's arithmetic (csrc/paged_decode_split.cuh with the
+    contiguous row address) emulated in float32 PyTorch
+    (`contig_split_emulation`: the rows of each sequence cut into SPLIT
+    CTA ranges, each into the warps' chunks of the stage rows, an online
+    softmax per warp, the warps and then the CTAs merged in order; a
+    length of 0 scores every one of the cap rows -1e30), within 1e-5 of
+    the plain version, JAX's reference, its Pallas kernel and float64 at
+    lengths 0, 1, cap, cap + 5 and shorter than SPLIT, a cap shorter than
+    SPLIT, and D = 16, 64, 128; with one CTA's partial state left out it
+    fails the gate. `contig_split_geometry` is a function of (B, H, D,
+    cap) alone.
   * prefill + 6 decode steps, logits and both caches, against JAX
     `gpt_decode_fns` from the same numpy weights, on both configurations
     of tests/test_decode.py: a scan-stacked gpt_tiny (JAX params
@@ -53,6 +64,7 @@ from paddle_tpu_torch.core import device as tdevice  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 from paddle_tpu_torch.ops.kernels import decode_attention as tda  # noqa: E402
+from tests.test_torch_paged_attention import _merge  # noqa: E402
 
 ATTN_TOL = 1e-5
 ATOL, RTOL = 2e-4, 1e-4
@@ -151,6 +163,145 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tda._contig_kernel_fn()
     assert "decode_attention" in _build.sources()
+
+
+# ------------------------------------ the split kernel's arithmetic (row 3)
+
+def contig_split_emulation(q, k, v, lengths, drop=None):
+    """csrc/paged_decode_split.cuh with `ContiguousRows`, in float32: the
+    length clamped to [0, cap], 0 meaning every one of the cap rows scores
+    -1e30; rows [0, n) cut into SPLIT CTA ranges [r*n//SPLIT,
+    (r+1)*n//SPLIT), each into chunks of the stage rows taken by the CTA's
+    warps in turn, an online softmax per warp chunk by chunk, the warps
+    merged into the CTA's state and the CTAs' states merged in rank order.
+    `drop` leaves one CTA's state out of the merge."""
+    B, cap, H_, D = k.shape
+    g = tda.contig_split_geometry(B, H_, D, cap)
+    S, warps, R = g["grid"][0], g["threads"] // 32, g["stage_rows"]
+    scale = 1.0 / np.sqrt(D)
+    out = torch.empty(B, H_, D)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), cap)
+        uniform = n == 0
+        n = cap if uniform else n
+        ctas = []
+        for r in range(S):
+            r0, r1 = r * n // S, (r + 1) * n // S
+            states = []
+            for w in range(warps):
+                m = torch.full((H_,), tda.NEG_INF)
+                l = torch.zeros(H_)
+                acc = torch.zeros(H_, D)
+                for c0 in range(r0 + w * R, r1, warps * R):
+                    rows = slice(c0, min(c0 + R, r1))
+                    s = torch.einsum("hd,nhd->nh", q[b], k[b, rows]) * scale
+                    if uniform:
+                        s = torch.full_like(s, tda.NEG_INF)
+                    m_new = torch.maximum(m, s.max(0).values)
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new)
+                    l = l * corr + p.sum(0)
+                    acc = acc * corr[:, None] \
+                        + torch.einsum("nh,nhd->hd", p, v[b, rows])
+                    m = m_new
+                states.append((m, l, acc))
+            ctas.append(_merge(states))
+        if drop is not None:
+            del ctas[drop]
+        _, L, acc = _merge(ctas)
+        out[b] = acc / L[:, None]
+    return out
+
+
+def _float64_contig(q, k, v, lengths):
+    """The exact answer in float64 (numpy): softmax(q.k / sqrt(D)) . v
+    over rows [0, min(len, cap)), uniform over all cap rows at length 0."""
+    B, cap, H_, D = k.shape
+    out = np.empty((B, H_, D))
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), cap)
+        vv = v[b].astype(np.float64)
+        if n == 0:
+            out[b] = vv.mean(axis=0)
+            continue
+        s = np.einsum("hd,nhd->hn", q[b].astype(np.float64),
+                      k[b, :n].astype(np.float64)) / np.sqrt(D)
+        p = np.exp(s - s.max(1, keepdims=True))
+        out[b] = np.einsum("hn,nhd->hd", p / p.sum(1, keepdims=True), vv[:n])
+    return out
+
+
+def _contig_split_cases():
+    """(cap, D, lengths): the edges 0, 1, cap and past it, lengths shorter
+    than SPLIT (CTAs with no rows), a cap shorter than SPLIT, at head dims
+    on both sides of 64 (one pair a lane, two)."""
+    S = tda.SPLIT
+    out = []
+    for D in (16, 64, 128):
+        out.append((32, D, [0, 1, 32, 32 + 5]))
+        out.append((32, D, [S - 1, 3, 0, 2 * S + 1]))
+        out.append((5, D, [0, 2, 5, 7]))
+    return out
+
+
+@pytest.mark.parametrize("cap,D,lengths", _contig_split_cases())
+def test_contig_split_emulation_matches_plain_jax_pallas_and_float64(
+        cap, D, lengths):
+    q, k, v, lens = _attn_inputs(len(lengths), cap, 4, D, lengths,
+                                 cap * 1000 + D)
+    args = [torch.from_numpy(a) for a in (q, k, v, lens)]
+    got = contig_split_emulation(*args).numpy()
+    plain = tda.decode_attention(*args).numpy()
+    jargs = [jnp.asarray(a) for a in (q, k, v, lens)]
+    want_ref = np.asarray(jda.decode_attention_reference(*jargs))
+    want_pallas = np.asarray(jda._decode_attention_pallas(*jargs))
+    exact = _float64_contig(q, k, v, lens)
+    assert got.shape == (len(lengths), 4, D) and np.isfinite(got).all()
+    for want in (plain, want_ref, want_pallas, exact):
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_contig_split_emulation_with_a_split_left_out_fails_the_gate(D):
+    """The gate sees a lost CTA: leaving one rank's partial state out of
+    the merge (rank 0, or the last) moves the answer past 1e-5, at a
+    length of 0 (the uniform mean) as well as at live lengths."""
+    q, k, v, lens = _attn_inputs(3, 64, 4, D, [64, 41, 0], D)
+    args = [torch.from_numpy(a) for a in (q, k, v, lens)]
+    plain = tda.decode_attention(*args).numpy()
+    full = np.abs(contig_split_emulation(*args).numpy() - plain).max()
+    assert full <= ATTN_TOL
+    for drop in (0, tda.SPLIT - 1):
+        err = np.abs(contig_split_emulation(*args, drop=drop).numpy()
+                     - plain).max(axis=(1, 2))
+        assert (err > ATTN_TOL).all(), (drop, err)
+
+
+def test_contig_split_geometry_is_a_function_of_the_static_shapes():
+    """The contiguous kernel's launch from (B, H, D, cap) alone: the
+    split-KV template's grid, cluster and stage rows, no dynamic shared
+    memory and no workspace, 768 CTAs at the decode path's shape; the CTA
+    ranges cover [0, n) once at every length (n = cap at length 0); shapes
+    the kernel does not take raise."""
+    S = tda.SPLIT
+    g = tda.contig_split_geometry(8, 12, 64, 1024)
+    assert g == {"grid": (S, 12, 8), "cluster": (S, 1, 1), "threads": 128,
+                 "smem_bytes": 0, "stage_rows": 4, "workspace_bytes": 0}
+    assert g["grid"][0] * g["grid"][1] * g["grid"][2] >= 2 * 132
+    big = tda.contig_split_geometry(8, 16, 128, 2048)
+    assert big["grid"] == (S, 16, 8) and big["stage_rows"] == 2
+    assert tda.contig_split_geometry(8, 12, 64, 32) == g   # cap: no effect
+    for cap in (1, 5, 8, 33):
+        for length in range(0, cap + 3):
+            n = min(length, cap) or cap
+            covered = []
+            for r in range(S):
+                covered += range(r * n // S, (r + 1) * n // S)
+            assert covered == list(range(n))
+    for bad in ((8, 12, 63, 1024), (8, 12, 130, 1024), (70000, 12, 64, 8),
+                (8, 12, 64, 0), (0, 12, 64, 8)):
+        with pytest.raises(ValueError):
+            tda.contig_split_geometry(*bad)
 
 
 def _port_params(cfg, arrays):

@@ -13,6 +13,14 @@ kernels and through the port's:
     pieces, int8 codes as bf16, fp32 sums in the kernel's order and split
     of K) emulated in PyTorch, within that gate of the plain version, JAX's
     reference and float64 at the decode step's K; with one piece it fails;
+  * the M <= 8 GEMV's arithmetic (x as three bf16 pieces, one fp32
+    accumulator per piece over a warp's 16-deep steps, the pieces' sums
+    added b2 + b1 + b0, a CTA's warps' k parts in order, the cluster's K
+    ranges in rank order, then the scale) emulated in PyTorch at M = 1, 2,
+    4, 8 and the four GPT-2 block shapes, within that gate of the plain
+    version, JAX's reference and Pallas kernel and float64; with one K
+    range left out it fails. `gemv_geometry` is a function of (M, N, K)
+    alone and gives at least two CTAs per SM at those shapes;
   * the plain `paged_decode_attention_quant` against JAX's reference and
     Pallas kernel at atol 5e-5: this XLA build evaluates exp with
     TPU-profile approximations on the CPU (~3e-5), as in
@@ -252,6 +260,122 @@ def test_int8_matmul_tensor_core_split_matches_plain_jax_and_float64(K):
           f"{errs[1]:.3e}, {errs[2]:.3e}, {np.abs(got - exact).max():.3e} "
           f"(gate {ATOL_MM})")
     assert errs[1] > ATOL_MM
+
+
+# ----------------------------- the M <= 8 GEMV's tensor-core arithmetic
+
+GPT2_BLOCK_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def _gemv_emulation(x, wq, s, drop=None):
+    """csrc/int8_weight_matmul.cu `int8_gemv_mma_kernel` in float32, from
+    `gemv_geometry`: K in `split` ranges of `k_steps` 16-deep steps (one
+    CTA each), a range in passes of `pass_steps`, a pass's steps in 4 //
+    (strip // 16) contiguous k parts (one warp each per 16 columns); a
+    warp keeps one accumulator per piece of x over its steps and adds them
+    b2 + b1 + b0; a CTA adds its k parts in order, the cluster its ranges
+    in rank order, then the scale. Columns never mix, so all N go at once.
+    `drop` leaves one K range out."""
+    M, K = x.shape
+    N = wq.shape[1]
+    g = tqm.gemv_geometry(M, N, K)
+    split, chunk, pas = g["grid"][0], g["k_steps"], g["pass_steps"]
+    parts = 4 // (g["strip"] // 16)
+    steps = -(-K // 16)
+    pieces = [torch.from_numpy(np.ascontiguousarray(b)) for b in _split3(x)]
+    q = torch.from_numpy(wq.astype(np.float32))
+    total = torch.zeros(M, N)
+    for r in range(split):
+        s1 = min(steps, (r + 1) * chunk)
+        acc = [[torch.zeros(M, N) for _ in pieces] for _ in range(parts)]
+        for ps in range(r * chunk, s1, pas):
+            pn = min(pas, s1 - ps)
+            per = -(-pn // parts)
+            for wk in range(parts):
+                for st in range(ps + wk * per, ps + min(pn, (wk + 1) * per)):
+                    sl = slice(16 * st, min(16 * st + 16, K))
+                    for i, b in enumerate(pieces):
+                        acc[wk][i] += b[:, sl] @ q[sl]
+        cta = torch.zeros(M, N)
+        for a in acc:
+            cta = cta + ((a[2] + a[1]) + a[0])
+        if r != drop:
+            total = total + cta
+    return (total * torch.from_numpy(s)).numpy()
+
+
+def _gemv_inputs(M, K, N):
+    rng = np.random.default_rng(M * 10007 + K + N)
+    q = tquant.quantize_params(
+        {"l.weight": rng.standard_normal((K, N), np.float32) * 0.02})
+    return (rng.standard_normal((M, K), np.float32), q["l.weight"],
+            q["l.weight::scale"])
+
+
+@pytest.mark.parametrize("K,N", GPT2_BLOCK_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+def test_gemv_tensor_core_split_matches_plain_jax_and_float64(M, K, N):
+    """The decode GEMV's arithmetic at every batch rung and each block
+    matmul of GPT-2 124M is within ATOL_MM of the port's plain version,
+    JAX's `int8_weight_matmul_reference`, its Pallas kernel (interpret
+    mode) and the float64 product, on weights quantized from GPT's
+    std-0.02 init."""
+    x, wq, s = _gemv_inputs(M, K, N)
+    assert tqm.gemv_geometry(M, N, K)["grid"][0] > 1     # a split of K
+    got = _gemv_emulation(x, wq, s)
+    plain = tqm.int8_weight_matmul(torch.from_numpy(x), torch.from_numpy(wq),
+                                   torch.from_numpy(s)).numpy()
+    jargs = (jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s))
+    jax_ref = np.asarray(jqm.int8_weight_matmul_reference(*jargs))
+    pallas = np.asarray(jqm.int8_weight_matmul(*jargs, kernel="pallas"))
+    exact = x.astype(np.float64) @ (wq.astype(np.float64) * s)
+    assert got.shape == (M, N) and np.isfinite(got).all()
+    for want in (plain, jax_ref, pallas, exact):
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_MM)
+
+
+@pytest.mark.parametrize("K,N", [(768, 768), (3072, 768)])
+def test_gemv_with_a_k_range_left_out_fails_the_gate(K, N):
+    """The gate sees a lost CTA: leaving the first or the last K range of
+    the cluster out of the sum moves the answer past ATOL_MM."""
+    x, wq, s = _gemv_inputs(8, K, N)
+    exact = x.astype(np.float64) @ (wq.astype(np.float64) * s)
+    assert np.abs(_gemv_emulation(x, wq, s) - exact).max() <= ATOL_MM
+    split = tqm.gemv_geometry(8, N, K)["grid"][0]
+    for drop in (0, split - 1):
+        err = np.abs(_gemv_emulation(x, wq, s, drop=drop) - exact).max()
+        assert not err <= ATOL_MM, (drop, err)
+
+
+def test_gemv_geometry_is_a_function_of_the_static_shapes():
+    """The GEMV's launch from (M, N, K) alone: the same at every batch
+    rung, at least two CTAs on each of the H100's 132 SMs at the four
+    GPT-2 block shapes, K ranges and passes that cover the k steps once,
+    a strip of whole warps, panels within the 48 KB a CTA may use beside
+    the kernel's 18,448 B of static shared memory; shapes it does not take
+    raise."""
+    for K, N in GPT2_BLOCK_SHAPES:
+        g = tqm.gemv_geometry(8, N, K)
+        assert all(tqm.gemv_geometry(M, N, K) == g for M in (1, 2, 4))
+        assert g["grid"][0] * g["grid"][1] >= 2 * 132
+        assert g["cluster"] == (g["grid"][0], 1, 1) and g["cluster"][0] <= 8
+    for M, N, K in ((1, 45, 37), (3, 770, 768), (2, 16, 20000),
+                    (8, 2304, 768), (8, 768, 3072), (5, 100, 1000)):
+        g = tqm.gemv_geometry(M, N, K)
+        split, chunk, pas = g["grid"][0], g["k_steps"], g["pass_steps"]
+        steps = -(-K // 16)
+        covered = [st for r in range(split)
+                   for ps in range(r * chunk, min(steps, (r + 1) * chunk), pas)
+                   for st in range(ps, min(ps + pas, (r + 1) * chunk, steps))]
+        assert covered == list(range(steps))
+        assert g["strip"] in (16, 32, 64) and g["grid"][1] * g["strip"] >= N
+        assert g["threads"] == 128 and g["workspace_bytes"] == 0
+        assert g["smem_bytes"] + 18448 <= 48 * 1024
+    assert tqm.gemv_geometry(2, 16, 20000)["pass_steps"] \
+        < tqm.gemv_geometry(2, 16, 20000)["k_steps"]      # several passes
+    for bad in ((0, 768, 768), (9, 768, 768), (8, 0, 768), (8, 768, 0)):
+        with pytest.raises(ValueError):
+            tqm.gemv_geometry(*bad)
 
 
 def _attn_inputs(seed, B, D, pt, W, lengths, null_rows=()):
