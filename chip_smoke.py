@@ -141,6 +141,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      the loss falling on one repeated batch; ms per step (bench.py's
      marginal estimate and CUDA events), tokens/s, MFU against 989
      TFLOP/s, peak memory, and one step's device time by kernel;
+ 11. (run after 7) the training lifecycle, full width: GPT-2 124M on the
+     seed-0 weights, B=16, T=1024, AMP O2, AdamW(LinearWarmup(
+     CosineAnnealingDecay(6e-4, T_max=8), 2 warmup steps), beta2=0.95,
+     weight_decay=0.1, ClipGradByGlobalNorm(1.0)) with the by-step
+     LRScheduler callback (the GPT-3 paper's Appendix B recipe, its
+     schedule shortened), Model.fit over 2 epochs of 4 batches with
+     eval_data of 2 batches and save_dir under ModelCheckpoint(keep_last=1):
+     every loss and eval loss finite, the lr of every step equal to the
+     scheduler's own sequence computed on the host, the post-clip global
+     norm <= 1.0 (1 + 1e-6) wherever the pre-clip one is above 1.0, flash
+     launches 12 x (train steps + eval batches) forward and 12 x train
+     steps for dq and dk/dv, and no host sync inside a train step
+     (torch.cuda.set_sync_debug_mode("error") around each); final.pdparams
+     / .pdopt loaded into a fresh GPT + Model + AdamW bit-equal to the
+     trained parameters, AdamW slots and scheduler state; 3 more steps
+     from the loaded model and from the original against two runs from the
+     original's state (the determinism spread: if those two are bit-equal,
+     the resumed run must be too); the same state through
+     io.checkpoint.save_checkpoint / load_checkpoint bit-equal and
+     validate_checkpoint(deep=True); one AdamW + clip + scheduler step of a
+     narrow GPT on the card against the CPU (loss within 1e-5, every
+     parameter within 1e-4 of its largest); ms per step on the host clock
+     and in device time (torch.profiler), the device us of the clip, of
+     the AdamW update and of phase 7's Adam update, and the bytes and
+     seconds of one Model.save and one Model.load;
   8. the fused linear-CE kernels (forward, dx, dW): first the HGMMA count
      in the SASS of the bf16 forward and backward kernels (wgmma; 0 fails,
      as does any HMMA or HGMMA in the fp32 SIMT ones), with registers and
@@ -183,10 +208,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      n_long=5)`), tokens/s, MFU against 989 TFLOP/s, peak memory, the
      device time by kernel, and two steps with `fused_head_ce=None`
      beside them;
- 11. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 12. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
      fused backward);
- 12. last line {"ok": true, "device": {...}}.
+ 13. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -2258,6 +2283,381 @@ def phase_train(torch, np, power, records):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 11
+
+LIFECYCLE_NORM_SLACK = 1e-6    # post-clip global norm <= 1.0 (1 + slack)
+LIFECYCLE_PARAM_REL = 1e-4     # narrow step, card vs CPU, of the largest
+
+
+def lifecycle_optimizer(opt, nn, params, peak=6e-4, clip=1.0, start=0.0):
+    """AdamW as the GPT-3 paper's Appendix B sets it (beta2 0.95, weight
+    decay 0.1, global-norm clip 1.0, linear warmup then cosine decay),
+    the schedule shortened to 2 warmup steps and a cosine of 8."""
+    sched = opt.lr.LinearWarmup(opt.lr.CosineAnnealingDecay(peak, T_max=8),
+                                warmup_steps=2, start_lr=start, end_lr=peak)
+    return opt.AdamW(learning_rate=sched, beta1=0.9, beta2=0.95,
+                     weight_decay=0.1, grad_clip=nn.ClipGradByGlobalNorm(clip),
+                     parameters=params)
+
+
+def grad_norm(torch, params):
+    """The global norm of the parameters' gradients, on the device."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        [p.grad for p in params if p.grad is not None], 2.0,
+        dtype=torch.float32)))
+
+
+def same_state(torch, a, b):
+    """Names of the parameters and optimizer slots where Model `a` and `b`
+    differ (bit for bit); the scheduler states must be equal too."""
+    bad = []
+    for (n, p), (_, q) in zip(a.network.named_parameters(),
+                              b.network.named_parameters()):
+        if not torch.equal(p, q):
+            bad.append(n)
+        sa, sb = a._optimizer.state(p), b._optimizer.state(q)
+        for k, v in sa.items():
+            w = sb[k]
+            if not (torch.equal(v, w) if isinstance(v, torch.Tensor)
+                    else (v == w and type(v) is type(w))):
+                bad.append(f"{n}/{k}")
+    if a._optimizer._scheduler_state() != b._optimizer._scheduler_state():
+        bad.append("LR_Scheduler")
+    return bad
+
+
+def phase_lifecycle_parity(torch, np):
+    """One AdamW + clip + scheduler step of a narrow GPT (phase 6's) on the
+    card against the same step on the CPU, fp32, TF32 off; the clip is
+    active (0.1, below the gradients' norm) and its post-clip norm is
+    checked on the card.
+
+    Adam's first step moves every weight by about +-lr whatever the
+    gradient's size, and an entry whose gradient is near 0 (or near eps)
+    moves by a different fraction of lr on each device, whose summation
+    orders differ in such a gradient's last bits. So the peak lr is 1e-5,
+    which keeps a whole flip (2 lr) inside the gate next to weights of
+    ~0.02, and the biases and LayerNorm shifts, zero in
+    `init_params_numpy`, are drawn from N(0, 0.02) like the weights:
+    a zero-initialised bias is nothing but its first update, and "within
+    1e-4 of its largest" would then measure the gradient's last bits
+    against lr itself."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, init_params_numpy
+
+    cfg = GPTConfig(vocab_size=512, max_seq_len=512, hidden=128, layers=2,
+                    heads=2)
+    arrays = init_params_numpy(cfg, seed=1)
+    rng = np.random.default_rng(9)
+    for k, v in arrays.items():
+        if k.endswith(".bias"):
+            arrays[k] = (rng.standard_normal(v.shape) * 0.02).astype(
+                np.float32)
+    ids = rng.integers(0, cfg.vocab_size, (2, 512), dtype=np.int32)
+    labels = np.concatenate([ids[:, 1:], ids[:, :1]], axis=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ptt.set_device(dev)
+        gpt = GPT(cfg).load_numpy(arrays)
+        o = lifecycle_optimizer(opt, nn, gpt.parameters(), peak=1e-5,
+                                clip=0.1, start=5e-6)
+        loss = gpt.loss(ids, labels)
+        loss.backward()
+        o.step()
+        out[dev] = (loss.item(), float(o._grad_clip.global_norm),
+                    float(grad_norm(torch, gpt.parameters())),
+                    {n: p.detach().cpu() for n, p in gpt.named_parameters()})
+    ptt.set_device("cuda")
+    (lg, ng, post, pg), (lc, nc, _, pc) = out["cuda"], out["cpu"]
+    worst = max((float((pg[n] - pc[n]).abs().max())
+                 / max(float(pc[n].abs().max()), 1e-12), n) for n in pc)
+    if abs(lg - lc) > TRAIN_LOSS_TOL or worst[0] > LIFECYCLE_PARAM_REL \
+            or not ng > 0.1 or post > 0.1 * (1 + LIFECYCLE_NORM_SLACK):
+        raise RuntimeError(f"phase 11 narrow step: loss {lg} vs {lc}, worst "
+                           f"parameter {worst}, pre-clip norm {ng} (must "
+                           f"exceed the clip, 0.1), post-clip {post}")
+    log(f"PHASE 11 narrow AdamW + clip + scheduler step, cuda vs cpu (GPT "
+        f"hidden=128 layers=2 T=512 fp32, TF32 off): loss {lg:.7f} vs "
+        f"{lc:.7f} (gate {TRAIN_LOSS_TOL}); pre-clip norm {ng:.6f} vs "
+        f"{nc:.6f}, post-clip on the card {post:.8f} (clip 0.1); worst "
+        f"parameter {worst[1]} at {worst[0]:.3e} of its largest (gate "
+        f"{LIFECYCLE_PARAM_REL})")
+
+
+def phase_lifecycle(torch, np, power):
+    """GPT-2 124M through the training lifecycle (see the module
+    docstring, phase 11)."""
+    import copy
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.framework import param_arrays
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi import callbacks as hapi_cbks
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.io import checkpoint as ckpt
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.models.gpt import init_params_numpy
+    from paddle_tpu_torch.static import InputSpec
+
+    cfg = GPTConfig()
+    B, T, n_train, n_eval, epochs = 16, 1024, 4, 2, 2
+    paddle.set_device("gpu")
+    weights = init_params_numpy(cfg, seed=0)
+
+    class _LMLoss(nn.Layer):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ids, labels):
+            return self.m.loss(ids, labels)
+
+    def build(arrays):
+        gpt = GPT(cfg).load_numpy(arrays)
+        model = Model(_LMLoss(gpt), inputs=[InputSpec([None, T], "int32"),
+                                            InputSpec([None, T], "int32")])
+        s = DistributedStrategy()
+        s.amp = True
+        s.amp_configs.use_pure_bf16 = True
+        model.prepare(lifecycle_optimizer(opt, nn, model.parameters()),
+                      metrics=None, strategy=s)
+        return model
+
+    rng = np.random.default_rng(11)
+
+    def dataset(n_batches):
+        ids = rng.integers(0, cfg.vocab_size, (n_batches * B, T),
+                           dtype=np.int32)
+        labels = np.concatenate([ids[:, 1:], ids[:, :1]], axis=1)
+        return TensorDataset([ids, labels])
+
+    class _Steps(hapi_cbks.Callback):
+        """Each train step's lr, loss and pre- and post-clip gradient norms
+        (device tensors), with the sync check armed around the step."""
+
+        def __init__(self, watched):
+            super().__init__()
+            self.watched = watched
+            self.lrs, self.losses, self.pre, self.post, self.evals = \
+                [], [], [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.lrs.append(self.model._optimizer.get_lr())
+            torch.cuda.set_sync_debug_mode("error")
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.pre.append(self.model._optimizer._grad_clip.global_norm)
+            self.post.append(grad_norm(torch, self.watched))
+            torch.cuda.set_sync_debug_mode(0)
+
+        def on_epoch_end(self, epoch, logs=None):
+            if "eval_loss" in logs:
+                self.evals.append(float(logs["eval_loss"]))
+
+    model = build(weights)
+    params = model.parameters()
+    train, evald = dataset(n_train), dataset(n_eval)
+    rec = _Steps(params)
+    with tempfile.TemporaryDirectory() as td:
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            model.fit(train, eval_data=evald, batch_size=B, epochs=epochs,
+                      verbose=0, shuffle=False, save_dir=td,
+                      callbacks=[hapi_cbks.LRScheduler(by_step=True),
+                                 hapi_cbks.ModelCheckpoint(save_dir=td,
+                                                           keep_last=1),
+                                 rec])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        fit_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        files = sorted(os.listdir(td))
+        steps = n_train * epochs
+        losses = [float(x) for x in rec.losses]
+        pre = [float(x) for x in rec.pre]
+        post = [float(x) for x in rec.post]
+        ref = lifecycle_optimizer(opt, nn, [])._lr_scheduler
+        want_lrs = []
+        for _ in range(steps):
+            want_lrs.append(ref())
+            ref.step()
+        want = {k: 0 for k in counts}
+        want.update({"flash_attention_fwd": cfg.layers * (steps + n_eval *
+                                                           epochs),
+                     "flash_attention_bwd_dq": cfg.layers * steps,
+                     "flash_attention_bwd_dkv": cfg.layers * steps})
+        clipped = [(a, b) for a, b in zip(pre, post) if a > 1.0]
+        bad = [(a, b) for a, b in clipped
+               if not b <= 1.0 * (1 + LIFECYCLE_NORM_SLACK)]
+        if len(losses) != steps or not all(
+                math.isfinite(x) for x in losses + rec.evals) \
+                or len(rec.evals) != epochs:
+            raise RuntimeError(f"phase 11: losses {losses}, eval losses "
+                               f"{rec.evals}")
+        if rec.lrs != want_lrs:
+            raise RuntimeError(f"phase 11: lrs {rec.lrs} != the scheduler's "
+                               f"{want_lrs}")
+        if bad:
+            raise RuntimeError(f"phase 11: post-clip norms above 1.0: {bad}")
+        if counts != want:
+            raise RuntimeError(f"phase 11 launches {counts} != {want}")
+        if files != ["1.pdopt", "1.pdparams", "final.pdopt",
+                     "final.pdparams"]:
+            raise RuntimeError(f"phase 11: save_dir holds {files}")
+        log(f"PHASE 11 lifecycle fit [{power}] GPT-2 124M B={B} T={T} AMP O2 "
+            f"AdamW(beta2 0.95, wd 0.1) + ClipGradByGlobalNorm(1.0) + "
+            f"LinearWarmup(CosineAnnealingDecay(6e-4, T_max=8), 2): "
+            f"{epochs} epochs x {n_train} steps + eval of {n_eval} batches, "
+            f"{fit_s:.3f}s with saves; losses {[round(x, 4) for x in losses]}"
+            f"; eval losses {rec.evals}; lrs {rec.lrs}; pre-clip norms "
+            f"{[round(x, 4) for x in pre]}, post-clip {[round(x, 6) for x in post]}"
+            f" ({len(clipped)} of {steps} clipped); launches {counts}; no host "
+            f"sync in a train step (set_sync_debug_mode error); save_dir "
+            f"{files}")
+
+        # resume: the final pair into a fresh GPT + Model + AdamW
+        prefix = os.path.join(td, "final")
+        nbytes = sum(os.path.getsize(prefix + e)
+                     for e in (".pdparams", ".pdopt"))
+        model2 = build(init_params_numpy(cfg, seed=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model2.load(prefix)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model.save(os.path.join(td, "timed"))
+        save_s = time.perf_counter() - t0
+        diff = same_state(torch, model, model2)
+        if diff:
+            raise RuntimeError(f"phase 11: reloaded state differs at "
+                               f"{diff[:8]}")
+
+        # the same state through a format-2 checkpoint directory
+        named = model.network.named_parameters()
+        path = os.path.join(td, "step_8")
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(path, param_arrays(model.network),
+                             model._optimizer.functional_state(named),
+                             step=steps,
+                             meta={"lr": model._optimizer._scheduler_state()})
+        ck_save_s = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+        t0 = time.perf_counter()
+        ckpt.validate_checkpoint(path, deep=True)
+        p3, st3, _, step3, meta3 = ckpt.load_checkpoint(
+            path, device=params[0].device)
+        ck_load_s = time.perf_counter() - t0
+        bad = [n for n, p in named if not torch.equal(p3[n], p)]
+        for n, p in named:
+            for k, v in model._optimizer.state(p).items():
+                w = st3[n][k]
+                if not (torch.equal(v, w) if isinstance(v, torch.Tensor)
+                        else float(w) == float(v)):
+                    bad.append(f"{n}/{k}")
+        if bad or step3 != steps \
+                or meta3["lr"] != model._optimizer._scheduler_state():
+            raise RuntimeError(f"phase 11 format-2 round trip: {bad[:8]}, "
+                               f"step {step3}, meta {meta3}")
+        del p3, st3
+
+    # 3 more steps: twice from the original's state (the spread of an
+    # uninterrupted run), once from the reloaded model
+    more = dataset(3)
+    snap = ([p.detach().clone() for p in params],
+            copy.deepcopy(model._optimizer._state),
+            model._optimizer._scheduler_state())
+
+    def three(m):
+        cb = _Steps(m.parameters())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m.fit(more, batch_size=B, epochs=1, verbose=0, shuffle=False,
+              callbacks=[hapi_cbks.LRScheduler(by_step=True), cb])
+        vals = [float(x) for x in cb.losses]
+        dt = (time.perf_counter() - t) / len(vals)
+        return vals, [p.detach().clone() for p in m.parameters()], dt
+
+    la, pa, host_s = three(model)
+    with torch.no_grad():
+        for p, v in zip(params, snap[0]):
+            p.copy_(v)
+    model._optimizer._state = snap[1]          # keyed by id(param)
+    model._optimizer._lr_scheduler.set_state_dict(snap[2])
+    lb, pb, _ = three(model)
+    lc, pc, _ = three(model2)
+
+    def spread(l1, p1, l2, p2):
+        return (max(abs(x - y) for x, y in zip(l1, l2)),
+                max(float((x.float() - y.float()).abs().max())
+                    for x, y in zip(p1, p2)))
+
+    s_ab, s_ac = spread(la, pa, lb, pb), spread(la, pa, lc, pc)
+    if (s_ab == (0.0, 0.0) and s_ac != (0.0, 0.0)) \
+            or s_ac[0] > 2 * s_ab[0] or s_ac[1] > 2 * s_ab[1]:
+        raise RuntimeError(f"phase 11 resume: resumed vs original {s_ac} "
+                           f"(loss, parameter) beyond the determinism spread "
+                           f"{s_ab}")
+    log(f"PHASE 11 save/resume [{power}]: final.pdparams + .pdopt {nbytes} B;"
+        f" Model.save {save_s:.3f}s, Model.load {load_s:.3f}s; the reload "
+        f"bit-equal (every parameter, AdamW slot, scheduler state); format-2 "
+        f"step_8 {ck_bytes} B, save_checkpoint {ck_save_s:.3f}s, "
+        f"validate(deep) + load_checkpoint {ck_load_s:.3f}s, bit-equal; 3 "
+        f"more steps: original {la}, again from its state {lb}, from the "
+        f"reload {lc}; max |diff| (loss, parameter) original vs again "
+        f"{s_ab}, vs reload {s_ac}")
+    del model2, pa, pb, pc, snap
+    torch.cuda.empty_cache()
+
+    # where the time goes: one step, the clip, AdamW's update, Adam's
+    ids, labels = (t[:B] for t in more.tensors)
+    prof = profile_kernels(torch, lambda: model.train_batch(
+        [ids, labels], sync=False), 2)
+    step_us = sum(us for us, _ in prof.values())
+    # a step that synced would hold the host until the card caught up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train_batch([ids, labels], sync=False)
+    dispatch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    done_s = time.perf_counter() - t0
+    o = model._optimizer
+    pairs = [(p, p.grad) for p in params]
+    clip_us = sum(us for us, _ in profile_kernels(
+        torch, lambda: o._grad_clip(pairs), 3).values())
+    clip, o._grad_clip = o._grad_clip, None
+    lr = o.get_lr()
+    adam = opt.Adam(learning_rate=1e-4, parameters=params)
+    with torch.no_grad():
+        adamw_us = sum(us for us, _ in profile_kernels(
+            torch, lambda: o._update(lr), 3).values())
+        o._grad_clip = clip
+        adam._update(1e-4)                   # its moments, made once
+        adam_us = sum(us for us, _ in profile_kernels(
+            torch, lambda: adam._update(1e-4), 3).values())
+    log(f"PHASE 11 step [{power}]: ms_per_step host clock {host_s * 1e3:.3f}"
+        f" (3 steps of Model.fit, the lr callback and the checks' norms "
+        f"included), device {step_us / 1e3:.3f} (torch.profiler, 2 steps); "
+        f"one step returned to the host after {dispatch_s * 1e3:.3f} ms and "
+        f"finished on the card after {done_s * 1e3:.3f} ms; "
+        f"device us per step: ClipGradByGlobalNorm {clip_us:.1f}, AdamW "
+        f"update (decay included) {adamw_us:.1f}, phase 7's Adam update "
+        f"{adam_us:.1f}; clip + AdamW "
+        f"{(clip_us + adamw_us) / step_us if step_us else float('nan'):.4f}"
+        f" of the step")
+    del model, adam, o, pairs
+    torch.cuda.empty_cache()
+    phase_lifecycle_parity(torch, np)
+
+
 # ------------------------------------------------------------ phase 8
 
 # the LM head of the slice: GPT-3 1.3B at B=4, T=2048 (N = B T rows)
@@ -2950,6 +3350,9 @@ def main():
     t0 = time.perf_counter()
     phase_train(torch, np, power, flash_records)
     log(f"PHASE 7 took {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    phase_lifecycle(torch, np, power)
+    log(f"PHASE 11 took {time.perf_counter() - t0:.3f}s")
     records += list(flash_records)
 
     # phases 8-10: the GPT-3 1.3B slice (benchmarks/run.py config 5)

@@ -17,6 +17,14 @@ eager use of the layer. Any other layer's whole forward is recomputed.
 Parameters are updated in place and stay the layer's own tensors (the JAX
 step donates copies and writes back later; here there is nothing to write
 back).
+
+The optimizer's `_update(lr)` applies its gradient clip, regularizers and
+weight decay, as the eager `step()` does; `lr` is the scheduler's value,
+read on the host. With `accumulate_steps = n > 1` (hapi's
+`accumulate_grad_batches`) each call adds its batch's gradients to the
+parameters' `.grad` and every n-th call divides them by n and applies
+the optimizer: the JAX hapi `grad_step` / `apply_step` pair, the same sum
+in the same order. `gradient_merge` as a strategy toggle is not ported.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ class CompiledTrainStep:
         self.layer = layer
         self.device = device
         self._opt = optimizer
+        self.accumulate_steps = 1       # hapi's accumulate_grad_batches
+        self._micro = 0                 # batches accumulated so far
         self._loss = getattr(layer, loss_method) if loss_method else layer
         self._amp = bool(strategy.amp)
         self._level = "O2" if strategy.amp_configs.use_pure_bf16 else "O1"
@@ -71,15 +81,25 @@ class CompiledTrainStep:
             layer._recompute_blocks, layer._recompute_policy = prev
 
     def step(self, *data, lr=None):
-        """One optimizer step on a batch; returns the loss, left on the
-        device."""
+        """One batch: forward, backward and, on the last batch of an
+        accumulation (every batch by default), the optimizer update.
+        Returns the loss, left on the device."""
         data = [self._put_data(d) for d in data]
         self.layer.train()
-        self._opt.clear_grad()
+        if self._micro == 0:
+            self._opt.clear_grad()
         loss = self._run(*data)
         loss.backward()
-        with torch.no_grad():
-            self._opt._update(self._opt.get_lr() if lr is None else lr)
+        self._micro += 1
+        if self._micro >= self.accumulate_steps:
+            self._micro = 0
+            with torch.no_grad():
+                if self.accumulate_steps > 1:
+                    torch._foreach_div_(
+                        [g for g in (p.grad for p in
+                                     self._opt._parameter_list or ())
+                         if g is not None], float(self.accumulate_steps))
+                self._opt._update(self._opt.get_lr() if lr is None else lr)
         return loss.detach()
 
 

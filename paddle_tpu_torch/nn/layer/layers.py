@@ -26,12 +26,18 @@ class Layer(torch.nn.Module):
     def create_parameter(self, shape, attr=None, default_initializer=None,
                          is_bias=False):
         """A trainable fp32 parameter on the default device, drawn from
-        `attr` (an initializer, or an object with an ``initializer``),
-        else `default_initializer`, else zeros for a bias."""
+        `attr` (an initializer, or an object with an ``initializer``, a
+        `framework.ParamAttr`), else `default_initializer`, else zeros for
+        a bias. The attr's `regularizer`, if any, goes on the parameter
+        for the optimizer."""
         init = getattr(attr, "initializer", attr) or default_initializer
         if init is None:
             init = I.Constant(0.0) if is_bias else I.XavierNormal()
-        return torch.nn.Parameter(init(shape, get_device()).float())
+        p = torch.nn.Parameter(init(shape, get_device()).float())
+        reg = getattr(attr, "regularizer", None)
+        if reg is not None:
+            p.regularizer = reg
+        return p
 
     # paddle returns lists and names the flag include_sublayers; torch's
     # own callers pass recurse=, which these keep taking

@@ -1,5 +1,7 @@
-"""paddle.optimizer for the training slices: `Momentum` and `Adam`."""
+"""paddle.optimizer: `SGD`, `Momentum`, `Adam`, `AdamW` and the LR
+schedulers of `optimizer.lr`."""
+from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, Momentum
+from .optimizers import SGD, Adam, AdamW, Momentum
 
-__all__ = ["Optimizer", "Momentum", "Adam"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]

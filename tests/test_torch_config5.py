@@ -135,14 +135,25 @@ def test_momentum_matches_jax(nesterov, dtype):
                                            atol=0)
 
 
-def test_momentum_unported_options_raise():
+def test_momentum_unported_options_raise(tmp_path):
+    """Momentum's own options (multi_precision, weight_decay, grad_clip)
+    are ported and held to the JAX package in tests/test_torch_lifecycle.py;
+    what still raises around it is saving its state encrypted and
+    restoring its slots onto a mesh."""
+    from paddle_tpu_torch.framework import save as tsave
+    from paddle_tpu_torch.io import checkpoint as tckpt
     p = [torch.nn.Parameter(torch.zeros(2))]
+    p[0].grad = torch.ones(2)
+    mom = topt.Momentum(parameters=p, multi_precision=True,
+                        weight_decay=0.01)
+    mom.step()
     with pytest.raises(NotImplementedError):
-        topt.Momentum(parameters=p, multi_precision=True)
+        tsave(mom.state_dict(), str(tmp_path / "m.pdopt"),
+              cipher_key=b"k" * 32)
+    tckpt.save_checkpoint(str(tmp_path / "step_0"), {"w": p[0]},
+                          {"w": mom.state(p[0])})
     with pytest.raises(NotImplementedError):
-        topt.Momentum(parameters=p, weight_decay=0.01)
-    with pytest.raises(NotImplementedError):
-        topt.Momentum(parameters=p, grad_clip=object())
+        tckpt.load_checkpoint(str(tmp_path / "step_0"), mesh=object())
 
 
 # -------------------------------------------------- compile_train_step

@@ -393,21 +393,36 @@ def test_unported_strategy_toggles_raise_at_prepare(toggle):
         model.prepare(topt.Adam(parameters=model.parameters()), strategy=s)
 
 
-def test_unported_model_surface_raises():
+def test_unported_model_surface_raises(tmp_path):
+    """What of hapi and the checkpoint surface is still unported: the
+    inference export, `summary`, encrypted files, a mesh or shardings at
+    restore, and AMP options the op-by-op bf16 AMP cannot express. (The
+    rest of what this test once asserted raised -- metrics, amp levels,
+    eval_data, evaluate, LR schedulers, weight decay -- is ported and
+    held to the JAX package in tests/test_torch_lifecycle.py.)"""
+    from paddle_tpu_torch.io import checkpoint as tckpt
     _, tgpt = _pair()
     model = TModel(_TLoss(tgpt))
     adam = topt.Adam(parameters=model.parameters())
     with pytest.raises(NotImplementedError):
-        model.prepare(adam, amp_configs="O2")
+        model.prepare(adam, amp_configs={"level": "O2",
+                                         "custom_white_list": ["gelu"]})
     with pytest.raises(NotImplementedError):
-        model.prepare(adam, metrics=[object()])
+        model.prepare(adam, amp_configs="O3")
     model.prepare(adam)
-    ids, labels = _batch(512, 2, 16)
     with pytest.raises(NotImplementedError):
-        model.fit(TTensorDataset([ids, labels]), eval_data=[1])
+        model.save(str(tmp_path / "m"), training=False)
     with pytest.raises(NotImplementedError):
-        model.evaluate(None)
+        model.summary()
     with pytest.raises(NotImplementedError):
-        topt.Adam(learning_rate=object(), parameters=model.parameters())
+        ptt.save({"w": tgpt.wte.weight}, str(tmp_path / "w.pdparams"),
+                 cipher_key=b"k" * 32)
+    ptt.save({"w": tgpt.wte.weight}, str(tmp_path / "w.pdparams"))
     with pytest.raises(NotImplementedError):
-        topt.Adam(parameters=model.parameters(), weight_decay=0.01)
+        ptt.load(str(tmp_path / "w.pdparams"), cipher_key=b"k" * 32)
+    tckpt.save_checkpoint(str(tmp_path / "step_1"), {"w": tgpt.wte.weight})
+    with pytest.raises(NotImplementedError):
+        tckpt.load_checkpoint(str(tmp_path / "step_1"), mesh=object())
+    with pytest.raises(NotImplementedError):
+        tckpt.load_checkpoint(str(tmp_path / "step_1"),
+                              shardings={"params": {"w": None}})
