@@ -101,6 +101,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      SIGTERM and a clean drain; (4-int8) the same on the int8 artifact
      with --kv-dtype int8, held to the int8 engine and the int8 launch
      formulas;
+ 4-spec. speculative decoding (SpecDecodeEngine): (a) GPT-2 124M drafting
+     for itself (the same seed-0 weights), k=4, 8 slots, 16-token pages,
+     phase 3's 8 prompts, on fp32 and on int8 pages: every token within
+     LOGIT_TOL (int8 pages: INT8_LOGIT_TOL) of a full forward's max logit,
+     acceptance >= SPEC_MIN_ACCEPT, no kernel launched (fp32 weights; the
+     verify and rollout attention are plain PyTorch); (b) the serving
+     user's command, `serve --decode --draft-model <gpt2_124m> --speculate-k
+     4 --draft-quant --metrics-port 0` over gpt2_345m() seed-0 weights
+     saved with quant="int8", in a subprocess: 8 greedy requests (phase 3's
+     prompts) and a seeded temperature request, concurrently; every greedy
+     stream within LOGIT_TOL of a full forward over the dequantized target,
+     the sampled stream equal to the in-process plain DecodeEngine's over
+     the same artifact (and how many greedy streams equal its streams);
+     /metrics scraped: text/plain 0.0.4, accepted + rejected = drafted,
+     the acceptance gauge their ratio, tokens_total the tokens streamed,
+     rollback releases > 0; the server's int8 matmul launches equal to 4 x
+     (12 x (draft steps + draft prefills) + 24 x (verify calls +
+     prefills)) from its own counters, and no attention launch; in process
+     over the same artifacts, the steady window (8 distinct 128-token
+     prompts x 64 tokens) speculative and plain, with acceptance, the k
+     each slot ended at and host ms per tick in the rollout and the
+     verify (launch counts held to the same formula); a B=8, 512-token
+     tick's rollout and verify on the host clock and in device time by
+     kernel; and row 4 at gpt2_345m's four block matmuls, against its
+     plain version, by graph replay beside its bound and fp32
+     torch.matmul: the GEMV at M = 1-6 and 8 (the verify at b_rung (k + 1)
+     <= 8, the plain engine at M = b_rung; its route and launch geometry
+     checked), the tiled kernel at the verify's M = 8 (k + 1) for k = 1,
+     2, 4;
   5. flash attention forward (5) and backward (5b): first the counts of
      HMMA and HGMMA instructions in the SASS of each bf16 (tensor-core)
      flash kernel (cuobjdump -sass on the built library; the kernels run
@@ -229,6 +258,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1179,10 +1209,14 @@ def phase_engine(torch, np, power, cfg, eng, oracle, tol, tag, int8):
     return prompts, outs, counts, gaps
 
 
-def steady_window(eng, cfg, rng, int8, n=8, plen=128, max_new=64):
+def steady_window(eng, cfg, rng, int8, n=8, plen=128, max_new=64,
+                  expect=None):
     """8 streams decoding together: distinct prompts (no prefix hit, so
     no prompt tail goes through the step), all submitted at once. Returns
-    (prompts, outputs, wall seconds, stats deltas)."""
+    (prompts, outputs, wall seconds, stats deltas). The launch counts must
+    equal `expect(deltas)` (default: `expected_counts` of the plain
+    engine); a speculative engine's deltas carry its `speculate` block's
+    counters too."""
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, plen)]
                for _ in range(n)]
     before = eng.stats()
@@ -1191,16 +1225,23 @@ def steady_window(eng, cfg, rng, int8, n=8, plen=128, max_new=64):
     streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     outs = [s.result(timeout=600) for s in streams]
     wall = time.perf_counter() - t0
+    launches = kernel_counts()
     after = eng.stats()
-    st = {"steps": after["steps"] - before["steps"],
-          "step_seconds": after["step_seconds"] - before["step_seconds"],
-          "prefills": after["prefills"] - before["prefills"],
-          "launches": kernel_counts()}
+    st = {k: after[k] - before[k] for k in ("steps", "step_seconds",
+                                            "prefills", "tokens")}
+    for k, v in after.get("speculate", {}).items():
+        if isinstance(v, (int, float)) \
+                and k not in ("k_max", "acceptance_rate"):
+            st[k] = v - before["speculate"][k]
+    st["launches"] = launches
+    want = expect(st) if expect is not None else \
+        expected_counts(cfg, st["steps"], st["prefills"], int8)
     if any(len(o) != max_new for o in outs) or st["steps"] == 0 \
-            or st["launches"] != expected_counts(cfg, st["steps"],
-                                                 st["prefills"], int8):
+            or launches != want:
         raise RuntimeError(f"steady window: streams "
-                           f"{[len(o) for o in outs]}, {st}")
+                           f"{[len(o) for o in outs]}, {st}, launches "
+                           f"wanted {want}")
+    st["k_final"] = [getattr(s, "spec_k", None) for s in streams]
     return prompts, outs, wall, st
 
 
@@ -1446,6 +1487,57 @@ def phase_contiguous_step_profile(torch, np, cfg, params, power):
 
 # ------------------------------------------------------------ phase 4
 
+def scrape(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.headers["Content-Type"], r.read().decode()
+
+
+def metric_value(text, name):
+    """The value of a label-less sample in 0.0.4 exposition text."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise RuntimeError(f"/metrics has no sample {name}")
+
+
+def start_server(args):
+    """Start `python -m paddle_tpu_torch.inference.serve <args>` and read
+    its stdout on a thread; returns (process, reader thread, line queue,
+    log)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.inference.serve", *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    out_log = []
+
+    def pump():
+        for line in proc.stdout:
+            out_log.append(line.rstrip())
+            lines.put(line.rstrip())
+        lines.put(None)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    return proc, reader, lines, out_log
+
+
+def wait_for(lines, out_log, prefix, timeout=300):
+    """The port number on the server's first stdout line that starts with
+    `prefix` (``SERVING `` or ``METRICS ``)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        line = lines.get(timeout=max(deadline - time.monotonic(), 1))
+        if line is None:
+            raise RuntimeError(f"server exited before {prefix}:\n"
+                               + "\n".join(out_log[-40:]))
+        if line.startswith(prefix):
+            return int(line.split()[1])
+
+
 def phase_server(torch, np, cfg, arrays, prompts, outs, oracle_params, tol,
                  tag, int8):
     """Serve `arrays` (int8 weights and pages when `int8`) from the decode
@@ -1462,37 +1554,13 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, oracle_params, tol,
         prefix = os.path.join(td, "gpt2_124m")
         save_for_decode(arrays, cfg, 1e-5, prefix,
                         quant="int8" if int8 else None)
-        env = dict(os.environ)
-        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "paddle_tpu_torch.inference.serve",
-             prefix, "--decode", "--decode-slots", "8", "--port", "0",
+        proc, reader, lines, out_log = start_server(
+            [prefix, "--decode", "--decode-slots", "8", "--port", "0",
              "--kv-dtype", "int8" if int8 else "float32",
              # a PDI1 request carries no options: it gets this default
-             "--decode-max-new", str(len(outs[0]))],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        lines: "queue.Queue[str]" = queue.Queue()
-        out_log = []
-
-        def pump():
-            for line in proc.stdout:
-                out_log.append(line.rstrip())
-                lines.put(line.rstrip())
-            lines.put(None)
-
-        reader = threading.Thread(target=pump, daemon=True)
-        reader.start()
+             "--decode-max-new", str(len(outs[0]))])
         try:
-            port = None
-            deadline = time.monotonic() + 300
-            while port is None:
-                line = lines.get(timeout=max(deadline - time.monotonic(), 1))
-                if line is None:
-                    raise RuntimeError("server exited before SERVING:\n"
-                                       + "\n".join(out_log[-40:]))
-                if line.startswith("SERVING "):
-                    port = int(line.split()[1])
+            port = wait_for(lines, out_log, "SERVING ")
             results, errors = {}, []
 
             def client(i, trace):
@@ -1568,6 +1636,419 @@ def phase_server(torch, np, cfg, arrays, prompts, outs, oracle_params, tol,
         f"steps={srv_steps} prefills={srv_prefills} "
         f"kernel_launches={srv_counts} (= {want}), "
         f"SIGTERM -> DRAINED ok=True rc=0")
+
+
+# ------------------------------------------------------- phase 4-spec
+
+SPEC_K = 4                  # speculation depth the phase serves at
+SPEC_MIN_ACCEPT = 0.9       # a self-draft's acceptance must reach this
+
+
+def spec_expected_counts(tcfg, dcfg, st, int8):
+    """Launches a speculative run must show: on int8 weights one matmul
+    launch per block matmul per layer of each model call (the draft per
+    rollout step and per draft prefill, the target per verify and per
+    prefill), and no other kernel (the verify and rollout attention are
+    plain PyTorch)."""
+    want = {k: 0 for k in kernel_counts()}
+    if int8:
+        want["int8_weight_matmul"] = len(MATMULS) * (
+            dcfg.layers * (st["draft_steps"] + st["draft_prefills"])
+            + tcfg.layers * (st["steps"] + st["prefills"]))
+    return want
+
+
+def spec_tick_ms(st):
+    """Host ms a tick in the rollout and in the verify (the engine's own
+    clock, each call ending in a copy of its result to the host)."""
+    n = max(st["steps"], 1)
+    return (st["rollout_seconds"] / n * 1e3, st["verify_seconds"] / n * 1e3)
+
+
+def phase_spec_self_draft(torch, power, cfg, params, prompts, kv_dtype, tol,
+                          tag):
+    """(a) GPT-2 124M drafting for itself (the same seed-0 weights), k=4,
+    8 slots, 16-token pages, phase 3's 8 prompts: every stream within
+    `tol` of the full forward's max logit (teacher-forced), acceptance >=
+    SPEC_MIN_ACCEPT, and no kernel launched (fp32 weights; the verify and
+    rollout attention are plain)."""
+    from paddle_tpu_torch.inference.decode import SpecDecodeEngine
+    from paddle_tpu_torch.models.gpt import GPTDecoder
+
+    eng = SpecDecodeEngine(cfg=cfg, params=params, eps=1e-5, draft_cfg=cfg,
+                           draft_params=params, speculate_k=SPEC_K,
+                           max_slots=8, page_tokens=16, kv_dtype=kv_dtype,
+                           device="cuda")
+    max_new = 32
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        outs = [s.result(timeout=600) for s in streams]
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        st = eng.stats()
+    finally:
+        eng.stop()
+    sp = st["speculate"]
+    want = spec_expected_counts(cfg, cfg, dict(sp, **st), int8=False)
+    if any(len(o) != max_new for o in outs) or counts != want:
+        raise RuntimeError(f"{tag}: streams {[len(o) for o in outs]}, "
+                           f"launches {counts} != {want}")
+    oracle = GPTDecoder(cfg, device="cuda")
+    oracle.load_state_dict(params)
+    gaps = [teacher_forced(torch, oracle, p, o) for p, o in zip(prompts, outs)]
+    del oracle
+    if max(gaps) > tol:
+        raise RuntimeError(f"{tag}: teacher-forced check failed: {gaps}")
+    if sp["acceptance_rate"] < SPEC_MIN_ACCEPT:
+        raise RuntimeError(f"{tag}: self-draft acceptance "
+                           f"{sp['acceptance_rate']} < {SPEC_MIN_ACCEPT}")
+    roll_ms, ver_ms = spec_tick_ms(dict(sp, **st))
+    log(f"{tag} self-draft [{power}] gpt2_124m -> gpt2_124m k={SPEC_K} "
+        f"kv_dtype={kv_dtype} slots=8 page_tokens=16 requests=8 "
+        f"max_new={max_new}: streams_done=8 "
+        f"teacher_forced_max_gap={max(gaps):.3e} (gate {tol}) "
+        f"drafted={sp['drafted']} accepted={sp['accepted']} "
+        f"acceptance={sp['acceptance_rate']} (gate {SPEC_MIN_ACCEPT}) "
+        f"k_final={[s.spec_k for s in streams]} ticks={st['steps']} "
+        f"draft_steps={sp['draft_steps']} prefills={st['prefills']} "
+        f"rollback_released={sp['rollback_released']} "
+        f"cow={st['cow_copies']} kernel_launches={counts} "
+        f"wall_s={wall:.6f} tokens_per_s={8 * max_new / wall:.3f} "
+        f"host_ms_per_tick rollout={roll_ms:.6f} verify={ver_ms:.6f}")
+
+
+def phase_spec_server(torch, np, power, dcfg, darrays, prompts):
+    """(b) The serving user's command: gpt2_345m() seed-0 weights saved
+    with quant="int8" as the target and gpt2_124m() (phase 3's weights,
+    an fp32 artifact) as the draft, served by
+    `serve --decode --draft-model ... --speculate-k 4 --draft-quant
+    --metrics-port 0` in a subprocess. 8 greedy requests (phase 3's
+    prompts) and one seeded temperature request, concurrently. Every
+    greedy stream within LOGIT_TOL of the full forward of the dequantized
+    target (teacher-forced); the sampled stream equal to the in-process
+    plain DecodeEngine's over the same artifact; /metrics consistent
+    (accepted + rejected = drafted, the acceptance gauge their ratio,
+    tokens_total the tokens streamed, rollback releases > 0); the
+    server's int8 matmul launches equal to `spec_expected_counts`. Then,
+    in process over the same artifacts: the steady window, spec and
+    plain, the tick's rollout and verify profiled, and row 4 at the
+    verify's shapes."""
+    from paddle_tpu_torch.inference.decode import (load_for_decode,
+                                                   save_for_decode)
+    from paddle_tpu_torch.inference.serve import decode_request
+    from paddle_tpu_torch.models.gpt import (GPTDecoder, gpt2_345m,
+                                             init_params_numpy,
+                                             params_from_numpy)
+    from paddle_tpu_torch.quant.ptq import dequantize_params, quantize_params
+
+    tcfg = gpt2_345m()
+    t0 = time.perf_counter()
+    tq = quantize_params(init_params_numpy(tcfg, seed=0))
+    max_new = 32
+    sample = {"temperature": 0.8, "top_k": 50, "seed": 1234}
+    s_prompt = prompts[1]
+    with tempfile.TemporaryDirectory() as td:
+        tp, dp = os.path.join(td, "gpt2_345m_int8"), os.path.join(
+            td, "gpt2_124m")
+        save_for_decode(tq, tcfg, 1e-5, tp, quant="int8")
+        save_for_decode(darrays, dcfg, 1e-5, dp)
+        log(f"PHASE 4-spec setup: gpt2_345m seed-0 weights + "
+            f"quantize_params + both artifacts "
+            f"{time.perf_counter() - t0:.3f}s")
+        proc, reader, lines, out_log = start_server(
+            [tp, "--decode", "--decode-slots", "8", "--port", "0",
+             "--draft-model", dp, "--speculate-k", str(SPEC_K),
+             "--draft-quant", "--metrics-port", "0",
+             "--decode-max-new", str(max_new)])
+        try:
+            mport = wait_for(lines, out_log, "METRICS ")
+            port = wait_for(lines, out_log, "SERVING ")
+            results, errors = {}, []
+
+            def client(i, opts):
+                try:
+                    with socket.create_connection(("127.0.0.1", port),
+                                                  timeout=600) as s:
+                        results[i] = decode_request(
+                            s, prompts[i] if i < 8 else s_prompt,
+                            opts=dict(opts, max_new_tokens=max_new))
+                except Exception as e:      # surfaced below
+                    errors.append(f"request {i}: {e!r}")
+
+            threads = [threading.Thread(target=client,
+                                        args=(i, {"temperature": 0.0}))
+                       for i in range(8)]
+            threads.append(threading.Thread(target=client,
+                                            args=(8, sample)))
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if errors or len(results) != 9:
+                raise RuntimeError(f"spec server requests failed: {errors}")
+            ctype, metrics = scrape(mport, "/metrics")
+            _, status = scrape(mport, "/statusz")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            reader.join(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != 0 or "DRAINED ok=True" not in out_log:
+            raise RuntimeError(f"spec server drain failed rc={rc}:\n"
+                               + "\n".join(out_log[-40:]))
+        stats = [ln for ln in out_log if ln.startswith("DECODE STATS ")]
+        kv = dict(f.split("=", 1) for f in stats[0].split()[2:])
+        srv = {"steps": int(kv["steps"]), "prefills": int(kv["prefills"]),
+               "draft_steps": int(kv["spec_draft_steps"]),
+               "draft_prefills": int(kv["spec_draft_prefills"])}
+        srv_counts = {k: int(kv[f"{k}_launches"]) for k in DECODE_KERNELS}
+        want = {k: v for k, v in spec_expected_counts(
+            tcfg, dcfg, srv, int8=True).items() if k in DECODE_KERNELS}
+        if not kv["device"].startswith("cuda") or srv_counts != want \
+                or srv["steps"] == 0:
+            raise RuntimeError(f"spec server launches {srv_counts} != "
+                               f"{want} ({srv}) on {kv['device']}")
+        # /metrics against itself and against the streams
+        streamed = sum(len(r) for r in results.values())
+        m = {n: metric_value(metrics, f"paddle_tpu_decode_{n}")
+             for n in ("spec_draft_steps_total",
+                       "spec_accepted_tokens_total",
+                       "spec_rejected_tokens_total",
+                       "spec_acceptance_rate",
+                       "page_rollback_released_total", "tokens_total")}
+        drafted = int(kv["spec_drafted"])
+        accepted = m["spec_accepted_tokens_total"]
+        if not ctype.startswith("text/plain; version=0.0.4") \
+                or accepted + m["spec_rejected_tokens_total"] != drafted \
+                or accepted != int(kv["spec_accepted"]) \
+                or abs(m["spec_acceptance_rate"] - accepted / drafted) \
+                > 1e-12 \
+                or m["tokens_total"] != streamed \
+                or m["page_rollback_released_total"] <= 0 \
+                or m["spec_draft_steps_total"] != srv["draft_steps"]:
+            raise RuntimeError(f"spec server /metrics {m} ({ctype}) "
+                               f"against drafted={drafted} "
+                               f"streamed={streamed} {kv}")
+        spec_status = json.loads(status)["decode"]["speculate"]
+
+        # the teacher-forced gate against the dequantized target
+        deq = params_from_numpy(tcfg, dequantize_params(tq), "cuda")
+        oracle = GPTDecoder(tcfg, device="cuda")
+        oracle.load_state_dict(deq)
+        gaps = [teacher_forced(torch, oracle, prompts[i], results[i])
+                for i in range(8)]
+        del oracle, deq
+        torch.cuda.empty_cache()
+        if any(len(results[i]) != max_new for i in range(9)) \
+                or max(gaps) > LOGIT_TOL:
+            raise RuntimeError(f"spec server streams "
+                               f"{[len(r) for r in results.values()]}, "
+                               f"teacher-forced gaps {gaps}")
+
+        # the plain engine over the same target: the sampled stream, the
+        # greedy streams' identity, its steady window
+        plain = load_for_decode(tp, device="cuda", max_slots=8,
+                                page_tokens=16)
+        try:
+            p_outs = [plain.submit(prompts[i], max_new_tokens=max_new)
+                      .result(timeout=600) for i in range(8)]
+            p_sample = plain.submit(s_prompt, max_new_tokens=max_new,
+                                    **sample).result(timeout=600)
+            # int8 weights on fp32 pages: fp32 attention, int8 matmuls
+            _, p_souts, p_wall, p_st = steady_window(
+                plain, tcfg, np.random.default_rng(4), int8=True,
+                expect=lambda st: dict(
+                    expected_counts(tcfg, st["steps"], st["prefills"],
+                                    int8=False),
+                    int8_weight_matmul=len(MATMULS) * tcfg.layers
+                    * (st["steps"] + st["prefills"])))
+        finally:
+            plain.stop()
+        if p_sample != results[8]:
+            raise RuntimeError(f"spec server sampled stream {results[8]} "
+                               f"!= the plain engine's {p_sample}")
+        same = sum(p_outs[i] == results[i] for i in range(8))
+        log(f"PHASE 4-spec server [{power}]: target gpt2_345m int8 weights "
+            f"(kv float32), draft gpt2_124m --draft-quant, k={SPEC_K}, 8 "
+            f"slots; 8 greedy + 1 sampled (T={sample['temperature']}, "
+            f"top_k={sample['top_k']}, seed {sample['seed']}) concurrent "
+            f"requests on port {port}, METRICS {mport}: wall_s={wall:.6f} "
+            f"tokens={streamed} teacher_forced_max_gap={max(gaps):.3e} "
+            f"(gate {LOGIT_TOL}) greedy_identical_to_plain={same}/8 "
+            f"sampled_equal_to_plain=True device={kv['device']} "
+            f"ticks={srv['steps']} prefills={srv['prefills']} "
+            f"draft_steps={srv['draft_steps']} draft_prefills="
+            f"{srv['draft_prefills']} int8_weight_matmul_launches="
+            f"{srv_counts['int8_weight_matmul']} (= {len(MATMULS)} x "
+            f"({dcfg.layers} x ({srv['draft_steps']} + "
+            f"{srv['draft_prefills']}) + {tcfg.layers} x ({srv['steps']} + "
+            f"{srv['prefills']}))), attention launches 0")
+        log(f"PHASE 4-spec /metrics: {ctype}; drafted={drafted} "
+            f"accepted={accepted:g} rejected="
+            f"{m['spec_rejected_tokens_total']:g} acceptance_rate="
+            f"{m['spec_acceptance_rate']} tokens_total="
+            f"{m['tokens_total']:g} (= streamed) "
+            f"page_rollback_released_total="
+            f"{m['page_rollback_released_total']:g}; /statusz speculate "
+            f"{spec_status}")
+
+        eng = load_for_decode(tp, device="cuda", draft_prefix=dp,
+                              speculate_k=SPEC_K, draft_quant=True,
+                              max_slots=8, page_tokens=16)
+        try:
+            s_prompts, s_outs, s_wall, s_st = steady_window(
+                eng, tcfg, np.random.default_rng(4), int8=True,
+                expect=lambda st: spec_expected_counts(tcfg, dcfg, st,
+                                                       int8=True))
+        finally:
+            eng.stop()
+    roll_ms, ver_ms = spec_tick_ms(s_st)
+    s_tokens = sum(len(o) for o in s_outs)
+    log(f"PHASE 4-spec steady window [{power}]: gpt2_345m int8, 8 distinct "
+        f"{len(s_prompts[0])}-token prompts x {len(s_outs[0])} new tokens; "
+        f"spec k={SPEC_K}: wall_s={s_wall:.6f} "
+        f"tokens_per_s={s_tokens / s_wall:.3f} ticks={s_st['steps']} "
+        f"tokens_per_tick={(s_tokens - s_st['prefills']) / s_st['steps']:.3f}"
+        f" drafted={s_st['drafted']} accepted={s_st['accepted']} "
+        f"k_final={s_st['k_final']} host_ms_per_tick rollout={roll_ms:.6f} "
+        f"verify={ver_ms:.6f} kernel_launches={s_st['launches']}; plain: "
+        f"wall_s={p_wall:.6f} tokens_per_s="
+        f"{sum(len(o) for o in p_souts) / p_wall:.3f} "
+        f"steps={p_st['steps']} "
+        f"ms_per_step={p_st['step_seconds'] / p_st['steps'] * 1e3:.6f}")
+    phase_spec_tick_profile(torch, np, power, tcfg, tq, dcfg, darrays)
+    phase_spec_matmul(torch, power, tcfg, tq)
+
+
+def phase_spec_tick_profile(torch, np, power, tcfg, tq, dcfg, darrays):
+    """Where a speculative tick's time goes: the draft rollout (k=4 steps
+    of gpt2_124m int8) and the verify (k+1 = 5 positions of gpt2_345m
+    int8) at B=8, every sequence 512 tokens long, each timed on the host
+    clock and traced for device time by kernel (`step_breakdown`)."""
+    from paddle_tpu_torch.models.gpt import (gpt_paged_rollout_fns,
+                                             gpt_paged_verify_fns,
+                                             params_from_numpy)
+    from paddle_tpu_torch.quant.kv import kv_pool_zeros
+    from paddle_tpu_torch.quant.ptq import quantize_params
+
+    B, pt, W, n = 8, 16, 64, 512
+    P = B * W + 1
+    rng = np.random.default_rng(2)
+    tables = np.zeros((B, W), np.int32)
+    perm = rng.permutation(np.arange(1, P))
+    for b in range(B):
+        tables[b, :n // pt + 1] = perm[b * W:b * W + n // pt + 1]
+    tables = torch.from_numpy(tables)
+    clen = torch.full((B,), n, dtype=torch.long)
+    for cfg, arrays, what in ((dcfg, quantize_params(darrays), "rollout"),
+                              (tcfg, tq, "verify")):
+        params = params_from_numpy(cfg, arrays, "cuda")
+        shape = (cfg.layers, P, pt, cfg.heads, cfg.head_dim)
+        kpool = kv_pool_zeros(shape, "float32", "cuda")
+        vpool = kv_pool_zeros(shape, "float32", "cuda")
+        if what == "rollout":
+            fn = gpt_paged_rollout_fns(cfg, page_tokens=pt)
+            toks = torch.full((B, SPEC_K), -1, dtype=torch.long)
+            toks[:, 0] = torch.from_numpy(rng.integers(0, cfg.vocab_size, B))
+        else:
+            fn = gpt_paged_verify_fns(cfg, page_tokens=pt)
+            toks = torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, (B, SPEC_K + 1)))
+
+        def one():
+            out = fn(params, kpool, vpool, tables, toks, clen)
+            return out[1 if what == "verify" else 0].cpu()
+
+        step_breakdown(torch, one, power, f"PHASE 4-spec tick {what}",
+                       f"{'gpt2_124m' if what == 'rollout' else 'gpt2_345m'}"
+                       f" int8 weights, kv float32, B={B} len={n} "
+                       f"{'k' if what == 'rollout' else 'K1'}="
+                       f"{toks.shape[1]}")
+        del params, kpool, vpool
+        torch.cuda.empty_cache()
+
+
+def phase_spec_matmul(torch, power, tcfg, tq):
+    """Row 4 at gpt2_345m's four block matmuls, against its plain version
+    (INT8_KERNEL_TOL), timed by graph replay beside its bound and fp32
+    torch.matmul on the dequantized weight: the M <= 8 GEMV at M = 1-6
+    and 8 (the verify takes it when b_rung (k + 1) <= 8: M = 2, 3, 4, 5,
+    6, 8; the plain engine over the same target at M = b_rung), its route
+    held to the kernel library's own (no split-K workspace, and its
+    launch geometry equal to `gemv_geometry`); then the tiled
+    tensor-core kernel at the verify's M = 8 (k + 1) rows for k = 1, 2,
+    4."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ws = []
+    for rel in MATMULS:
+        w = torch.from_numpy(tq[f"blocks.0.{rel}"]).cuda()
+        s = torch.from_numpy(tq[f"blocks.0.{rel}::scale"]).cuda()
+        ws.append((rel, w, s, w.float() * s))
+    _, ws_floats = qm._kernel_fn()
+    geometry = qm._geometry_fn()
+    for M in (1, 2, 3, 4, 5, 6, 8, 16, 24, 40):
+        gemv = M <= qm.GEMV_M
+        parts = []
+        for rel, w, s, wf in ws:
+            K, N = w.shape
+            if gemv:
+                # the launcher takes the GEMV iff it needs no workspace
+                out = (ctypes.c_int * 8)()
+                rc = geometry(M, N, K, out)
+                p = qm.gemv_geometry(M, N, K)
+                want = [p["grid"][0], p["grid"][1], p["cluster"][0],
+                        p["threads"], p["smem_bytes"], p["strip"],
+                        p["k_steps"], p["pass_steps"]]
+                if ws_floats(M, N, K) != 0 or rc != 0 \
+                        or list(out) != want:
+                    raise RuntimeError(
+                        f"int8_weight_matmul M={M} {rel}: not the GEMV "
+                        f"route (workspace {ws_floats(M, N, K)} floats, "
+                        f"geometry rc {rc} {list(out)}, gemv_geometry "
+                        f"{want})")
+            x = torch.randn((M, K), generator=g, device="cuda")
+            got = qm.int8_weight_matmul(x, w, s)
+            err = (got - qm.int8_weight_matmul(x, w, s, kernel="reference")
+                   ).abs().max().item()
+            if not (torch.isfinite(got).all() and err <= INT8_KERNEL_TOL):
+                raise RuntimeError(f"int8_weight_matmul M={M} {rel}: max "
+                                   f"abs err {err}")
+            ms = graph_ms(torch, lambda _: qm.int8_weight_matmul(x, w, s), 50)
+            lib = graph_ms(torch, lambda _: torch.matmul(x, wf), 50)
+            bound_ms, by = bound(
+                w.numel() + 4 * (s.numel() + M * K + M * N),
+                3 * 2 * M * w.numel(), BF16_FLOPS_PER_S)
+            parts.append(f"{K}x{N} kernel_ms={ms:.6f} "
+                         f"bound_ms={bound_ms:.6f} ({by}) "
+                         f"library_ms={lib:.6f} err={err:.3e}")
+        if gemv:
+            what = "the GEMV (route and geometry checked)"
+        else:
+            what = f"the tiled kernel, the verify's k={M // 8 - 1} at B=8"
+        log(f"PHASE 4-spec int8_weight_matmul M={M}, {what} [{power}], "
+            f"gpt2_345m K x N, one launch each (graph replay, weight in "
+            f"L2; library = fp32 torch.matmul): " + "; ".join(parts))
+
+
+def phase_spec(torch, np, power, cfg, arrays, params, prompts):
+    """Phase 4-spec: speculative decoding, (a) self-draft on fp32 and int8
+    pages, (b) the 345M int8 target with a 124M draft through the
+    server."""
+    phase_spec_self_draft(torch, power, cfg, params, prompts, "float32",
+                          LOGIT_TOL, "PHASE 4-spec (a)")
+    phase_spec_self_draft(torch, power, cfg, params, prompts, "int8",
+                          INT8_LOGIT_TOL, "PHASE 4-spec (a-int8)")
+    phase_spec_server(torch, np, power, cfg, arrays, prompts)
 
 
 # ------------------------------------------------------------ phase 5
@@ -3337,7 +3818,12 @@ def main():
                  "PHASE 4", int8=False)
     phase_server(torch, np, cfg, qarrays, prompts8, outs8, deq,
                  INT8_LOGIT_TOL, "PHASE 4-int8", int8=True)
-    del eng, eng8, params, deq
+    del eng, eng8, deq
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_spec(torch, np, power, cfg, arrays, params, prompts)
+    log(f"PHASE 4-spec took {time.perf_counter() - t0:.3f}s")
+    del params
     torch.cuda.empty_cache()
 
     # phases 5-7: the training path

@@ -115,6 +115,18 @@ define_env_flag(
     "Decode-engine batch bucket ladder override, space/comma-separated "
     "ints (inference/decode.py); empty uses powers of two up to max_slots.")
 define_env_flag(
+    "PADDLE_TPU_DECODE_DRAFT_MODEL", "",
+    "Draft-model artifact prefix for speculative decoding "
+    "(inference/decode.py): a save_for_decode() prefix whose GPT shares "
+    "the target's vocab. Empty disables speculation unless --draft-model "
+    "is passed to serve.")
+define_env_flag(
+    "PADDLE_TPU_DECODE_DRAFT_QUANT", False,
+    "Int8-quantize the speculative-decoding DRAFT weights at "
+    "load_for_decode when the draft artifact is still fp32 "
+    "(quant/ptq.py). Draft numerics only move the acceptance rate, "
+    "never the target token stream.")
+define_env_flag(
     "PADDLE_TPU_DECODE_KV_DTYPE", "float32",
     "Decode KV page-pool dtype: 'float32', or 'int8' for quantized "
     "pages (quant/kv.py) — int8 payload plus one fp32 scale per "
@@ -130,9 +142,21 @@ define_env_flag(
     "page-aligned prompt prefixes are cached in a hash trie and mapped "
     "(refcount++) into later requests with the same head.")
 define_env_flag(
+    "PADDLE_TPU_DECODE_SPECULATE", 0,
+    "Speculation depth k for draft-and-verify decoding "
+    "(inference/decode.py): the draft model runs up to k greedy steps "
+    "per scheduler tick and the target verifies k+1 positions in one "
+    "forward. 0 (default) decodes one token per step; requires a draft "
+    "model (PADDLE_TPU_DECODE_DRAFT_MODEL or --draft-model).")
+define_env_flag(
     "PADDLE_TPU_MAX_REQUEST_BYTES", 1 << 28,
     "Per-request wire payload budget in bytes for serve frames "
     "(inference/serve.py); default 256 MiB.")
+define_env_flag(
+    "PADDLE_TPU_METRICS_PORT", None,
+    "Admin-plane port for /metrics, /healthz and /statusz "
+    "(inference/serve.py). 0 = ephemeral port; unset disables the admin "
+    "server.", parser=int)
 define_env_flag(
     "PADDLE_TPU_SERVE_IDLE_TIMEOUT", 600.0,
     "Seconds an idle client connection is kept open before the server "

@@ -23,15 +23,24 @@ request gets exactly one frame with the accumulated tokens.
         --kv-dtype int8          # int8 weights (save_for_decode(quant=
                                  # "int8")) and int8 KV pages
 
-The daemon prints ``SERVING <port>`` once it listens, and on SIGTERM
-drains (answers every request in flight), prints ``DECODE STATS
-device=... kv_dtype=... steps=N prefills=N tokens=N
-paged_decode_attention_launches=N paged_decode_attention_int8_launches=N
-int8_weight_matmul_launches=N``
-(the kernel launches counted since ``SERVING``, so a run can show the
-kernels served its requests), then ``DRAINED ok=<bool>``, and exits 0.
-The one-shot (non-decode) predictor mode, the router, the admin endpoint
-and KV handoff are later slices of the port.
+    python -m paddle_tpu_torch.inference.serve <target> --decode \
+        --draft-model <draft> --speculate-k 4 [--draft-quant] \
+        --metrics-port 0         # speculative decoding + the admin plane
+
+With ``--metrics-port`` (or PADDLE_TPU_METRICS_PORT; 0 = an ephemeral
+port) the daemon mounts `observability.AdminServer` (``/metrics``,
+``/healthz``, ``/statusz``) and prints ``METRICS <port>`` first. It prints
+``SERVING <port>`` once it listens, and on SIGTERM drains (answers every
+request in flight), prints ``DECODE STATS device=... kv_dtype=...
+steps=N prefills=N tokens=N`` (a speculative engine adds
+``spec_drafted=N spec_accepted=N spec_rollback_released=N
+spec_draft_steps=N spec_draft_prefills=N``) and the kernel launches
+counted since ``SERVING`` (``paged_decode_attention_launches=N
+paged_decode_attention_int8_launches=N int8_weight_matmul_launches=N``,
+so a run can show the kernels served its requests), then ``DRAINED
+ok=<bool>``, and exits 0. The one-shot (non-decode) predictor mode, the
+router, the admin plane's other endpoints and KV handoff are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -256,7 +265,9 @@ class InferenceServer:
     def __init__(self, model_prefix: str, port: int = 0,
                  host: str = "127.0.0.1", decode: bool = True,
                  decode_slots: int = None, decode_max_new: int = None,
-                 warmup: bool = False, kv_dtype: str = None, device=None):
+                 warmup: bool = False, kv_dtype: str = None, device=None,
+                 draft_model: str = None, speculate_k: int = None,
+                 draft_quant: bool = None, metrics_port: int = None):
         if not decode:
             raise NotImplementedError(
                 "paddle_tpu_torch serves decode mode only (pass "
@@ -269,6 +280,12 @@ class InferenceServer:
             kw["max_new_tokens"] = int(decode_max_new)
         if kv_dtype:
             kw["kv_dtype"] = str(kv_dtype)
+        if draft_model:
+            kw["draft_prefix"] = draft_model
+        if speculate_k is not None:
+            kw["speculate_k"] = int(speculate_k)
+        if draft_quant:
+            kw["draft_quant"] = True
         self._engine = load_for_decode(model_prefix, device=device, **kw)
         self.warmup_steps = self._engine.warmup(verbose=True) if warmup \
             else 0
@@ -289,10 +306,56 @@ class InferenceServer:
         self._thread = threading.Thread(target=self._accept_loop,
                                         daemon=True)
         self._thread.start()
+        # admin endpoint: off unless a port is given (argument or env);
+        # 0 = ephemeral. Loopback only, like the data-plane default.
+        self._admin = None
+        self.metrics_port = None
+        if metrics_port is None:
+            metrics_port = _flags.env_value("PADDLE_TPU_METRICS_PORT")
+        if metrics_port is not None and int(metrics_port) >= 0:
+            from ..observability import AdminServer
+            self._admin = AdminServer(port=int(metrics_port), host=host,
+                                      health_fn=self._health,
+                                      status_fn=self._status)
+            self.metrics_port = self._admin.port
 
     @property
     def engine(self):
         return self._engine
+
+    # -- admin surface ---------------------------------------------------
+
+    def _health(self):
+        """(healthy, reasons) for /healthz: the accept loop and the decode
+        scheduler must be alive, and the server neither stopped nor
+        draining (a draining backend takes no new traffic)."""
+        reasons = []
+        if self._stop.is_set():
+            reasons.append("server stopped")
+        elif self._draining.is_set():
+            reasons.append("draining")
+        elif not self._thread.is_alive():
+            reasons.append("accept thread dead")
+        if not self._engine._thread.is_alive():
+            reasons.append("decode scheduler thread dead")
+        return not reasons, reasons
+
+    def _status(self) -> dict:
+        return {
+            "engine": "decode",
+            "port": self.port,
+            "metrics_port": self.metrics_port,
+            "trace_wire": True,
+            "draining": self._draining.is_set(),
+            "inflight_requests": self.inflight_requests,
+            "config": {
+                "idle_timeout_s": self._idle_timeout,
+                "request_timeout_s": self._request_timeout,
+                "max_request_bytes": max_request_bytes(),
+            },
+            "warmup_steps": self.warmup_steps,
+            "decode": self._engine.stats(),
+        }
 
     def _accept_loop(self):
         while not self._stop.is_set():
@@ -467,6 +530,8 @@ class InferenceServer:
         self._srv.close()
         self._thread.join(_JOIN_TIMEOUT_S)
         self._engine.stop()
+        if self._admin is not None:
+            self._admin.stop()
         with self._conn_lock:
             conns = list(self._conns.items())
         for _, conn in conns:
@@ -476,8 +541,10 @@ class InferenceServer:
                 pass
         for t, _ in conns:
             t.join(_JOIN_TIMEOUT_S)
+        admin = () if self._admin is None else (self._admin._thread,)
         alive = [t.name for t in
-                 (self._thread, self._engine._thread, *(t for t, _ in conns))
+                 (self._thread, self._engine._thread, *admin,
+                  *(t for t, _ in conns))
                  if t.is_alive()]
         if alive:
             raise RuntimeError(f"server threads still running after "
@@ -512,6 +579,25 @@ def main(argv=None):
                     help="KV page-pool dtype: int8 stores quantized pages "
                          "with per-row scales, cutting page memory ~4x "
                          "(default PADDLE_TPU_DECODE_KV_DTYPE)")
+    ap.add_argument("--draft-model", default=None, metavar="PREFIX",
+                    help="draft-model save_for_decode artifact prefix "
+                         "enabling speculative decoding; must share the "
+                         "target's vocab (default "
+                         "PADDLE_TPU_DECODE_DRAFT_MODEL)")
+    ap.add_argument("--speculate-k", type=int, default=None,
+                    help="speculation depth: draft steps per scheduler "
+                         "tick, verified in one k+1-token target forward "
+                         "(default PADDLE_TPU_DECODE_SPECULATE; 0 "
+                         "disables)")
+    ap.add_argument("--draft-quant", action="store_true", default=None,
+                    help="int8-quantize the draft model's weights at load "
+                         "— draft numerics only move the speculation "
+                         "acceptance rate, never the target stream "
+                         "(default PADDLE_TPU_DECODE_DRAFT_QUANT)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="mount /metrics + /healthz + /statusz on this "
+                         "port (0 = ephemeral; default off, or "
+                         "PADDLE_TPU_METRICS_PORT)")
     ap.add_argument("--warmup", action="store_true",
                     help="run every decode step shape once at startup")
     ap.add_argument("--device", default="cuda",
@@ -528,7 +614,10 @@ def main(argv=None):
                           decode_slots=args.decode_slots,
                           decode_max_new=args.decode_max_new,
                           warmup=args.warmup, kv_dtype=args.kv_dtype,
-                          device=args.device)
+                          device=args.device, draft_model=args.draft_model,
+                          speculate_k=args.speculate_k,
+                          draft_quant=args.draft_quant,
+                          metrics_port=args.metrics_port)
 
     def counts():
         return {"paged_decode_attention_launches": decode_attention.launches,
@@ -539,6 +628,8 @@ def main(argv=None):
     # kernel launches counted from here on belong to served requests
     # (warmup's are already in the counts)
     counts0 = counts()
+    if srv.metrics_port is not None:
+        print(f"METRICS {srv.metrics_port}", flush=True)
     print(f"SERVING {srv.port}", flush=True)
     # SIGTERM = graceful retirement: stop accepting, finish in-flight,
     # exit 0
@@ -551,10 +642,16 @@ def main(argv=None):
         st = srv.engine.stats()
         served = " ".join(f"{k}={v - counts0[k]}"
                           for k, v in counts().items())
+        sp = st.get("speculate")
+        spec = "" if sp is None else (
+            f"spec_drafted={sp['drafted']} spec_accepted={sp['accepted']} "
+            f"spec_rollback_released={sp['rollback_released']} "
+            f"spec_draft_steps={sp['draft_steps']} "
+            f"spec_draft_prefills={sp['draft_prefills']} ")
         print(f"DECODE STATS device={st['device']} "
               f"kv_dtype={st['kv_dtype']} steps={st['steps']} "
-              f"prefills={st['prefills']} tokens={st['tokens']} {served}",
-              flush=True)
+              f"prefills={st['prefills']} tokens={st['tokens']} "
+              f"{spec}{served}", flush=True)
         print(f"DRAINED ok={ok}", flush=True)
     except KeyboardInterrupt:
         srv.stop()

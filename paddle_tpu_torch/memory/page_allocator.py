@@ -14,7 +14,9 @@ Conventions:
   * every page has a refcount. `alloc` returns pages at refcount 1;
     `retain` increments (copy-on-write sharing: a prefix cache maps the
     same page into many sequences); `release` decrements and returns
-    the page to the free list at zero.
+    the page to the free list at zero; `release_range` drops one
+    reference on each page of a block table's tail under one lock (the
+    speculative-decode rollback), validating every id first.
   * `alloc` raises :class:`PageExhausted` (typed, catchable) instead of
     over-committing — callers turn that into backpressure.
   * thread-safe behind one leaf lock; no callback, device work, or I/O
@@ -172,6 +174,31 @@ class PageAllocator:
             self._owners.pop(page, None)
             insort(self._free, page)
             return 0
+
+    def release_range(self, ids, from_idx: int,
+                      owner: Optional[Tuple] = None) -> int:
+        """Drop one reference on every page in ``ids[from_idx:]`` under a
+        single lock acquisition — the speculative-decode rollback path,
+        which strands a tail of a block table past the last accepted
+        token. Returns the number of references dropped. Any unallocated
+        id raises ValueError before *any* refcount changes, so a bad call
+        never half-applies."""
+        tag = owner if owner is not None else UNTAGGED
+        tail = [int(p) for p in list(ids)[max(int(from_idx), 0):]]
+        with self._lock:
+            for p in tail:
+                if p not in self._refs:
+                    raise ValueError(f"release of unallocated page {p}")
+            for p in tail:
+                refs = self._refs[p]
+                if refs > 1:
+                    self._refs[p] = refs - 1
+                    self._owner_drop(p, tag)
+                else:
+                    del self._refs[p]
+                    self._owners.pop(p, None)
+                    insort(self._free, p)
+        return len(tail)
 
     def refcount(self, page: int) -> int:
         with self._lock:

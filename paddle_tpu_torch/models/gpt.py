@@ -3,7 +3,8 @@ training side.
 
 Port of paddle_tpu's `models/gpt.py`. Decode: the configs, the prefill
 forward, the contiguous-cache decode step (`gpt_decode_fns`), the paged
-decode step and the fused prefill-into-pages, with the
+decode step, the fused prefill-into-pages, and speculative decoding's
+multi-token verify and K-step draft rollout over pages, with the
 same math and op order (pre-LN blocks, `_pp_ln`'s
 mean / centred variance / sqrt(var + eps), f32 scores, a -1e30 causal mask,
 exact gelu, tied LM head), so the same weights give the same logits.
@@ -563,6 +564,178 @@ def gpt_paged_prefill_fns(cfg: GPTConfig, eps: float = 1e-5,
     return paged_prefill
 
 
+# ------------------------------------------------- speculative decoding
+#
+# The verify and rollout attention are the JAX package's gathered XLA
+# compositions (no pallas_call there), so they run as plain PyTorch here;
+# their weight matmuls go through `_qmm`, the int8 kernel on a quantized
+# artifact.
+
+def _kv_pool_take_layer(pool, li, tables):
+    """Layer `li`'s block-table gather as fp32 rows [B, W * page_tokens,
+    heads, head_dim] (an int8 pool's rows dequantized)."""
+    sub = tuple(t[li:li + 1] for t in pool) if isinstance(pool, tuple) \
+        else pool[li:li + 1]
+    rows = _kv_pool_take(sub, tables)[0]
+    return rows.reshape(rows.shape[0], -1, *rows.shape[3:])
+
+
+def _window_rows(params, cfg: GPTConfig, pt: int, tables, toks, pos):
+    """Fresh rows of tokens toks [B, K] at absolute positions pos [B, K]:
+    (x [B, K, C], page_idx [B, K], offset [B, K], pos_c [B, K]), the
+    `paged_step` addressing. Positions at or past max_seq_len embed at its
+    last row and write to the null page, as in JAX."""
+    wte = params["wte.weight"]
+    valid = pos < cfg.max_seq_len
+    pos_c = pos.clamp(max=cfg.max_seq_len - 1)
+    x = wte[toks] + params["wpe.weight"][pos_c]
+    slot = (pos_c // pt).clamp(max=tables.shape[1] - 1)
+    page_idx = torch.where(valid, tables.gather(1, slot),
+                           torch.zeros_like(slot))
+    return x, page_idx, pos_c % pt, pos_c
+
+
+def gpt_paged_verify_fns(cfg: GPTConfig, eps: float = 1e-5,
+                         page_tokens: int = 16):
+    """Multi-token verify step over a PAGED KV cache — the target side of
+    speculative decoding.
+
+    paged_verify(params,
+                 k_pool, v_pool [layers, P, page_tokens, heads, head_dim]
+                                (or int8 (data, scale) pairs),
+                 tables    [B, W]  int (unused entries -> null page 0),
+                 toks      [B, K1] int (token at position cache_len + i),
+                 cache_len [B]     int)
+        -> (logits [B, K1, V], argmax [B, K1] int32, k_pool, v_pool)
+
+    `logits[b, i]` is the next-token distribution after toks[b, :i+1], so
+    one call scores every drafted position. The committed prefix (rows <
+    cache_len) is gathered from the pool layer by layer, before this
+    call writes anything; the K1 fresh rows attend each other directly
+    under an in-window causal triangle, with one fp32 softmax over
+    [prefix | window] and the -1e30 mask. The window's K/V then lands in
+    one all-layer scatter (int8 pools quantize it per row), IN PLACE, at
+    page tables[b, pos//pt] row pos%pt; positions at or past max_seq_len
+    write to the null page. Accepted rows persist; rejected rows are
+    garbage above the rolled-back cache_len, never read again (the
+    prefix mask is < cache_len). MoE configs raise, as in JAX."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "gpt_paged_verify_fns: MoE blocks have no KV-decode path yet")
+    D, nh, pt = cfg.head_dim, cfg.heads, int(page_tokens)
+    scale = 1.0 / math.sqrt(D)
+
+    @torch.no_grad()
+    def paged_verify(params, k_pool, v_pool, tables, toks, cache_len):
+        embed, blocks, head = split_decode_params(params, cfg)
+        dev = embed["wte.weight"].device
+        toks = toks.to(dev, torch.long)
+        tables = tables.to(dev, torch.long)
+        cache_len = cache_len.to(dev, torch.long)
+        B, K1 = toks.shape
+        kcap = tables.shape[1] * pt
+        win = torch.arange(K1, device=dev)
+        x, page_idx, offset, _ = _window_rows(
+            params, cfg, pt, tables, toks, cache_len[:, None] + win[None])
+        prefix_live = (torch.arange(kcap, device=dev)[None]
+                       < cache_len[:, None])[:, None, None, :]
+        win_causal = (win[None, :] <= win[:, None])[None, None]
+        k_news, v_news = [], []
+        for i, bp in enumerate(blocks):
+            h1 = _pp_ln(x, bp["ln1.weight"], bp["ln1.bias"], eps)
+            qkv = _qmm(bp, "attn.qkv.weight", h1) + bp["attn.qkv.bias"]
+            q, k_new, v_new = (t.reshape(B, K1, nh, D)
+                               for t in qkv.split(cfg.hidden, dim=-1))
+            k_news.append(k_new)
+            v_news.append(v_new)
+            keys = _kv_pool_take_layer(k_pool, i, tables)
+            vals = _kv_pool_take_layer(v_pool, i, tables)
+            sp = torch.einsum("bqhd,bkhd->bhqk", q, keys) * scale
+            sp = sp.float().masked_fill(~prefix_live, NEG_INF)
+            sw = torch.einsum("bqhd,bkhd->bhqk", q, k_new) * scale
+            sw = sw.float().masked_fill(~win_causal, NEG_INF)
+            p = torch.softmax(torch.cat([sp, sw], dim=-1), dim=-1) \
+                .to(x.dtype)
+            o = torch.einsum("bhqk,bkhd->bqhd", p[..., :kcap], vals) \
+                + torch.einsum("bhqk,bkhd->bqhd", p[..., kcap:], v_new)
+            x = x + _qmm(bp, "attn.proj.weight", o.reshape(B, K1, -1)) \
+                + bp["attn.proj.bias"]
+            x = _ffn(bp, x, eps)
+        _kv_pool_write(k_pool, slice(None), page_idx, offset,
+                       torch.stack(k_news))
+        _kv_pool_write(v_pool, slice(None), page_idx, offset,
+                       torch.stack(v_news))
+        xf = _pp_ln(x, head["ln_f.weight"], head["ln_f.bias"], eps)
+        logits = xf @ embed["wte.weight"].T
+        return (logits, logits.argmax(dim=-1).to(torch.int32), k_pool,
+                v_pool)
+
+    return paged_verify
+
+
+def gpt_paged_rollout_fns(cfg: GPTConfig, eps: float = 1e-5,
+                          page_tokens: int = 16):
+    """K-step greedy draft rollout over a PAGED KV cache in one call — the
+    draft side of speculative decoding.
+
+    paged_rollout(params,
+                  k_pool, v_pool [layers, P, page_tokens, heads, head_dim]
+                                 (or int8 (data, scale) pairs),
+                  tables [B, W] int (unused entries -> null page 0),
+                  forced [B, K] int (>= 0: the committed token to consume
+                          at step i — catch-up; -1: chain the previous
+                          step's own argmax),
+                  cache_len [B] int)
+        -> (drafts [B, K] int32, k_pool, v_pool)
+
+    Step i consumes one token at position cache_len + i, writes its K/V
+    (in place, the `paged_step` addressing; positions at or past
+    max_seq_len to the null page), attends over the gathered layer pool
+    (rows <= its position) and records the greedy argmax in drafts[b, i].
+    forced[:, 0] must be >= 0. JAX's `fori_loop` is a Python loop here;
+    the drafts stay on the device until the caller reads them."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "gpt_paged_rollout_fns: MoE blocks have no KV-decode path yet")
+    pt = int(page_tokens)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    @torch.no_grad()
+    def paged_rollout(params, k_pool, v_pool, tables, forced, cache_len):
+        dev = params["wte.weight"].device
+        forced = forced.to(dev, torch.long)
+        tables = tables.to(dev, torch.long)
+        base = cache_len.to(dev, torch.long)
+        B, K = forced.shape
+        rows = torch.arange(tables.shape[1] * pt, device=dev)
+        drafts = torch.zeros((B, K), dtype=torch.int32, device=dev)
+        prev = forced[:, 0]
+        for i in range(K):
+            tok = torch.where(forced[:, i] >= 0, forced[:, i], prev)
+            x, page_idx, offset, pos_c = _window_rows(
+                params, cfg, pt, tables, tok[:, None], (base + i)[:, None])
+            live = (rows[None] <= pos_c)[:, None]          # [B, 1, kcap]
+
+            def attend(li, q, k_new, v_new):
+                _kv_pool_write(k_pool, li, page_idx[:, 0], offset[:, 0],
+                               k_new)
+                _kv_pool_write(v_pool, li, page_idx[:, 0], offset[:, 0],
+                               v_new)
+                keys = _kv_pool_take_layer(k_pool, li, tables)
+                vals = _kv_pool_take_layer(v_pool, li, tables)
+                s = torch.einsum("bhd,bkhd->bhk", q, keys) * scale
+                s = s.float().masked_fill(~live, NEG_INF)
+                p = torch.softmax(s, dim=-1).to(vals.dtype)
+                return torch.einsum("bhk,bkhd->bhd", p, vals)
+
+            prev = _step_blocks(params, cfg, eps, x[:, 0], attend) \
+                .argmax(dim=-1)
+            drafts[:, i] = prev.to(torch.int32)
+        return drafts, k_pool, v_pool
+
+    return paged_rollout
+
+
 # ------------------------------------------------------------ training
 
 def masked_linear_ce(h, weight, labels, ignore_index=-100, fused=None):
@@ -702,5 +875,6 @@ __all__ = ["GPTConfig", "gpt_tiny", "gpt2_124m", "gpt2_345m", "gpt3_1p3b",
            "GPTDecoder", "init_params_numpy", "params_from_numpy",
            "param_shapes", "split_decode_params", "gpt_decode_fns",
            "gpt_paged_decode_fns",
-           "gpt_paged_prefill_fns", "GPT", "Block", "CausalSelfAttention",
+           "gpt_paged_prefill_fns", "gpt_paged_verify_fns",
+           "gpt_paged_rollout_fns", "GPT", "Block", "CausalSelfAttention",
            "masked_linear_ce"]
