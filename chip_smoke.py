@@ -237,10 +237,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      n_long=5)`), tokens/s, MFU against 989 TFLOP/s, peak memory, the
      device time by kernel, and two steps with `fused_head_ce=None`
      beside them;
- 12. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 12. (run after 10) ERNIE-base pretraining, benchmarks/run.py config 3:
+     (a) the flash kernels at its attention shape, B=64, T=512, H=12,
+     D=64 bf16 non-causal (every tile live): forward and backward against
+     the plain version under the row gate, which the plain version with
+     one 64-key tile left out of every row (o) or one 64-row query tile
+     left out of the sums (dv) must fail; two runs bit-equal; device
+     times of the forward, dq, dk/dv and the pair by graph replay beside
+     their bounds, the plain versions, torch sdpa's non-causal forward and
+     aten._scaled_dot_product_flash_attention_backward; (b) a narrow BERT
+     (hidden 128, 2 layers, 4 heads, V=512, T=512) in fp32 with TF32 off
+     against the port on the CPU from the same numpy weights (MLM loss
+     within 1e-5, every gradient within 1e-4 of its largest; k_proj.bias,
+     0 in exact arithmetic, of the largest of all), one launch of each
+     flash kernel per layer; (c) config 3's sequence at full width:
+     Bert(ernie_base()) on seed-0 numpy weights, AMP O2 (pure bf16), Adam
+     1e-4, compile_train_step(loss_method="mlm_loss"), prog.step(ids,
+     ids) on one batch from default_rng(0) at B=64, T=512, timed as
+     run.py's _timed_steps (2, 10): prog.mesh.shape["dp"] == 1, finite
+     losses falling on the repeated batch, 12 launches a step of each
+     flash kernel and none of the fused-CE kernels; tokens/s, ms per step,
+     MFU, peak memory, the device time of a step by kernel with the
+     device's busy share, and run.py's JSON record;
+ 13. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
-     fused backward);
- 13. last line {"ok": true, "device": {...}}.
+     fused backward; rows 5-8 carry phase 12's shape under "ernie");
+ 14. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -3705,6 +3727,313 @@ def phase_slice(torch, np, power, ce_records):
     return counts
 
 
+# ----------------------------------------------------------- phase 12
+
+# ERNIE-base pretraining (benchmarks/run.py config 3): B=64, T=512
+ERNIE_B, ERNIE_T = 64, 512
+
+
+def dropped_key_tile_errs(fa, inputs, plain, tile=64):
+    """The bf16 gate's reach without a causal mask: `row_rel_err` of the
+    plain version with keys [0, tile) left out of every row's softmax
+    (o), and with query rows [0, tile) left out of dv's sum, against the
+    whole plain version."""
+    q, k, v, do = inputs
+    ro, rlse, rdv = plain
+    B, T, H, _ = q.shape
+    o_cut, _ = fa.flash_attention_forward(q, k[:, tile:], v[:, tile:],
+                                          False, kernel="reference")
+    _, delta, _ = fa.flash_attention_bwd_dq(q, k, v, ro, do, rlse, False,
+                                            kernel="reference")
+
+    def rows(t):                          # [B*H, T] -> its last T - tile
+        return t.reshape(B, H, T)[:, :, tile:].reshape(B * H, T - tile)
+
+    _, dv_cut = fa.flash_attention_bwd_dkv(
+        q[:, tile:], k, v, do[:, tile:], rows(rlse), rows(delta), False,
+        kernel="reference")
+    return {"o": row_rel_err(o_cut, ro), "dv": row_rel_err(dv_cut, rdv)}
+
+
+def phase_ernie_flash(torch, power, records):
+    """Phase 12 (a): the flash kernels at ERNIE's attention shape, bf16
+    non-causal, against their plain versions under the row gate (with the
+    left-out tiles), twice bit-equal, and timed by graph replay beside
+    the bounds, the plain versions and the library calls. Adds the
+    numbers to the records of rows 5-8 under "ernie"."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, T, H, D = ERNIE_B, ERNIE_T, 12, 64
+    errs, inputs, plain = check_flash(
+        torch, fa, B, T, H, D, torch.bfloat16, False,
+        f"flash ERNIE B={B} T={T} H={H} D={D} non-causal", False, 41)
+    reach = dropped_key_tile_errs(fa, inputs, plain)
+    del inputs, plain
+    torch.cuda.empty_cache()
+    if min(reach.values()) <= FLASH_BF16_ROW_REL:
+        raise RuntimeError(f"flash bf16 gate {FLASH_BF16_ROW_REL} would pass "
+                           f"a left-out tile at ERNIE's shape: {reach}")
+    log(f"PHASE 12 flash check bf16 B={B} T={T} H={H} D={D} non-causal: "
+        + " ".join(f"{n}={g:.3e}" for n, (g, _) in errs.items())
+        + " (worst row RMS err / row RMS; lse max abs err); max abs err "
+        + " ".join(f"{n}={m:.3e}" for n, (_, m) in errs.items())
+        + f"; gate {FLASH_BF16_ROW_REL:.3e} against a left-out 64-key tile "
+        f"(o) {reach['o']:.3e} and 64-row query tile (dv) "
+        f"{reach['dv']:.3e}")
+
+    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, 42, False)
+    o, lse = fa.flash_attention_forward(q, k, v, False)
+    first = (o, lse) + fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                   False)
+    again = fa.flash_attention_forward(q, k, v, False) \
+        + fa.flash_attention_backward(q, k, v, o, lse, do, False)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise RuntimeError("flash bf16 non-causal: two runs differ")
+    del first, again
+    _, delta, q_s = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, False)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = {"fwd": graph_ms(torch, lambda _: fa.flash_attention_forward(
+             q, k, v, False), 20),
+         "dq": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+             q, k, v, o, do, lse, False), 10),
+         "dkv": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+             q, k, v, do, lse, delta, False, q_s=q_s), 10),
+         "pair": graph_ms(torch, lambda _: fa.flash_attention_backward(
+             q, k, v, o, lse, do, False), 10),
+         "fwd_plain": graph_ms(torch, lambda _: fa.flash_attention_forward(
+             q, k, v, False, kernel="reference"), 1),
+         "dq_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+             q, k, v, o, do, lse, False, kernel="reference"), 1),
+         "dkv_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+             q, k, v, do, lse, delta, False, kernel="reference"), 1),
+         "sdpa": graph_ms(torch, lambda _: F.scaled_dot_product_attention(
+             qt, kt, vt), 20)}
+    lib_err = rel_err(F.scaled_dot_product_attention(qt, kt, vt)
+                      .transpose(1, 2), o)[0]
+    aten = torch.ops.aten
+    qc, kc, vc, doc = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_out = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0,
+                                                       False)
+    lib_args = (doc, qc, kc, vc) + tuple(lib_out[:6]) + (0.0, False) \
+        + tuple(lib_out[6:8])
+    t["bwd_library"] = graph_ms(torch, lambda _: (
+        aten._scaled_dot_product_flash_attention_backward(*lib_args)), 10)
+    del qc, kc, vc, doc, lib_out, lib_args
+    pairs = B * H * flash_pairs(T, False)
+    elems = B * T * H * D
+    row_bytes = 4 * B * H * T              # one fp32 value per (b, h, t)
+    work = {   # bytes (each input read once, each output written once), flops
+        "fwd": (4 * 2 * elems + row_bytes, 4 * D * pairs),
+        # q, k, v, O, dO, lse in; dq and delta out: S, dP, dS.K
+        "dq": (6 * 2 * elems + 2 * row_bytes, 6 * D * pairs),
+        # q, k, v, dO, lse, delta in; dk and dv out: S, dP, dV, dK
+        "dkv": (6 * 2 * elems + 2 * row_bytes, 8 * D * pairs),
+        "pair": (8 * 2 * elems + row_bytes, 10 * D * pairs)}
+    bounds = {n: bound(nb, fl, BF16_FLOPS_PER_S) for n, (nb, fl)
+              in work.items()}
+    ernie = {
+        "flash_attention_fwd": (t["fwd"], t["fwd_plain"], t["sdpa"],
+                                bounds["fwd"], errs["o"][1]),
+        "flash_attention_bwd_dq": (t["dq"], t["dq_plain"], None,
+                                   bounds["dq"], errs["dq"][1]),
+        "flash_attention_bwd_dkv": (t["dkv"], t["dkv_plain"], None,
+                                    bounds["dkv"],
+                                    max(errs["dk"][1], errs["dv"][1])),
+        "flash_attention_bwd": (t["pair"], t["dq_plain"] + t["dkv_plain"],
+                                t["bwd_library"], bounds["pair"],
+                                max(errs[n][1] for n in ("dq", "dk", "dv")))}
+    for rec in records:
+        ms, plain_ms, lib_ms, (bound_ms, by), err = ernie[rec["name"]]
+        rec["ernie"] = {"B": B, "T": T, "H": H, "D": D, "causal": False,
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": by, "library_ms": lib_ms}
+    log(f"PHASE 12 flash [{power}] B={B} T={T} H={H} D={D} bf16 non-causal "
+        f"(graph replay, ms): fwd {t['fwd']:.6f} (bound "
+        f"{bounds['fwd'][0]:.6f} {bounds['fwd'][1]}, "
+        f"{t['fwd'] / bounds['fwd'][0]:.2f}x; plain {t['fwd_plain']:.6f}; "
+        f"torch sdpa {t['sdpa']:.6f}, vs the kernel {lib_err:.3e}); dq "
+        f"{t['dq']:.6f} (bound {bounds['dq'][0]:.6f} {bounds['dq'][1]}; "
+        f"plain {t['dq_plain']:.6f}); dkv {t['dkv']:.6f} (bound "
+        f"{bounds['dkv'][0]:.6f} {bounds['dkv'][1]}; plain "
+        f"{t['dkv_plain']:.6f}); pair {t['pair']:.6f} (bound "
+        f"{bounds['pair'][0]:.6f} {bounds['pair'][1]}, 10 D flops per "
+        f"pair, {t['pair'] / bounds['pair'][0]:.2f}x; library "
+        f"{t['bwd_library']:.6f}, aten._scaled_dot_product_flash_attention"
+        f"_backward); per ERNIE step (12 layers) "
+        f"{12 * (t['fwd'] + t['pair']):.3f} ms")
+    del q, k, v, do, o, lse, delta, q_s, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def phase_ernie_parity(torch, np):
+    """Phase 12 (b): a narrow BERT (hidden 128, 2 layers, 4 heads of 32,
+    V=512, T=512, so the encoder takes the flash kernels, non-causal) on
+    the card in fp32 with TF32 off against the port on the CPU from the
+    same numpy weights: the MLM loss, every gradient, and one launch of
+    each flash kernel per layer."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.bert import (Bert, BertConfig,
+                                              init_params_numpy)
+
+    cfg = BertConfig(vocab_size=512, max_seq_len=512, hidden=128, layers=2,
+                     heads=4)
+    arrays = init_params_numpy(cfg, seed=1)
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, cfg.vocab_size, (2, 512))
+    labels = np.where(rng.random((2, 512)) < 0.15, ids, -100)
+    ptt.set_device("cuda")
+    gpu = Bert(cfg).load_numpy(arrays)
+    ptt.set_device("cpu")
+    cpu = Bert(cfg).load_numpy(arrays)
+    ptt.set_device("cuda")
+    zero_counts()
+    loss_gpu = gpu.mlm_loss(ids, labels)
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    loss_cpu = cpu.mlm_loss(ids, labels)
+    loss_cpu.backward()
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_fwd": cfg.layers,
+                 "flash_attention_bwd_dq": cfg.layers,
+                 "flash_attention_bwd_dkv": cfg.layers})
+    if counts != want:
+        raise RuntimeError(f"phase 12 parity launches {counts} != {want}")
+    dl = abs(loss_gpu.item() - loss_cpu.item())
+    top = max(p.grad.abs().max().item() for p in cpu.parameters())
+    worst = (0.0, "")
+    for (name, pg), (_, pc) in zip(gpu.named_parameters(),
+                                   cpu.named_parameters()):
+        err, ref = rel_err(pg.grad.cpu(), pc.grad)
+        # k_proj.bias's gradient is 0 in exact arithmetic (softmax ignores
+        # a shift common to a row's scores): held to the largest of all
+        ref = top if name.endswith("k_proj.bias") else ref
+        worst = max(worst, (err / max(ref, 1e-12), name))
+    if dl > TRAIN_LOSS_TOL or worst[0] > TRAIN_GRAD_REL:
+        raise RuntimeError(f"phase 12 parity: loss diff {dl} (gate "
+                           f"{TRAIN_LOSS_TOL}), worst gradient {worst} "
+                           f"(gate {TRAIN_GRAD_REL})")
+    log(f"PHASE 12 training parity: BERT hidden=128 layers=2 heads=4 V=512 "
+        f"T=512 B=2 fp32 (TF32 off), MLM loss over 15 % of the positions, "
+        f"cuda vs cpu from one set of numpy weights: loss "
+        f"{loss_gpu.item():.7f} vs {loss_cpu.item():.7f} (diff {dl:.3e}, "
+        f"gate {TRAIN_LOSS_TOL}); worst gradient {worst[1]} at "
+        f"{worst[0]:.3e} of its largest (gate {TRAIN_GRAD_REL}); launches "
+        f"{counts}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_ernie(torch, np, power, records):
+    """Phase 12 (c), the slice: benchmarks/run.py config 3's sequence
+    (run.py:183-215) against paddle_tpu_torch at full width. Gates:
+    prog.mesh.shape["dp"] == 1, finite losses falling on the repeated
+    batch, 12 launches a step of each flash kernel, none of any other
+    kernel. Prints ms per step, tokens/s, MFU, peak memory, the device
+    time by kernel and the busy share, and run.py's JSON record. Sets
+    the launches a step in the flash records' "ernie" numbers."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.distributed.fleet.compiler import compile_train_step
+    from paddle_tpu_torch.distributed.fleet.strategy import \
+        DistributedStrategy
+    from paddle_tpu_torch.models import Bert, ernie_base
+    from paddle_tpu_torch.models.bert import init_params_numpy
+
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    cfg = ernie_base()
+    model = Bert(cfg).load_numpy(init_params_numpy(cfg, seed=0))
+    model.eval()
+    B, T = ERNIE_B, ERNIE_T
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs.use_pure_bf16 = True
+    adam = opt.Adam(learning_rate=1e-4, parameters=list(model.parameters()))
+    prog = compile_train_step(model, adam, s, loss_method="mlm_loss")
+    if prog.mesh.shape["dp"] != 1 or prog.mesh.shape.get("dp", 1) != 1:
+        raise RuntimeError(f"phase 12: mesh {prog.mesh}")
+    rng = np.random.default_rng(0)
+    V = model.cfg.vocab_size
+    ids = prog._put_data(rng.integers(0, V, (B, T)).astype(np.int64))
+    torch.cuda.synchronize()
+    log(f"PHASE 12 setup: Bert(ernie_base()) ({model.num_params()} params) "
+        f"+ seed-0 numpy weights + Adam + compile_train_step(loss_method="
+        f"'mlm_loss'), mesh {dict(prog.mesh.shape)} "
+        f"{time.perf_counter() - t0:.3f}s")
+    losses = []
+
+    def step():
+        loss = prog.step(ids, ids)
+        losses.append(loss)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_s, estimates, n = timed_steps(step, n_short=2, n_long=10)
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [float(x) for x in losses]
+    if len(vals) != n or not all(math.isfinite(x) for x in vals) \
+            or not vals[-1] < vals[0]:
+        raise RuntimeError(f"phase 12: losses {vals} over {n} steps")
+    L = cfg.layers
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_fwd": L * n,
+                 "flash_attention_bwd_dq": L * n,
+                 "flash_attention_bwd_dkv": L * n})
+    if counts != want:
+        raise RuntimeError(f"phase 12 launches {counts} != {want} ({n} "
+                           f"steps)")
+    for rec in records:
+        rec["ernie"]["launches"] = counts.get(rec["name"],
+                                              counts["flash_attention_bwd_dq"]
+                                              ) // n
+    tokens_s = B * T / step_s
+    fpt = model.flops_per_token(T)
+    mfu = tokens_s * fpt / BF16_FLOPS_PER_S
+    log(f"PHASE 12 slice [{power}] ERNIE-base B={B} T={T} AMP O2 (pure "
+        f"bf16), Adam 1e-4, compile_train_step(loss_method='mlm_loss'): {n} "
+        f"steps on one repeated batch, losses {vals}; ms_per_step marginal "
+        f"(run.py's _timed_steps(n_short=2, n_long=10)) {step_s * 1e3:.3f} "
+        f"(estimates {[round(e * 1e3, 3) for e in estimates]}); tokens_per_s"
+        f" {tokens_s:.1f}; MFU {mfu:.4f} (x flops_per_token(512)={fpt} / "
+        f"989e12); max_memory_allocated {peak} B; launches {counts} (= per "
+        f"step x {n})")
+
+    # where one step's device time goes
+    prof = profile_kernels(torch, step, 2)
+    total = sum(us for us, _ in prof.values())
+    groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
+              "flash_attention_bwd_dkv": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, (us, _) in prof.items():
+        if flash_group(name):
+            groups[flash_group(name)] += us
+        elif any(w in name.lower() for w in ("gemm", "xmma", "cutlass",
+                                              "nvjet")):
+            groups["gemm"] += us
+        else:
+            groups["other"] += us
+    top = "; ".join(f"{k[:70]} {us:.1f}us x{c:g}" for k, (us, c) in sorted(
+        prof.items(), key=lambda kv: -kv[1][0])[:12])
+    flash_ms = sum(v for k, v in groups.items() if k.startswith("flash"))
+    log(f"PHASE 12 step breakdown [{power}] (torch.profiler, 2 steps): "
+        f"device_ms_per_step {total / 1e3:.3f} of which " + ", ".join(
+            f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+        + f"; flash kernels {flash_ms / 1e3:.3f} ({flash_ms / total:.3f}); "
+        f"busy share {total / 1e3 / (step_s * 1e3):.3f} of the marginal "
+        f"step; top kernels per step: {top}")
+    log(json.dumps({"config": "3_ernie_base_pretrain",
+                    "value": round(tokens_s, 2), "unit": "tokens/s",
+                    "dp": int(prog.mesh.shape.get("dp", 1)),
+                    "mfu": round(mfu, 4)}))
+    del model, adam, prog, ids, losses
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3855,6 +4184,13 @@ def main():
     phase_slice(torch, np, power, ce_records)
     log(f"PHASE 10 took {time.perf_counter() - t0:.3f}s")
     records += list(ce_records)
+
+    # phase 12: ERNIE-base pretraining (benchmarks/run.py config 3)
+    t0 = time.perf_counter()
+    phase_ernie_flash(torch, power, flash_records)
+    phase_ernie_parity(torch, np)
+    phase_ernie(torch, np, power, flash_records)
+    log(f"PHASE 12 took {time.perf_counter() - t0:.3f}s")
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

@@ -8,9 +8,13 @@ ids)`) runs unchanged. `CompiledTrainStep.step(*data, lr=)` runs
 `getattr(layer, loss_method)(*data)` (the layer itself when `loss_method`
 is empty) under `amp.auto_cast(level="O2" if use_pure_bf16 else "O1",
 dtype="bfloat16")` when `strategy.amp` is set, backpropagates, and
-applies the optimizer: eagerly, with no `torch.compile`, no CUDA graph and
-no mesh. With `strategy.recompute`, a layer that has
-`enable_block_recompute` (GPT) runs each block under
+applies the optimizer: eagerly, with no `torch.compile` and no CUDA
+graph. Its `mesh` is the one-device mesh it was given, or the
+strategy's (`build_mesh` of the step's device: every axis 1, so run.py's
+``prog.mesh.shape.get("dp", 1)`` reads 1); a mesh of more devices cannot
+be built, and anything else passed as `mesh` raises. With
+`strategy.recompute`, a layer that has `enable_block_recompute` (GPT)
+runs each block under
 `fleet.utils.recompute` with `recompute_configs.policy`; the flag is set
 around the forward only and restored after it, so it never leaks into
 eager use of the layer. Any other layer's whole forward is recomputed.
@@ -33,6 +37,7 @@ import torch
 
 from ... import amp as amp_mod
 from ...core.device import get_device
+from ..mesh import Mesh
 from .strategy import DistributedStrategy
 from .utils import recompute
 
@@ -41,9 +46,10 @@ __all__ = ["CompiledTrainStep", "compile_train_step"]
 
 class CompiledTrainStep:
     def __init__(self, layer, optimizer, strategy: DistributedStrategy,
-                 loss_method, device: torch.device):
+                 loss_method, device: torch.device, mesh: Mesh):
         self.layer = layer
         self.device = device
+        self.mesh = mesh
         self._opt = optimizer
         self.accumulate_steps = 1       # hapi's accumulate_grad_batches
         self._micro = 0                 # batches accumulated so far
@@ -114,12 +120,26 @@ def compile_train_step(layer, optimizer, strategy: DistributedStrategy,
                        loss_method: str = "loss", mesh=None,
                        device=None) -> CompiledTrainStep:
     """The train step for `layer` on `device` (default: where its
-    parameters are); raises `NotImplementedError` for a mesh and for
-    strategy toggles the port does not run."""
-    if mesh is not None:
-        raise NotImplementedError("compile_train_step(mesh=...): meshes are "
-                                  "not ported to paddle_tpu_torch (one "
-                                  "device)")
+    parameters are), over `mesh` (a one-device `distributed.mesh.Mesh` of
+    that device; default the strategy's `build_mesh`). Raises
+    `NotImplementedError` for any other mesh and for strategy toggles the
+    port does not run."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise NotImplementedError(
+            f"compile_train_step(mesh={type(mesh).__name__}): only a "
+            f"one-device paddle_tpu_torch.distributed.mesh.Mesh is ported "
+            f"(multi-device meshes: ROADMAP queue 1 item 8)")
     strategy.check_ported()
     dev = torch.device(device) if device is not None else _layer_device(layer)
-    return CompiledTrainStep(layer, optimizer, strategy, loss_method, dev)
+    if mesh is None:
+        mesh = strategy.build_mesh(devices=[dev])
+    elif not _same_device(mesh.device, dev):
+        raise ValueError(f"compile_train_step: the mesh's device "
+                         f"{mesh.device} is not the step's {dev}")
+    return CompiledTrainStep(layer, optimizer, strategy, loss_method, dev,
+                             mesh)
+
+
+def _same_device(a, b):
+    """cuda and cuda:0 name one device (on a one-GPU machine)."""
+    return a.type == b.type and (a.index or 0) == (b.index or 0)

@@ -6,11 +6,14 @@ are what run; every toggle that needs a mesh or a rewritten step (dp > 1,
 sharding, tensor / sequence / expert / pipeline parallelism, gradient
 merge, localsgd, dgc, lars, lamb, ...), recompute checkpoints and any
 other recompute policy raise `NotImplementedError` from `check_ported`,
-which `compile_train_step` calls when the model is prepared."""
+which `compile_train_step` calls when the model is prepared.
+`build_mesh` is the JAX package's on one device: its mesh has every
+axis (pp, dp, ep, sp, tp) of size 1, and more devices raise."""
 from __future__ import annotations
 
 import dataclasses
 
+from .. import mesh as mesh_mod
 from .utils import RECOMPUTE_POLICIES
 
 __all__ = ["DistributedStrategy", "AMPConfig", "HybridConfig",
@@ -90,6 +93,20 @@ class DistributedStrategy:
                 f"paddle_tpu_torch (single-device training: amp, "
                 f"amp_configs.use_pure_bf16 and per-block recompute with "
                 f"policy in {RECOMPUTE_POLICIES} only)")
+
+    def build_mesh(self, devices=None):
+        """The strategy's mesh over `devices` (default: the default
+        device), axes in the JAX package's order pp, dp, ep, sp, tp, set
+        as the current mesh. Every degree is 1 (`check_ported`) and dp is
+        the device count, so more than one device raises
+        `NotImplementedError` (`distributed.mesh.build_mesh`)."""
+        self.check_ported()
+        devices = None if devices is None else list(devices)
+        n = 1 if devices is None else len(devices)
+        mesh = mesh_mod.build_mesh({"pp": 1, "dp": n, "ep": 1, "sp": 1,
+                                    "tp": 1}, devices=devices)
+        mesh_mod.set_mesh(mesh)
+        return mesh
 
     def __repr__(self):
         on = [k for k in ("amp", "recompute") + _UNPORTED

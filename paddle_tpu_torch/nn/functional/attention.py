@@ -8,7 +8,10 @@ Routing is the JAX package's, written as explicit conditions: with the
 otherwise to the composition of `_sdpa_xla`, in plain torch ops. The JAX
 package also falls back to the composition when the sequence is not a
 multiple of its TPU block size; the port's kernels take any length, so it
-has no such fallback. Sequence parallelism is not ported.
+has no such fallback. Keys of another length than the queries (a
+decoder's cross-attention) take the composition: the kernels take one
+length, and the JAX package's kernel fails on them. Sequence parallelism
+is not ported.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if not training:
         dropout_p = 0.0
     use_flash = (get_flags("use_pallas_attention") and attn_mask is None
-                 and dropout_p == 0.0
+                 and dropout_p == 0.0 and key.shape[1] == query.shape[1]
                  and query.shape[1] >= get_flags("pallas_attention_min_seq"))
     if use_flash:
         q, k, v = maybe_cast_inputs("flash_attention", (query, key, value))

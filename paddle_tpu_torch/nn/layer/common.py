@@ -43,9 +43,15 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    def __init__(self, p=0.5):
+    """`F.dropout` with this layer's p, axis and mode, active in
+    training."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..amp import maybe_cast_inputs
+from ..core.device import get_device, resolve_device
 
 
 def add(x, y):
@@ -67,10 +68,29 @@ def ones_like(x):
     return torch.ones_like(x)
 
 
+def concat(xs, axis=0):
+    """The tensors of `xs` joined along `axis`; one op for the casts, so
+    under AMP mixed fp32 / bf16 inputs come out in one dtype (gray:
+    bf16, see `amp.maybe_cast_inputs`)."""
+    xs = maybe_cast_inputs("concat", xs)
+    return torch.cat(xs, dim=axis)
+
+
+def zeros(shape, dtype=None, device=None):
+    """A new tensor of zeros, fp32 unless `dtype` (a torch dtype or its
+    name, "int64", "bfloat16", ...) says otherwise, on `device` or else the
+    default device. A creation op: the JAX package makes it outside its
+    dispatcher, so AMP never casts it."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    dev = get_device() if device is None else resolve_device(device)
+    return torch.zeros(list(shape), dtype=dtype or torch.float32, device=dev)
+
+
 def cast(x, dtype):
     (x,) = maybe_cast_inputs("cast", (x,))
     return x.to(dtype)
 
 
 __all__ = ["add", "divide", "maximum", "sum", "reshape", "transpose", "chunk",
-           "where", "zeros_like", "ones_like", "cast"]
+           "where", "zeros_like", "ones_like", "concat", "zeros", "cast"]
