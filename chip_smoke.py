@@ -272,10 +272,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      `a + b`, paddle.reshape and paddle.concat on 8-float CUDA Tensors
      against the bare torch ops (phase 3b's host ms per decode step, on
      plain tensors, is printed where it was);
- 14. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 14. (run after 13) the vision path, benchmarks/run.py configs 1 and 2,
+     which runs no hand kernel (cuDNN's convolutions and batch norm;
+     every launch count must stay 0): (a) LeNet (28x28) and ResNet-18
+     (32x32, NCHW and NHWC), B=4, fp32 with TF32 off, on the card against
+     the port on the CPU from one seeded state dict: loss, logits, every
+     gradient, then three Momentum steps of compile_train_step (falling
+     losses, each update, the batch-norm buffers, the eval logits) at the
+     tolerances of tests/test_torch_vision_models.py; (b) run.py's own
+     `config1_lenet` body (its imports pointed at the port, as the tests
+     do) at n=8192, B=256: its samples/s record, finite epoch losses, a
+     third epoch's device time by kernel and the busy share of the timed
+     epoch; (c) run.py's own `config2_resnet50` body, ResNet-50 at B=256,
+     224x224, AMP O2 pure bf16, Momentum(0.1), `_timed_steps(2, 10)`,
+     once with PT_BENCH_CONV_FORMAT unset (NCHW) and once NHWC:
+     prog.mesh.shape["dp"] == 1, finite losses, its images/s record, ms
+     per step, peak memory, a step's device time by kernel and busy
+     share, and the FLOPs from the conv and linear shapes with the MFU;
+ 15. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
      fused backward; rows 5-8 carry phase 12's shape under "ernie");
- 15. last line {"ok": true, "device": {...}}.
+ 16. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -4239,6 +4256,373 @@ def phase_tensor_surface(torch, np, power):
     return readings
 
 
+# ----------------------------------------------------------- phase 14
+
+# The vision path's parity gates, card against the port on the CPU, those
+# of tests/test_torch_vision_models.py: LeNet at the ops' fp32 tolerances;
+# ResNet-18 at B=4, 32x32, whose layer4 batch norms normalize over 4
+# values, at the looser ones that file measures against float64.
+VISION_GATES = {
+    "lenet": {"out": 1e-5, "grad": 1e-4, "lr": 1e-3},
+    "resnet18": {"out": 5e-5, "grad": 1e-3, "lr": 1e-4},
+}
+# after three Momentum steps: each update p - p0 by norm, the batch-norm
+# buffers and the eval logits of their largest. ResNet-18 at B=4 takes
+# its loss from ~2 to ~0.3 in three steps even at lr 1e-4, and carries
+# rounding forward (at lr 1e-2, an update's largest entry moved by 0.18
+# of the update's largest between the card and the CPU)
+VISION_STEP_REL = 0.05
+VISION_BUFFER_REL = 1e-2
+VISION_EVAL_REL = 1e-2
+
+
+def _max_rel(got, want):
+    """max |got - want| over max |want| (numpy, float64)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def _vision_net(name, data_format):
+    """The model of a parity case with `loss(x, y)` (its logits' CE)."""
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision.models import LeNet, resnet18
+
+    class WithLoss(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.net = LeNet() if name == "lenet" else resnet18(
+                num_classes=10, data_format=data_format)
+
+        def forward(self, x):
+            return self.net(x)
+
+        def loss(self, x, y):
+            return F.cross_entropy(self.net(x), y)
+    return WithLoss()
+
+
+def _vision_run(torch, np, name, data_format, device, sd, x, y):
+    """One training forward and backward, then three Momentum steps of
+    compile_train_step, of the case's model on `device` from state dict
+    `sd`: (loss, logits, grads, updates, buffers, eval logits, losses)."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn.functional as F
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    compile_train_step)
+    ptt.set_device(device)
+    net = _vision_net(name, data_format)
+    net.set_state_dict(sd)
+    net.train()
+    xt = torch.from_numpy(x).to(device)
+    yt = torch.from_numpy(y).to(device)
+    logits = net(xt)
+    loss = F.cross_entropy(logits, yt)
+    loss.backward()
+    grads = {n: p.grad.cpu().numpy() for n, p in net.named_parameters()}
+    net.set_state_dict(sd)
+    p0 = {n: p.detach().cpu().numpy().copy()
+          for n, p in net.named_parameters()}
+    prog = compile_train_step(net, opt.Momentum(
+        learning_rate=VISION_GATES[name]["lr"],
+        parameters=list(net.parameters())), DistributedStrategy())
+    losses = [float(prog.step(x, y)) for _ in range(3)]
+    updates = {n: p.detach().cpu().numpy() - p0[n]
+               for n, p in net.named_parameters()}
+    bufs = {n: b.cpu().numpy() for n, b in net.named_buffers()}
+    net.eval()
+    with torch.no_grad():
+        ev = net(xt).cpu().numpy()
+    return (loss.item(), logits.detach().cpu().numpy(), grads, updates,
+            bufs, ev, losses)
+
+
+def phase_vision_parity(torch, np, power):
+    """Phase 14 (a): LeNet (28x28) and ResNet-18 (32x32, in NCHW and
+    NHWC), B=4, fp32 with TF32 off, on the card against the port on the
+    CPU from the same seeded numpy weights: the loss and logits, every
+    gradient, then three Momentum steps of compile_train_step: the losses
+    (falling), each parameter's update, the batch-norm buffers and the
+    eval logits after them."""
+    import paddle_tpu_torch as ptt
+    cases = [("lenet", "NCHW", (4, 1, 28, 28)),
+             ("resnet18", "NCHW", (4, 3, 32, 32)),
+             ("resnet18", "NHWC", (4, 32, 32, 3))]
+    for name, fmt, shape in cases:
+        g = VISION_GATES[name]
+        ptt.set_device("cpu")
+        ptt.seed(0)
+        sd = {k: v.numpy().copy()
+              for k, v in _vision_net(name, fmt).state_dict().items()}
+        rng = np.random.default_rng(14)
+        x = rng.standard_normal(shape).astype(np.float32)
+        y = rng.integers(0, 10, (shape[0], 1)).astype(np.int64)
+        cpu = _vision_run(torch, np, name, fmt, "cpu", sd, x, y)
+        zero_counts()
+        gpu = _vision_run(torch, np, name, fmt, "cuda", sd, x, y)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernel_counts().items() if v}
+        errs = {"loss": abs(gpu[0] - cpu[0]) / abs(cpu[0]),
+                "logits": _max_rel(gpu[1], cpu[1]),
+                "grad": max(_max_rel(gpu[2][n], cpu[2][n]) for n in cpu[2]),
+                "update": max(float(np.linalg.norm(gpu[3][n] - cpu[3][n])
+                                    / np.linalg.norm(cpu[3][n]))
+                              for n in cpu[3]),
+                "buffer": max([_max_rel(gpu[4][n], cpu[4][n])
+                               for n in cpu[4]] + [0.0]),
+                "eval": _max_rel(gpu[5], cpu[5])}
+        gates = {"loss": g["out"], "logits": g["out"], "grad": g["grad"],
+                 "update": VISION_STEP_REL, "buffer": VISION_BUFFER_REL,
+                 "eval": VISION_EVAL_REL}
+        bad = {k: (v, gates[k]) for k, v in errs.items() if not v <= gates[k]}
+        falling = all(b < a for a, b in zip(gpu[6], gpu[6][1:]))
+        if bad or not falling or launched:
+            raise RuntimeError(f"phase 14 parity {name} {fmt}: over the "
+                               f"gates {bad}; losses {gpu[6]}; kernel "
+                               f"launches {launched}")
+        log(f"PHASE 14 parity [{power}] {name} {fmt} B={shape[0]} fp32 "
+            f"(TF32 off), cuda vs cpu from one state dict: " + ", ".join(
+                f"{k} {v:.3e} (gate {gates[k]})" for k, v in errs.items())
+            + f"; three Momentum(lr {g['lr']}) steps, losses on the card "
+            f"{gpu[6]} vs cpu {cpu[6]}; no hand kernel launched")
+    ptt.set_device("gpu")
+
+
+def run_py_body(name, devices):
+    """benchmarks/run.py's function `name` with the JAX package's imports
+    pointed at paddle_tpu_torch, `import jax` dropped and `jax.devices()`
+    replaced by `devices()` (the port's devices), nothing else changed,
+    in run.py's own module namespace (its _timed_steps and _emit), as
+    tests/test_torch_vision_models.py runs it. Returns (the function, its
+    namespace, the substitution counts)."""
+    import importlib.util
+    import inspect
+    spec = importlib.util.spec_from_file_location(
+        "_run_py", os.path.join(ROOT, "benchmarks", "run.py"))
+    run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run)
+    body = inspect.getsource(getattr(run, name))
+    body, n_pkg = re.subn(r"\bpaddle_tpu\b", "paddle_tpu_torch", body)
+    body, n_imp = re.subn(r"^\s*import jax\n", "", body, flags=re.M)
+    body, n_dev = re.subn(r"\bjax\.devices\(\)", "port_devices()", body)
+    if re.search(r"\bjax\b", body):
+        raise RuntimeError(f"run.py {name}: jax left in the body")
+    ns = dict(vars(run))
+    ns["port_devices"] = devices
+    exec(compile(body, f"run.py:{name}", "exec"), ns)
+    return ns[name], ns, (n_pkg, n_imp, n_dev)
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _captured(fn, *args):
+    """(fn's return, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_config1(torch, np, power):
+    """Phase 14 (b): run.py config 1's own body at full size (n=8192,
+    B=256: Model(LeNet()), Adam(1e-3), CrossEntropyLoss, a warm and a
+    timed `fit` epoch of TensorDataset([x, y])). `Model.fit` is wrapped
+    here to record each epoch's losses and the model; a third epoch of
+    the same model under torch.profiler gives the device time of an
+    epoch, over the timed epoch's wall time the busy share."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import device as device_mod
+    from paddle_tpu_torch.hapi import Model, callbacks
+    ptt.set_device("gpu")
+    fn, _, subs = run_py_body("config1_lenet",
+                              lambda: [device_mod.default_device()])
+    if subs != (6, 0, 0):
+        raise RuntimeError(f"phase 14 config 1 substitutions {subs}")
+    seen = []
+
+    class Losses(callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    orig = Model.fit
+
+    def fit(self, train_data=None, *a, **kw):
+        rec = Losses()
+        kw["callbacks"] = list(kw.get("callbacks") or []) + [rec]
+        seen.append((self, train_data, kw.get("batch_size"), rec))
+        return orig(self, train_data, *a, **kw)
+
+    Model.fit = fit
+    zero_counts()
+    try:
+        _, out = _captured(fn, False)
+    finally:
+        Model.fit = orig
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    rec = _last_json(out)
+    losses = [[float(v) for v in r.losses] for *_, r in seen]
+    if len(seen) != 2 or launched or rec["unit"] != "samples/s" or not all(
+            math.isfinite(v) for ep in losses for v in ep):
+        raise RuntimeError(f"phase 14 config 1: record {rec}, epochs "
+                           f"{len(seen)}, launches {launched}, losses "
+                           f"{losses}")
+    model, ds, B, _ = seen[-1]
+    n = len(ds)
+    epoch_s = n / rec["value"]
+    prof = profile_kernels(torch, lambda: model.fit(
+        ds, epochs=1, batch_size=B, verbose=0), 1)
+    dev_ms = sum(us for us, _ in prof.values()) / 1e3
+    top = "; ".join(f"{k[:60]} {us / 1e3:.3f}ms x{c:g}" for k, (us, c) in
+                    sorted(prof.items(), key=lambda kv: -kv[1][0])[:6])
+    log(f"PHASE 14 config 1 [{power}] run.py config1_lenet (n={n}, B={B}, "
+        f"fp32, TF32 off): {rec['value']} samples/s, timed epoch "
+        f"{epoch_s * 1e3:.3f} ms for {len(losses[-1])} steps; epoch losses "
+        f"(warm, timed) mean {[round(sum(e) / len(e), 6) for e in losses]},"
+        f" first/last {[(e[0], e[-1]) for e in losses]}; device ms of one "
+        f"epoch (torch.profiler, a third epoch) {dev_ms:.3f}, busy share "
+        f"{dev_ms / (epoch_s * 1e3):.3f} of the timed epoch; top kernels: "
+        f"{top}; no hand kernel launched")
+    log(out.strip().splitlines()[-1])
+    return rec
+
+
+def _matmul_macs(torch, net, x):
+    """Multiply-accumulates of one forward of `net` on `x` in its convs
+    (out elements x in/groups x kh x kw) and linears (out elements x in),
+    from the shapes their forward hooks see."""
+    import paddle_tpu_torch.nn as nn
+    macs = [0]
+
+    def conv(m, inp, out):
+        kh, kw = m._kernel_size
+        macs[0] += out.numel() * (m._in_channels // m._groups) * kh * kw
+
+    def linear(m, inp, out):
+        macs[0] += out.numel() * m.weight.shape[0]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, nn.Conv2D)
+                                     else linear)
+             for m in net.modules() if isinstance(m, (nn.Conv2D,
+                                                      nn.Linear))]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs[0]
+
+
+def phase_config2(torch, np, power, fmt):
+    """Phase 14 (c): run.py config 2's own body at full width (ResNet-50,
+    B=256, 224x224, AMP O2 pure bf16, Momentum(0.1),
+    compile_train_step over s.build_mesh(devices=...) of the port's
+    device, run.py's `_timed_steps(2, 10)`), with PT_BENCH_CONV_FORMAT
+    set to `fmt` (None: unset, NCHW) around the call. run.py's namespace
+    `_timed_steps` is wrapped here to record every step's loss, the
+    marginal seconds and the step function, whose closure holds `prog`.
+    Gates: prog.mesh.shape["dp"] == 1, finite losses, no hand kernel
+    launched. Prints the JSON record, ms per step, peak memory, the
+    device time of a step by kernel and the busy share, and the FLOPs of
+    a step from the conv and linear shapes (2 x MACs forward, x 3) with
+    the MFU against 989 TFLOP/s."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import device as device_mod
+    ptt.set_device("gpu")
+    fn, ns, subs = run_py_body("config2_resnet50",
+                               lambda: [device_mod.default_device()])
+    if subs != (7, 1, 1):
+        raise RuntimeError(f"phase 14 config 2 substitutions {subs}")
+    timed = ns["_timed_steps"]
+    seen = {}
+
+    def timed_steps(step_fn, n_short=2, n_long=10):
+        losses = []
+
+        def step():
+            out = step_fn()
+            losses.append(out)
+            return out
+        seen.update(step=step_fn, losses=losses, n=(n_short, n_long))
+        seen["dt"] = timed(step, n_short, n_long)
+        return seen["dt"]
+
+    ns["_timed_steps"] = timed_steps
+    old = os.environ.pop("PT_BENCH_CONV_FORMAT", None)
+    if fmt:
+        os.environ["PT_BENCH_CONV_FORMAT"] = fmt
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        _, out = _captured(fn, False)
+    finally:
+        os.environ.pop("PT_BENCH_CONV_FORMAT", None)
+        if old is not None:
+            os.environ["PT_BENCH_CONV_FORMAT"] = old
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    rec = _last_json(out)
+    cells = dict(zip(seen["step"].__code__.co_freevars,
+                     (c.cell_contents for c in seen["step"].__closure__)))
+    prog, x = cells["prog"], cells["x"]
+    vals = [float(v) for v in seen["losses"]]
+    if prog.mesh.shape["dp"] != 1 or launched or not vals or not all(
+            math.isfinite(v) for v in vals) or rec["batch"] != 256:
+        raise RuntimeError(f"phase 14 config 2 {fmt}: mesh {prog.mesh}, "
+                           f"launches {launched}, losses {vals}, record "
+                           f"{rec}")
+    ms = seen["dt"] * 1e3
+    prof = profile_kernels(torch, seen["step"], 2)
+    dev_ms = sum(us for us, _ in prof.values()) / 1e3
+    groups = {"conv": 0.0, "batch_norm": 0.0, "layout": 0.0, "gemm": 0.0,
+              "other": 0.0}
+    for k, (us, _) in prof.items():
+        low = k.lower()
+        key = ("batch_norm" if any(w in low for w in (
+                   "batch_norm", "batchnorm", "bn_fw", "bn_bw"))
+               else "layout" if "nchwtonhwc" in low or "nhwctonchw" in low
+               else "conv" if any(w in low for w in (
+                   "conv", "dgrad", "wgrad", "fprop", "cudnn"))
+               else "gemm" if any(w in low for w in (
+                   "gemm", "cutlass", "nvjet")) else "other")
+        groups[key] += us / 1e3
+    top = "; ".join(f"{k[:70]} {us / 1e3:.3f}ms x{c:g}" for k, (us, c) in
+                    sorted(prof.items(), key=lambda kv: -kv[1][0])[:10])
+    macs = _matmul_macs(torch, prog.layer.net, x)
+    flops = 3 * 2 * macs
+    mfu = flops / (ms / 1e3) / BF16_FLOPS_PER_S
+    log(f"PHASE 14 config 2 [{power}] run.py config2_resnet50 "
+        f"data_format={rec['data_format']} (PT_BENCH_CONV_FORMAT="
+        f"{fmt or 'unset'}), ResNet-50 B=256 224x224 AMP O2 pure bf16, "
+        f"Momentum(0.1), mesh {dict(prog.mesh.shape)}: {rec['value']} "
+        f"images/s, ms_per_step {ms:.3f} (run.py's _timed_steps"
+        f"{seen['n']}), {len(vals)} steps, losses {vals[0]:.4f} .. "
+        f"{vals[-1]:.4f}; max_memory_allocated {peak} B; step FLOPs "
+        f"{flops} (2 x {macs} MACs forward, x 3), MFU {mfu:.4f} (/ 989e12);"
+        f" device ms per step (torch.profiler, 2 steps) {dev_ms:.3f}, busy "
+        f"share {dev_ms / ms:.3f} of the marginal step; by group " +
+        ", ".join(f"{k} {v:.3f}" for k, v in groups.items()) +
+        f"; top kernels per step: {top}; no hand kernel launched; "
+        f"{wall:.3f}s")
+    log(out.strip().splitlines()[-1])
+    del prog, cells, seen
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4401,6 +4785,14 @@ def main():
     t0 = time.perf_counter()
     phase_tensor_surface(torch, np, power)
     log(f"PHASE 13 took {time.perf_counter() - t0:.3f}s")
+
+    # phase 14: the vision path (benchmarks/run.py configs 1 and 2)
+    t0 = time.perf_counter()
+    phase_vision_parity(torch, np, power)
+    phase_config1(torch, np, power)
+    phase_config2(torch, np, power, None)
+    phase_config2(torch, np, power, "NHWC")
+    log(f"PHASE 14 took {time.perf_counter() - t0:.3f}s")
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

@@ -15,12 +15,13 @@ takes: the port's `Layer.state_dict()` names are the JAX package's
 expanded per-block names (``blocks.3.attn.qkv.weight``), the layout
 `split_decode_params` reads.
 
-The JAX package's GPT scans its blocks by default, and what it keys by
-parameter (its optimizer's ``functional_state``, the train step's params)
-then uses one stacked name per block parameter, ``blocks.attn.qkv.weight``
+The JAX package's GPT and Bert scan their blocks by default, and what
+they key by parameter (the optimizer's ``functional_state``, the train
+step's params) then uses one stacked name per block parameter,
+``blocks.attn.qkv.weight`` / ``encoder.layers.self_attn.q_proj.weight``
 with a leading [layers] axis. `stacked_layout` and `indexed_layout`
 convert a {name: value} dict between that layout and the port's indexed
-names for the GPTs inside a layer.
+names for the GPTs and Berts inside a layer.
 """
 from __future__ import annotations
 
@@ -120,11 +121,22 @@ def state_arrays(layer) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _gpts(layer):
-    """(name prefix, GPT) of every port GPT inside `layer`."""
+def _stacks(layer):
+    """(block-list prefix, number of blocks, whether the JAX package
+    scans them) of every port GPT (``{p}blocks.``) and Bert
+    (``{p}encoder.layers.``) inside `layer`."""
+    from .models.bert import Bert
     from .models.gpt import GPT
-    return [(name + "." if name else "", m)
-            for name, m in layer.named_modules() if isinstance(m, GPT)]
+    out = []
+    for name, m in layer.named_modules():
+        pre = name + "." if name else ""
+        if isinstance(m, GPT):
+            out.append((pre + "blocks.", m.cfg.layers,
+                        m.cfg.scan_layers is not False))
+        elif isinstance(m, Bert):
+            out.append((pre + "encoder.layers.", m.cfg.layers,
+                        m.cfg.scan_layers is not False))
+    return out
 
 
 def _stack(vals, name):
@@ -143,15 +155,16 @@ def _stack(vals, name):
 
 def stacked_layout(tree, layer):
     """`tree` ({name: numpy array, or a dict of them}) with each port GPT
-    in `layer` that scans in the JAX package (``cfg.scan_layers`` not
-    False) keyed as the JAX package keys it: ``{p}blocks.{i}.{rel}`` for
-    every i stacked under ``{p}blocks.{rel}``; a 0-d value (a beta power)
-    is the same in every block and is kept once."""
+    or Bert in `layer` that scans in the JAX package (``cfg.scan_layers``
+    not False) keyed as the JAX package keys it: ``{b}{i}.{rel}`` for
+    every block i of the block list ``{b}`` (``{p}blocks.``,
+    ``{p}encoder.layers.``) stacked under ``{b}{rel}``; a 0-d value (a
+    beta power) is the same in every block and is kept once."""
     out = dict(tree)
-    for pre, gpt in _gpts(layer):
-        if gpt.cfg.scan_layers is False:
+    for pre, n, scans in _stacks(layer):
+        if not scans:
             continue
-        pat = re.compile(re.escape(pre) + r"blocks\.(\d+)\.(.+)$")
+        pat = re.compile(re.escape(pre) + r"(\d+)\.(.+)$")
         groups = {}
         for k in list(out):
             m = pat.match(k)
@@ -159,8 +172,7 @@ def stacked_layout(tree, layer):
                 groups.setdefault(m.group(2), {})[int(m.group(1))] = \
                     out.pop(k)
         for rel, by_i in groups.items():
-            out[f"{pre}blocks.{rel}"] = _stack(
-                [by_i[i] for i in range(gpt.cfg.layers)], f"{pre}blocks.{rel}")
+            out[pre + rel] = _stack([by_i[i] for i in range(n)], pre + rel)
     return out
 
 
@@ -171,16 +183,16 @@ def _index(v, i):
 
 
 def indexed_layout(tree, layer):
-    """The inverse of `stacked_layout`: every stacked ``{p}blocks.{rel}``
-    of a port GPT in `layer` split into ``{p}blocks.{i}.{rel}`` (a 0-d
-    value repeated); other names pass through."""
+    """The inverse of `stacked_layout`: every stacked ``{b}{rel}`` of a
+    port GPT or Bert in `layer` split into ``{b}{i}.{rel}`` (a 0-d value
+    repeated); other names pass through."""
     out = dict(tree)
-    for pre, gpt in _gpts(layer):
-        pat = re.compile(re.escape(pre) + r"blocks\.(?!\d+\.)(.+)$")
+    for pre, n, _ in _stacks(layer):
+        pat = re.compile(re.escape(pre) + r"(?!\d+\.)(.+)$")
         for k in list(out):
             m = pat.match(k)
             if m:
                 v = out.pop(k)
-                for i in range(gpt.cfg.layers):
-                    out[f"{pre}blocks.{i}.{m.group(1)}"] = _index(v, i)
+                for i in range(n):
+                    out[f"{pre}{i}.{m.group(1)}"] = _index(v, i)
     return out

@@ -56,6 +56,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import framework
 from ..core import flags as _flags
 from ..core.device import resolve_device
 from ..memory.page_allocator import PageAllocator, PageExhausted, copy_page
@@ -1050,21 +1051,29 @@ class SpecDecodeEngine(DecodeEngine):
     each slot starts at `speculate_k` and walks the `spec_k_ladder` by an
     EMA of its acceptance (halved below 0.35, doubled above 0.8).
 
-    Give the draft as `draft_cfg` + `draft_params` (the port's flat
-    tensor dict; int8 weights stay int8); `speculate_k` defaults to
+    Give the draft as `draft_model` (a training `models.gpt.GPT`, whose
+    config, parameters through `framework.param_arrays` and final
+    LayerNorm's epsilon are taken, as the JAX engine takes them) or as
+    `draft_cfg` + `draft_params` (the port's flat tensor dict; int8
+    weights stay int8); `speculate_k` defaults to
     PADDLE_TPU_DECODE_SPECULATE. The JAX engine's preemption stash and
     tiering hooks are not ported: this engine has neither feature."""
 
     _req_cls = _SpecReq
 
-    def __init__(self, model=None, *,
+    def __init__(self, model=None, *, draft_model=None,
                  draft_cfg: Optional[GPTConfig] = None,
                  draft_params: Optional[Mapping] = None,
                  draft_eps: Optional[float] = None,
                  speculate_k: Optional[int] = None, **kw):
+        if draft_model is not None:
+            draft_cfg = draft_model.cfg
+            draft_params = framework.param_arrays(draft_model)
+            draft_eps = draft_model.ln_f._epsilon \
+                if draft_eps is None else draft_eps
         if draft_cfg is None or draft_params is None:
-            raise ValueError("SpecDecodeEngine needs draft_cfg and "
-                             "draft_params")
+            raise ValueError("SpecDecodeEngine needs a draft model or "
+                             "(draft_cfg, draft_params)")
         k = int(speculate_k) if speculate_k is not None \
             else int(_flags.env_value("PADDLE_TPU_DECODE_SPECULATE"))
         if k < 1:

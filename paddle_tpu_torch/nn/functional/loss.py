@@ -1,5 +1,15 @@
-"""linear_cross_entropy (port of paddle_tpu's `nn/functional/loss.py`
-`linear_cross_entropy` over `ops/pallas/fused_ce.py`).
+"""cross_entropy, softmax_with_cross_entropy and linear_cross_entropy
+(port of paddle_tpu's `nn/functional/loss.py`; the last over
+`ops/pallas/fused_ce.py`).
+
+cross_entropy is the JAX package's arithmetic, cast as its
+"cross_entropy" (black-listed: fp32 under AMP): log_softmax in fp32 (or,
+with `use_softmax=False`, the log of the input clipped at 1e-30); soft
+labels sum -label * logp; hard labels ([N] or [N, 1] on `axis`) pick
+-logp at the label, rows equal to `ignore_index` give 0 and leave the
+mean's denominator (the count of valid rows, at least 1), and a `weight`
+per class scales each row, the mean then dividing by the valid rows'
+weights.
 
 loss[i] = -log softmax(x[i] @ w.T)[labels[i]], x [N, H], w [V, H]. Two
 routes, as in the JAX package:
@@ -22,12 +32,15 @@ from __future__ import annotations
 
 import torch
 
+from ... import ops
 from ...amp import maybe_cast_inputs
 from ...ops.kernels.fused_ce import (dlogits_reference,
                                      fused_ce_fwd_reference,
                                      fused_linear_cross_entropy)
+from .activation import softmax
 
-__all__ = ["linear_cross_entropy", "FUSED_MIN_VOCAB"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "linear_cross_entropy", "FUSED_MIN_VOCAB"]
 
 # fused=None takes the fused route from this vocabulary size on: the JAX
 # package's number, measured on a TPU v5e (fused_ce.py:373), kept only so
@@ -72,3 +85,58 @@ def linear_cross_entropy(input, weight, label, fused=None, reduction="mean"):
     if reduction == "sum":
         return rows.sum()
     return rows
+
+
+def _reduce(out, reduction):
+    if reduction == "mean":
+        return out.mean()
+    if reduction == "sum":
+        return out.sum()
+    return out
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True):
+    args = [input, label] + ([weight] if weight is not None else [])
+    args = maybe_cast_inputs("cross_entropy", args)
+    logits, lbl = args[0].float(), args[1]
+    if use_softmax:
+        logp = torch.log_softmax(logits, dim=axis)
+    else:
+        logp = torch.log(torch.clamp_min(logits, 1e-30))
+    if soft_label:
+        return _reduce(-(lbl * logp).sum(axis), reduction)
+    if lbl.dim() == logp.dim():
+        lbl = lbl.squeeze(axis)
+    lbl = lbl.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    loss = -torch.gather(logp, axis % logp.dim(),
+                         safe.unsqueeze(axis)).squeeze(axis)
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if weight is not None:
+        wt = args[2][safe]
+        wt = torch.where(valid, wt, torch.zeros_like(wt))
+        loss = loss * wt
+        if reduction == "mean":
+            return loss.sum() / torch.clamp_min(wt.sum(), 1e-12)
+    elif reduction == "mean":
+        return loss.sum() / torch.clamp_min(valid.float().sum(), 1.0)
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """cross_entropy's per-row loss with `axis` kept (size 1), and with
+    `return_softmax` the softmax of the logits beside it. The JAX package
+    keeps the axis in an op on neither AMP list, so under O2 the loss
+    leaves in bf16; `ops.unsqueeze` casts the same way."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis)
+    loss = ops.unsqueeze(loss, axis)
+    if return_softmax:
+        return loss, softmax(logits, axis=axis)
+    return loss

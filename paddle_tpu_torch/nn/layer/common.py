@@ -1,14 +1,15 @@
-"""Linear / Embedding / Dropout (port of paddle_tpu's
+"""Linear / Embedding / Dropout / Flatten (port of paddle_tpu's
 `nn/layer/common.py`). Linear keeps the JAX package's [in, out] weight:
 it is never `torch.nn.Linear` ([out, in]), into which a state dict would
 load silently transposed."""
 from __future__ import annotations
 
+from ... import ops
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
 
 
 class Linear(Layer):
@@ -55,3 +56,14 @@ class Dropout(Layer):
     def forward(self, x):
         return F.dropout(x, self.p, axis=self.axis, training=self.training,
                          mode=self.mode)
+
+
+class Flatten(Layer):
+    """`ops.flatten(x, start_axis, stop_axis)`."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return ops.flatten(x, self.start_axis, self.stop_axis)

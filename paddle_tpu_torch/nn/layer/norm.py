@@ -1,11 +1,15 @@
-"""LayerNorm (port of paddle_tpu's `nn/layer/norm.py`)."""
+"""LayerNorm, BatchNorm and BatchNorm2D (port of paddle_tpu's
+`nn/layer/norm.py`)."""
 from __future__ import annotations
 
+import torch
+
+from ...core.device import default_device
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "BatchNorm", "BatchNorm2D"]
 
 
 class LayerNorm(Layer):
@@ -25,3 +29,64 @@ class LayerNorm(Layer):
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
                             self.bias, self._epsilon)
+
+
+class _BatchNormBase(Layer):
+    """Batch norm over `num_features` channels: weight (ones) and bias
+    (zeros) unless their attr is False, and the fp32 running buffers
+    `_mean` (zeros) and `_variance` (ones), named as the JAX package's
+    `state_dict()` names them. `momentum` is paddle's (the weight of the
+    running value). Training mode uses the batch's statistics and updates
+    the buffers; eval mode, or `use_global_stats`, the buffers."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = None if weight_attr is False else \
+            self.create_parameter([num_features], attr=weight_attr,
+                                  default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True)
+        dev = default_device()
+        self.register_buffer("_mean", torch.zeros(num_features, device=dev))
+        self.register_buffer("_variance",
+                             torch.ones(num_features, device=dev))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return f"num_features={self._num_features}, momentum={self._momentum}"
+
+
+class BatchNorm(_BatchNormBase):
+    """The 1.x-style layer (fluid.dygraph.BatchNorm): `act` names an
+    activation of `nn.functional` applied after the norm."""
+
+    def __init__(self, num_channels, act=None, momentum=0.9, epsilon=1e-5,
+                 param_attr=None, bias_attr=None, dtype="float32",
+                 data_layout="NCHW", in_place=False, moving_mean_name=None,
+                 moving_variance_name=None,
+                 do_model_average_for_mean_and_var=True,
+                 use_global_stats=False, trainable_statistics=False):
+        super().__init__(num_channels, momentum, epsilon, param_attr,
+                         bias_attr, data_layout, use_global_stats or None)
+        self._act = act
+
+    def forward(self, x):
+        out = super().forward(x)
+        return getattr(F, self._act)(out) if self._act else out
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass

@@ -9,6 +9,7 @@ prune checkpoints (ModelCheckpoint, EarlyStopping)."""
 import dataclasses
 import json
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -330,3 +331,108 @@ def test_early_stopping_matches_jax(tmp_path, monitor):
             stops.append(m.stop_training)
         out.append((stops, m.saved, cb.best, cb.wait))
     assert out[0] == out[1]
+
+
+# ------------------------------------------- BERT's optimizer slots
+
+class _JMLM(paddle.nn.Layer):
+    def __init__(self, m):
+        super().__init__()
+        self.m = m
+
+    def forward(self, ids, labels):
+        return self.m.mlm_loss(ids, labels)
+
+
+class _TMLM(tnn.Layer):
+    def __init__(self, m):
+        super().__init__()
+        self.m = m
+
+    def forward(self, ids, labels):
+        return self.m.mlm_loss(ids, labels)
+
+
+def _bert_pair():
+    """A JAX bert_tiny (scanned: its slots keyed stacked) and a port Bert
+    from its weights, each in a Model with Adam(1e-3)."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.framework import param_arrays as jparam_arrays
+    from paddle_tpu.hapi import Model as JModel
+    from paddle_tpu.models import Bert as JBert
+    from paddle_tpu.models import bert_tiny as jbert_tiny
+    from paddle_tpu_torch.models import Bert, bert_tiny
+
+    paddle.seed(0)
+    jb = JBert(jbert_tiny())
+    assert jb.cfg.scan_layers
+    arrays = {k: np.asarray(v) for k, v in jparam_arrays(jb).items()}
+    jm = JModel(_JMLM(jb))
+    jm.prepare(jopt.Adam(learning_rate=1e-3, parameters=jm.parameters()))
+    tm = TModel(_TMLM(Bert(bert_tiny()).load_numpy(arrays)))
+    tm.prepare(topt.Adam(learning_rate=1e-3, parameters=tm.parameters()))
+    return jm, tm
+
+
+def _mlm_batch(seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 512, (2, 16)).astype(np.int64)
+    return ids, np.where(rng.random((2, 16)) < 0.3, ids, -100)
+
+
+def _net_state(model):
+    if hasattr(model, "_sync_network"):      # the JAX Model's jit step
+        model._sync_network()
+    return {k: np.array(v.numpy() if hasattr(v, "numpy") else v,
+                        np.float32)
+            for k, v in model.network.state_dict().items()}
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_bert_pdopt_crosses_the_packages(tmp_path, writer):
+    """Two Adam steps of a bert_tiny Model in the writing package, then
+    `Model.save`; the other package's `Model.load` takes the weights and
+    the Adam slots (the JAX scanned Bert keys them stacked,
+    ``m.encoder.layers.<rel>``; the port's `stacked_layout` /
+    `indexed_layout` carry them). One more Adam step on a new batch then
+    matches between the writer and the reader: the loss, and every
+    parameter's update within 1 % of its size."""
+    jm, tm = _bert_pair()
+    src, dst = (jm, tm) if writer == "jax" else (tm, jm)
+    for seed in (1, 2):
+        src.train_batch(list(_mlm_batch(seed)))
+    prefix = str(tmp_path / "bert")
+    src.save(prefix)
+    with open(prefix + ".pdopt", "rb") as f:
+        fs = pickle.load(f)["functional_state"]
+    assert "m.encoder.layers.self_attn.q_proj.weight" in fs
+    assert not any(k.startswith("m.encoder.layers.0.") for k in fs)
+    dst.load(prefix)
+    if dst is tm:
+        from paddle_tpu_torch.framework import stacked_layout
+        got = stacked_layout(tm._optimizer.functional_state(
+            tm.network.named_parameters()), tm.network)
+    else:
+        got = jm._restored_opt_state
+    assert set(got) == set(fs)
+    for n, slots in fs.items():
+        for s, v in slots.items():
+            np.testing.assert_array_equal(np.asarray(got[n][s]),
+                                          np.asarray(v), err_msg=f"{n} {s}")
+    before, loaded = _net_state(src), _net_state(dst)
+    assert sorted(loaded) == sorted(before)
+    for k, v in before.items():
+        np.testing.assert_array_equal(loaded[k], v, err_msg=k)
+    batch = list(_mlm_batch(3))
+    ls, ld = src.train_batch(batch)[0], dst.train_batch(batch)[0]
+    assert abs(ls - ld) <= 1e-5 * abs(ls), (ls, ld)
+    after_s, after_d = _net_state(src), _net_state(dst)
+    for k in before:
+        ds, dd = after_s[k] - before[k], after_d[k] - before[k]
+        if k.endswith("k_proj.bias"):
+            # its gradient is 0 in exact arithmetic (softmax ignores a
+            # shift common to a row's scores): Adam moves each entry by
+            # rounding, at most ~lr; held to that
+            assert np.abs(dd - ds).max() <= 2e-3, k
+            continue
+        assert np.linalg.norm(dd - ds) <= 1e-2 * np.linalg.norm(ds), k

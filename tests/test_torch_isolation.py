@@ -29,6 +29,13 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_paddle_tpu():
     mods = _modules()
     assert "paddle_tpu_torch.inference.decode" in mods
+    assert {"paddle_tpu_torch.nn.functional.conv",
+            "paddle_tpu_torch.nn.functional.pooling",
+            "paddle_tpu_torch.nn.layer.conv",
+            "paddle_tpu_torch.nn.layer.pooling",
+            "paddle_tpu_torch.vision",
+            "paddle_tpu_torch.vision.models.lenet",
+            "paddle_tpu_torch.vision.models.resnet"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -103,19 +110,24 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path):
 
 
 def test_training_entry_points_default_to_cuda(monkeypatch):
-    """GPT(cfg), set_device() and Model.prepare use the GPU unless told
+    """GPT(cfg), the vision models and layers (LeNet, resnet18, Conv2D,
+    BatchNorm2D), set_device() and Model.prepare use the GPU unless told
     otherwise, and raise without one; set_device("cpu") opens the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
     from paddle_tpu_torch.core import device as device_mod
     from paddle_tpu_torch.hapi import Model
     from paddle_tpu_torch.models import GPT, gpt_tiny
     from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet, resnet18
 
     monkeypatch.setattr(device_mod, "_DEFAULT", [None])
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        GPT(gpt_tiny())
+    for build in (lambda: GPT(gpt_tiny()), LeNet, resnet18,
+                  lambda: nn.Conv2D(3, 4, 3), lambda: nn.BatchNorm2D(4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ptt.set_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):

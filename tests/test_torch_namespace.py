@@ -17,7 +17,6 @@ pytest.importorskip("torch")
 import paddle_tpu  # noqa: E402,F401
 import paddle_tpu_torch  # noqa: E402,F401
 
-ITEM2 = "queue 1 item 2: vision (LeNet, ResNet: conv, pool, batch_norm, CE)"
 ITEM3B = "queue 1 item 3(b): linalg, logic, search, stat, random"
 ITEM3B_AMP = "queue 1 item 3(b): amp.GradScaler / decorate"
 ITEM4 = "queue 1 item 4: small gaps (optimizers, io pipeline, crypto, " \
@@ -70,9 +69,6 @@ EXPECTED_ABSENT = {
         **_group("not paddle API: the JAX tape's op dispatcher", "apply"),
     },
     "nn": {
-        **_group(ITEM2, """
-            Conv2D MaxPool2D AvgPool2D AdaptiveAvgPool2D BatchNorm
-            BatchNorm2D CrossEntropyLoss ReLU Sequential Flatten vision"""),
         **_group(ITEM7, "MoELayer"),
         **_group(ITEM8, "cond while_loop Input"),
         **_group(ITEM9, """
@@ -97,12 +93,9 @@ EXPECTED_ABSENT = {
             UpsamplingNearest2D ZeroPad2D common conv crf_decoding
             ctc_greedy_decoder dynamic_decode extension gather_tree
             initializer_setup loss norm remove_weight_norm rnn utils
-            weight_norm weight_norm_hook"""),
+            vision weight_norm weight_norm_hook"""),
     },
     "nn.functional": {
-        **_group(ITEM2, """
-            conv2d max_pool2d avg_pool2d adaptive_avg_pool2d batch_norm
-            cross_entropy softmax_with_cross_entropy"""),
         **_group(ITEM9, """
             adaptive_avg_pool1d adaptive_avg_pool3d adaptive_max_pool1d
             adaptive_max_pool2d adaptive_max_pool3d add_position_encoding
@@ -113,7 +106,7 @@ EXPECTED_ABSENT = {
             binary_cross_entropy_with_logits bipartite_match birnn box_clip
             box_coder box_decoder_and_assign bpr_loss center_loss
             channel_shuffle class_center_sample collect_fpn_proposals
-            continuous_value_model conv conv1d conv1d_transpose
+            continuous_value_model conv1d conv1d_transpose
             conv2d_transpose conv3d conv3d_transpose cosine_embedding_loss
             cosine_similarity create_array crf_decoding ctc_loss data_norm
             deformable_conv deformable_roi_pooling density_prior_box
@@ -131,7 +124,7 @@ EXPECTED_ABSENT = {
             merge_selected_rows mse_loss multi_box_head multiclass_nms
             multiclass_nms_static nce nll_loss normalize npair_loss one_hot
             pad2d pad_constant_like pixel_shuffle pixel_unshuffle
-            polygon_box_transform pool2d pool3d pooling prelu prior_box
+            polygon_box_transform pool2d pool3d prelu prior_box
             prroi_pool psroi_pool random_crop relu_ reorder_lod_tensor_by_rank
             resize_bilinear resize_nearest resize_trilinear
             retinanet_detection_output retinanet_target_assign rnn rnn_legacy
@@ -178,6 +171,15 @@ EXPECTED_ABSENT = {
             serialize_program set_program_state xpu_places"""),
         **_group(IMPL, "dtype_mod"),
     },
+    "vision": {
+        **_group(ITEM9, "ops"),
+        **_group(ITEM10, """
+            datasets transforms image image_load get_image_backend
+            set_image_backend"""),
+    },
+    "vision.models": _group(ITEM9, """
+        VGG vgg vgg11 vgg13 vgg16 vgg19 MobileNetV1 MobileNetV2 mobilenet
+        mobilenet_v1 mobilenet_v2 mobilenetv1 mobilenetv2"""),
     "inference": {
         **_group(ITEM5, """
             Config DataType PlaceType PrecisionType Predictor PredictorPool
@@ -187,7 +189,6 @@ EXPECTED_ABSENT = {
 }
 
 ABSENT_MODULES = {
-    "vision": ITEM2 + "; transforms: item 10",
     "jit": ITEM8,
     "profiler": ITEM6,
     "text": ITEM10,

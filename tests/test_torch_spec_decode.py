@@ -302,6 +302,52 @@ def test_spec_engine_matches_jax_and_the_plain_engine(rig, name):
     assert st["pages"]["pages_used"] == st["prefix_cache"]["cached_pages"]
 
 
+def test_draft_model_layer_streams_equal_jax_and_draft_params(rig,
+                                                               monkeypatch):
+    """`SpecDecodeEngine(draft_model=)` takes a draft GPT layer as the
+    JAX engine does (its cfg, its parameters through
+    `framework.param_arrays`, its final LayerNorm's epsilon): a gpt_tiny
+    draft layer passed so streams the JAX engine's tokens (built the same
+    way) and the port engine's given draft_cfg + draft_params."""
+    from paddle_tpu_torch.core import device as tdevice
+    monkeypatch.setattr(tdevice, "_DEFAULT", [torch.device("cpu")])
+    model = rig[0]["tiny-scan"]
+    paddle.seed(11)
+    jdraft = jgpt.GPT(jgpt.gpt_tiny())
+    kw = dict(max_slots=2, max_new_tokens=24, page_tokens=PT,
+              prefix_cache=True)
+    jeng = jdecode.SpecDecodeEngine(model, draft_model=jdraft,
+                                    speculate_k=4, **kw)
+    try:
+        jouts, _ = _serve(jeng, jdecode._decode_metrics())
+    finally:
+        jeng.stop()
+
+    pcfg, dcfg = _pcfg(model.cfg), _pcfg(jdraft.cfg)
+    tdraft = tgpt.GPT(dcfg).load_numpy(_arrays(jdraft))
+    assert tdraft.wte.weight.device.type == "cpu"
+    outs = []
+    for draft in (dict(draft_model=tdraft),
+                  dict(draft_cfg=dcfg, draft_eps=1e-5,
+                       draft_params=tgpt.params_from_numpy(
+                           dcfg, _arrays(jdraft), "cpu"))):
+        eng = tdecode.SpecDecodeEngine(
+            cfg=pcfg, params=tgpt.params_from_numpy(pcfg, _arrays(model),
+                                                    "cpu"),
+            eps=1e-5, speculate_k=4, device="cpu", **draft, **kw)
+        try:
+            outs.append(_serve(eng, tdecode._decode_metrics())[0])
+            if "draft_model" in draft:
+                assert eng.draft_cfg == dcfg and eng.draft_eps == 1e-5
+        finally:
+            eng.stop()
+    assert outs[0] == jouts
+    assert outs[0] == outs[1]
+    with pytest.raises(ValueError, match="draft model"):
+        tdecode.SpecDecodeEngine(cfg=pcfg, params=tgpt.params_from_numpy(
+            pcfg, _arrays(model), "cpu"), device="cpu", **kw)
+
+
 def test_long_prompt_tail_streams_equal_the_plain_engines(rig):
     """A prefix hit whose uncached tail is longer than k + 1 feeds the
     tail through several verifies; one that ends inside the prompt must
