@@ -260,11 +260,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      MFU, peak memory, the device time of a step by kernel with the
      device's busy share, and run.py's JSON record;
  13. (run after 12) the tensor surface: (a) every function of the
-     ported creation, math and manipulation libraries, `einsum` and
-     `where`, through the parity tests' cases (tests/torch_op_cases.py),
-     on CUDA paddle Tensors against the same call on the CPU (types,
-     shapes and dtypes equal, ints exact, floats and gradients within
-     each case's tolerance, TF32 off; a name without a case fails); (b)
+     ported creation, math, manipulation, linalg, logic, search and stat
+     libraries and `einsum`, through the parity tests' cases
+     (tests/torch_op_cases.py), on CUDA paddle Tensors against the same
+     call on the CPU (types, shapes and dtypes equal, ints exact, floats
+     and gradients within each case's tolerance, TF32 off; eigen- and
+     singular vectors through the cases' invariants; a name without a
+     case fails), and every function of `random` on CUDA against its law
+     (the cases' RANDOM_LAWS: dtype, device, support, mean and variance
+     within 5 standard errors at 200,000 draws) and its seeds; (b)
      phases 10 and 12 time their steps through a letter-for-letter copy
      of benchmarks/run.py's `_timed_steps` (run.py:36-58), whose window
      reads the loss with `out.numpy()`: `CompiledTrainStep.step` returns
@@ -289,10 +293,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      prog.mesh.shape["dp"] == 1, finite losses, its images/s record, ms
      per step, peak memory, a step's device time by kernel and busy
      share, and the FLOPs from the conv and linear shapes with the MFU;
- 15. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 15. (run after 14) paddle 2.0's dygraph float16 loop at config 2's
+     width: ResNet-50, B=256, 224x224 NCHW, `amp.decorate(model,
+     Momentum(0.1), level="O2", dtype="float16")`, `amp.GradScaler()` at
+     its defaults, 25 iterations of auto_cast(O2, float16) forward,
+     `scaler.scale(loss).backward()`, `scaler.step(opt)`,
+     `scaler.update()`: parameters float16 and buffers as they were,
+     fp32 masters, finite and falling losses, skipped steps bit-equal,
+     the scale trajectory equal to the update rule, a forced overflow
+     skipped, one device-to-host sync in `unscale_`, no hand kernel; ms
+     per step over steps 6-25, images/s, peak memory, a step's device
+     time by kernel group and busy share, beside 14(c)'s bf16 step;
+ 16. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
      fused backward; rows 5-8 carry phase 12's shape under "ernie");
- 16. last line {"ok": true, "device": {...}}.
+ 17. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -4170,16 +4185,65 @@ def _host_us(torch, fn, calls=20000):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def _random_on_card(paddle, np, oc, power):
+    """Phase 13, `random` on the card: each law of tests/torch_op_cases.py
+    RANDOM_LAWS (every function of `ops/random.py`) drawn N_DRAWS times
+    on CUDA from `paddle.seed(1234)`: a paddle Tensor on the card of the
+    law's dtype, every draw in the support, the sample mean (and where
+    the fourth moment is known the variance) within 5 standard errors of
+    the law's; then each law drawn twice after `paddle.seed(7)` gives the
+    same numbers, `uniform(seed=11)` / `uniform_(seed=11)` the same on
+    every call whatever was drawn between, and `set_cuda_rng_state`
+    replays."""
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    worst = 0.0
+    for law in oc.RANDOM_LAWS:
+        t = law.draw(paddle, oc.N_DRAWS)
+        if not isinstance(t, paddle.Tensor) or t.device.type != "cuda" or \
+                paddle.core.dtype.dtype_name(t.dtype) != law.dtype:
+            raise RuntimeError(f"phase 13 random {law.id}: {type(t)} "
+                               f"{t.device} {t.dtype}")
+        zm, zv = oc.law_errors(law, t.numpy())
+        worst = max(worst, zm, zv or 0.0)
+    for law in oc.RANDOM_LAWS:
+        paddle.seed(7)
+        a = law.draw(paddle, 1000).numpy()
+        paddle.seed(7)
+        if not np.array_equal(a, law.draw(paddle, 1000).numpy()):
+            raise RuntimeError(f"phase 13 random {law.id}: seed 7 twice")
+    u = paddle.uniform([64], seed=11).numpy()
+    paddle.rand([5])
+    same = [paddle.uniform([64], seed=11).numpy(),
+            paddle.uniform_(paddle.zeros([64]), seed=11).numpy()]
+    state = paddle.get_cuda_rng_state()
+    r = paddle.randn([64]).numpy()
+    paddle.set_cuda_rng_state(state)
+    if not all(np.array_equal(u, v) for v in same) or not np.array_equal(
+            r, paddle.randn([64]).numpy()):
+        raise RuntimeError("phase 13 random: seeded draws differ")
+    log(f"PHASE 13 random on the card [{power}]: {len(oc.RANDOM_LAWS)} "
+        f"laws ({len({law.id.split('-')[0] for law in oc.RANDOM_LAWS})} "
+        f"functions), {oc.N_DRAWS} draws each on CUDA: supports, dtypes and "
+        f"the device held, largest distance of a sample mean or variance "
+        f"{worst:.3f} standard errors (gate 5); the same numbers from the "
+        f"same seed, uniform(seed=) and set_cuda_rng_state; "
+        f"{time.perf_counter() - t0:.3f}s")
+
+
 def phase_tensor_surface(torch, np, power):
     """Phase 13, the tensor surface: (a) every function of the ported
-    creation, math and manipulation `__all__` lists, `einsum` and `where`
-    run on CUDA tensors through the cases of tests/torch_op_cases.py (the
-    parity tests' cases), each result a paddle Tensor on the card held to
-    the same call on the CPU (shapes and dtypes equal, ints and bools
-    exact, floats within the case's tolerance, TF32 off), and for the
-    differentiable cases the gradients by backward() within the case's
-    rtol of the largest; a name with no case fails; (c) what the Tensor
-    layer costs on the host: microseconds per call of paddle.add,
+    creation, math, manipulation, linalg, logic, search and stat `__all__`
+    lists and `einsum` run on CUDA tensors through the cases of
+    tests/torch_op_cases.py (the parity tests' cases), each result a
+    paddle Tensor on the card held to the same call on the CPU (shapes
+    and dtypes equal, ints and bools exact, floats within the case's
+    tolerance, TF32 off; eigen- and singular vectors through the cases'
+    invariants), and for the differentiable cases the gradients by
+    backward() within the case's rtol of the largest; a name with no case
+    fails; then `random` (`_random_on_card`); (c) what the Tensor layer
+    costs on the host: microseconds per call of paddle.add,
     paddle.reshape, paddle.concat and `a + b` on 8-float CUDA Tensors
     against the bare torch op on plain tensors, three readings each.
     ((b), phases 10 and 12 timing through run.py's own _timed_steps,
@@ -4187,12 +4251,15 @@ def phase_tensor_surface(torch, np, power):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_op_cases as oc
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.ops import creation, manipulation
+    from paddle_tpu_torch.ops import (creation, linalg, logic, manipulation,
+                                      search, stat)
     from paddle_tpu_torch.ops import math as pmath
 
     t0 = time.perf_counter()
-    want = (set(creation.__all__) | set(pmath.__all__)
-            | set(manipulation.__all__) | {"einsum", "where"})
+    mods = {"creation": creation, "math": pmath,
+            "manipulation": manipulation, "linalg": linalg, "logic": logic,
+            "search": search, "stat": stat}
+    want = set().union(*(m.__all__ for m in mods.values())) | {"einsum"}
     have = {c.name for c in oc.ALL_CASES} | {"stride_check"}
     if want - have:
         raise RuntimeError(f"phase 13: no case for {sorted(want - have)}")
@@ -4224,12 +4291,12 @@ def phase_tensor_surface(torch, np, power):
                                        f"{err} of {scale}")
     paddle.set_device("gpu")
     log(f"PHASE 13 library on the card [{power}]: {len(oc.ALL_CASES)} "
-        f"cases ({n_grad} with gradients) covering {len(want)} names "
-        f"(creation {len(creation.__all__)}, math {len(pmath.__all__)}, "
-        f"manipulation {len(manipulation.__all__)}, einsum, where) on CUDA "
-        f"paddle Tensors equal to the CPU within each case's tolerance; "
-        f"largest float error {worst:.3e}; "
+        f"cases ({n_grad} with gradients) covering {len(want)} names ("
+        + ", ".join(f"{k} {len(m.__all__)}" for k, m in mods.items())
+        + f", einsum) on CUDA paddle Tensors equal to the CPU within each "
+        f"case's tolerance; largest float error {worst:.3e}; "
         f"{time.perf_counter() - t0:.3f}s")
+    _random_on_card(paddle, np, oc, power)
 
     a = paddle.to_tensor(np.arange(8, dtype=np.float32))
     b = paddle.to_tensor(np.ones(8, np.float32))
@@ -4623,6 +4690,224 @@ def phase_config2(torch, np, power, fmt):
     return rec
 
 
+# ----------------------------------------------------------- phase 15
+
+# paddle 2.0's own dygraph float16 loop (docs/migration.md): ResNet-50 at
+# run.py config 2's width, decorated to pure float16 with fp32 masters,
+# under dynamic loss scaling at GradScaler's defaults
+AMP_FP16_ITERS = 25
+AMP_FP16_TIMED = (5, 25)      # steps 6-25 are timed
+
+
+def scale_rule(found, init=2.0 ** 15, incr=2.0, decr=0.5, incr_every=1000,
+               decr_every=2):
+    """GradScaler.update's scale after each update, from the sequence of
+    found_inf alone (the defaults are paddle's)."""
+    scale, good, bad, out = init, 0, 0, []
+    for f in found:
+        if f:
+            bad, good = bad + 1, 0
+            if bad >= decr_every:
+                scale, bad = max(scale * decr, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * incr, 0
+        out.append(scale)
+    return out
+
+
+def _amp_group(name):
+    """The group of a profiled kernel of the float16 step."""
+    low = name.lower()
+    if "non_finite" in low or "unscale" in low:
+        return "unscale"
+    if any(w in low for w in ("batch_norm", "batchnorm", "bn_fw", "bn_bw")):
+        return "batch_norm"
+    if any(w in low for w in ("conv", "dgrad", "wgrad", "fprop", "cudnn",
+                              "nchwtonhwc", "nhwctonchw", "xmma", "sm90_")):
+        return "conv"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer"
+    if "copy" in low or "cast" in low:
+        return "casts"
+    return "other"
+
+
+def phase_amp_fp16(torch, np, power, bf16_rec):
+    """Phase 15: paddle's dygraph float16 O2 loop at full width, written
+    to paddle's API on paddle Tensors: `vision.models.resnet50()` (seeded
+    weights, 25,557,032 parameters), B=256, 3x224x224 NCHW from one seeded
+    batch, `amp.decorate(model, Momentum(0.1), level="O2",
+    dtype="float16")`, `amp.GradScaler()` (2^15, x2 every 1000 good
+    steps, x0.5 after 2 bad ones), AMP_FP16_ITERS iterations of
+    auto_cast(O2, float16) forward + cross_entropy, `scaler.scale(loss)
+    .backward()`, `scaler.step(opt)`, `scaler.update()`,
+    `opt.clear_grad()`. Gates: after decorate every parameter float16
+    (the same objects) and every buffer as it was; fp32 masters in the
+    optimizer; a finite loss at every step not skipped, the last below
+    the first; a skipped step leaves every parameter bit-equal; the scale
+    after each update equal to `scale_rule` of the run's found_inf; a
+    forced overflow (`load_state_dict({"scale": 1e30, ...})`) found and
+    skipped; `unscale_` one device-to-host sync (torch's sync debug mode,
+    and a count of Tensor.item); no hand kernel launched. Prints ms per
+    step over steps 6-25 (synchronized), images/s, peak memory, a step's
+    device ms by kernel group and the busy share, beside phase 14(c)'s
+    bf16 compiled step."""
+    import warnings
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t_start = time.perf_counter()
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = resnet50()
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    buffers = {k: torch.Tensor.clone(b) for k, b in model.named_buffers()}
+    opt = Momentum(learning_rate=0.1, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    after = list(model.parameters())
+    if n_params != 25_557_032 or len(after) != len(params) or any(
+            a is not b or a.dtype != torch.float16
+            for a, b in zip(after, params)):
+        raise RuntimeError(f"phase 15 decorate: {n_params} parameters, "
+                           f"{ {p.dtype for p in after} }")
+    for k, b in model.named_buffers():
+        if b.dtype != buffers[k].dtype or not torch.equal(b, buffers[k]):
+            raise RuntimeError(f"phase 15 decorate changed buffer {k}")
+    scaler = amp.GradScaler()
+    if scaler.state_dict() != {"scale": 2.0 ** 15, "incr_ratio": 2.0,
+                               "decr_ratio": 0.5, "incr_every_n_steps": 1000,
+                               "decr_every_n_nan_or_inf": 2,
+                               "good_steps": 0, "bad_steps": 0}:
+        raise RuntimeError(f"phase 15 scaler {scaler.state_dict()}")
+    rng = np.random.default_rng(0)
+    x = paddle.to_tensor(rng.standard_normal((256, 3, 224, 224))
+                         .astype(np.float32))
+    y = paddle.to_tensor(rng.integers(0, 1000, (256, 1)).astype(np.int64))
+    snap = [torch.empty_like(p) for p in params]
+
+    def step():
+        torch._foreach_copy_(snap, params)
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = F.cross_entropy(model(x), y)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        found = scaler._found_inf
+        scaler.update()
+        opt.clear_grad()
+        return loss, found
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, found, scales, skipped_equal = [], [], [], []
+    for i in range(AMP_FP16_ITERS):
+        if i == AMP_FP16_TIMED[0]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, f = step()
+        losses.append(loss)
+        found.append(f)
+        scales.append(scaler.get_loss_scaling())
+        if f:
+            skipped_equal.append(all(torch.equal(a, b)
+                                     for a, b in zip(snap, params)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (AMP_FP16_TIMED[1]
+                                       - AMP_FP16_TIMED[0]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    vals = [float(torch.Tensor.detach(v)) for v in losses]
+    taken = [v for v, f in zip(vals, found) if not f]
+    masters = {m.dtype for m in opt._master.values()}
+    if launched or not taken or not all(math.isfinite(v) for v in taken) \
+            or not taken[-1] < taken[0] or not all(skipped_equal) \
+            or scales != scale_rule(found) or masters != {torch.float32} \
+            or len(opt._master) != len(params):
+        raise RuntimeError(f"phase 15: launches {launched}, losses {vals}, "
+                           f"found_inf {found}, scales {scales}, skipped "
+                           f"steps bit-equal {skipped_equal}, masters "
+                           f"{masters} x{len(opt._master)}")
+
+    # a forced overflow: found, skipped, parameters bit-equal
+    state = dict(scaler.state_dict(), scale=1e30, good_steps=0, bad_steps=0)
+    scaler.load_state_dict(state)
+    _, f = step()
+    if not f or not all(torch.equal(a, b) for a, b in zip(snap, params)) \
+            or scaler.get_loss_scaling() != scale_rule([True], 1e30)[0]:
+        raise RuntimeError(f"phase 15 forced overflow: found {f}, scale "
+                           f"{scaler.get_loss_scaling()}")
+    scaler.load_state_dict(dict(state, scale=scales[-1]))
+
+    # unscale_: one device-to-host sync for the whole parameter set
+    with amp.auto_cast(level="O2", dtype="float16"):
+        loss = F.cross_entropy(model(x), y)
+    scaler.scale(loss).backward()
+    torch.cuda.synchronize()
+    reads = [0]
+    item = torch.Tensor.item
+
+    def counted(t, *a):
+        reads[0] += 1
+        return item(t, *a)
+    torch.Tensor.item = counted
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                scaler.unscale_(opt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.Tensor.item = item
+    where = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    syncs = len(where)
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    if syncs != 1 or reads[0] != 1:
+        raise RuntimeError(f"phase 15 unscale_: {syncs} syncs at {where}, "
+                           f"{reads[0]} reads")
+
+    prof = profile_kernels(torch, step, 2)
+    dev_ms = sum(us for us, _ in prof.values()) / 1e3
+    groups = dict.fromkeys(("conv", "batch_norm", "casts", "unscale",
+                            "optimizer", "other"), 0.0)
+    for k, (us, _) in prof.items():
+        groups[_amp_group(k)] += us / 1e3
+    top = "; ".join(f"{k[:70]} {us / 1e3:.3f}ms x{c:g}" for k, (us, c) in
+                    sorted(prof.items(), key=lambda kv: -kv[1][0])[:10])
+    bf16_ms = 256 / bf16_rec["value"] * 1e3
+    log(f"PHASE 15 float16 O2 dygraph loop [{power}]: ResNet-50 "
+        f"({n_params} parameters, float16 after decorate, fp32 masters "
+        f"x{len(opt._master)}), B=256 224x224 NCHW, Momentum(0.1), "
+        f"GradScaler() defaults, {AMP_FP16_ITERS} iterations: ms_per_step "
+        f"{ms:.3f} (steps {AMP_FP16_TIMED[0] + 1}-{AMP_FP16_TIMED[1]}, "
+        f"synchronized), {256 / ms * 1e3:.2f} images/s; losses "
+        f"{vals[0]:.4f} .. {vals[-1]:.4f} ({len(taken)} steps taken, "
+        f"{sum(found)} skipped, each skip bit-equal); found_inf "
+        f"{[int(f) for f in found]}, scales {scales[0]:g} .. "
+        f"{scales[-1]:g} equal to the update rule; forced overflow at "
+        f"1e30 found and skipped; unscale_ {syncs} device-to-host sync "
+        f"(sync debug mode), {reads[0]} Tensor.item; max_memory_allocated "
+        f"{peak} B; device ms per step (torch.profiler, 2 steps) "
+        f"{dev_ms:.3f}, busy share {dev_ms / ms:.3f}; by group " +
+        ", ".join(f"{k} {v:.3f}" for k, v in groups.items()) +
+        f"; top kernels per step: {top}; phase 14(c)'s bf16 compiled step "
+        f"in this run (NCHW): {bf16_ms:.3f} ms, {bf16_rec['value']} "
+        f"images/s (float16 / bf16 time {ms / bf16_ms:.3f}); no hand "
+        f"kernel launched; {time.perf_counter() - t_start:.3f}s")
+    del model, opt, scaler, x, y, snap, params, after, losses
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4790,9 +5075,14 @@ def main():
     t0 = time.perf_counter()
     phase_vision_parity(torch, np, power)
     phase_config1(torch, np, power)
-    phase_config2(torch, np, power, None)
+    bf16_rec = phase_config2(torch, np, power, None)
     phase_config2(torch, np, power, "NHWC")
     log(f"PHASE 14 took {time.perf_counter() - t0:.3f}s")
+
+    # phase 15: paddle's dygraph float16 O2 loop (decorate + GradScaler)
+    t0 = time.perf_counter()
+    phase_amp_fp16(torch, np, power, bf16_rec)
+    log(f"PHASE 15 took {time.perf_counter() - t0:.3f}s")
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

@@ -17,8 +17,9 @@ follow the JAX package so each counterpart is easy to find:
                             (`grad`, `no_grad`), dtypes, places,
                             `set_device` / `get_device`, seeds
   * `ops`                   the tensor function library (creation,
-                            math, manipulation, `einsum`, `where`), also
-                            at the top level and as `Tensor` methods
+                            math, manipulation, linalg, logic, search,
+                            stat, random, `einsum`), also at the top
+                            level and as `Tensor` methods
   * `ops.kernels`           hand-written CUDA kernels and their plain
                             PyTorch versions (`decode_attention`,
                             `quant_matmul`, `flash_attention`,
@@ -28,11 +29,12 @@ follow the JAX package so each counterpart is easy to find:
   * `inference.serve`       the PDI1/PDI2 decode server
   * `nn`, `amp`, `optimizer`, `io`, `static`, `distributed.fleet`, `hapi`
                             the training slice: layers and functionals,
-                            gradient clips, op-by-op AMP, SGD / Momentum /
-                            Adam / AdamW with LR schedulers, datasets, the
-                            strategy and its single-device train step,
-                            `Model.fit` / `evaluate` / `predict` / `save` /
-                            `load`
+                            gradient clips, op-by-op AMP with dynamic
+                            loss scaling (`GradScaler`, `decorate`), SGD /
+                            Momentum / Adam / AdamW with LR schedulers,
+                            datasets, the strategy and its single-device
+                            train step, `Model.fit` / `evaluate` /
+                            `predict` / `save` / `load`
   * `metric`, `regularizer` Accuracy / Precision / Recall / Auc; L1Decay /
                             L2Decay
   * `io.checkpoint`         format-2 checkpoint directories (atomic,
@@ -55,7 +57,8 @@ from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPinnedPlace,
                          TPUPlace, XPUPlace, device_count, get_device,
                          is_compiled_with_cuda, is_compiled_with_tpu,
                          set_device)
-from .core.random import get_rng_state, seed, set_rng_state
+from .core.random import (get_cuda_rng_state, get_rng_state, seed,
+                          set_cuda_rng_state, set_rng_state)
 from .core.tensor import (Parameter, Tensor, enable_grad, no_grad,
                           set_grad_enabled, to_tensor)
 from .core.autograd import grad

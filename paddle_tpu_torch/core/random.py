@@ -47,3 +47,13 @@ def set_rng_state(state):
     np.random.set_state(state["numpy"])
     if "cuda" in state:
         torch.cuda.set_rng_state_all(state["cuda"])
+
+
+def get_cuda_rng_state():
+    """paddle's name for the device generators' state: `get_rng_state`
+    (torch's CUDA generators with the rest)."""
+    return get_rng_state()
+
+
+def set_cuda_rng_state(state):
+    set_rng_state(state)

@@ -164,7 +164,7 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1):
     y = torch.softmax((a + g) / temperature, dim=axis)
     if hard:
         onehot = torch.zeros_like(y).scatter_(
-            axis, y.argmax(axis, keepdim=True), 1.0)
+            axis, torch.argmax(y, axis, keepdim=True), 1.0)
         y = onehot + y - y.detach()
     return y
 

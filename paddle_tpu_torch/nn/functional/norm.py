@@ -91,8 +91,8 @@ def _batch_norm_ops(a32, s32, running_mean, running_var, w, b, use_batch,
     in training, else the running buffers, normalizing `a32`."""
     if use_batch:
         dims = [d for d in range(s32.dim()) if d != 1]
-        mean = s32.mean(dims)
-        var = s32.var(dims, unbiased=False)
+        mean = torch.mean(s32, dims)
+        var = torch.var(s32, dims, unbiased=False)
         with torch.no_grad():
             if running_mean is not None:
                 running_mean.copy_(momentum * running_mean.float()

@@ -2,22 +2,26 @@
 dunders (port of paddle_tpu's `ops/_bind.py`).
 
 Every library function whose first argument is a tensor becomes a method,
-with the JAX package's `_SKIP` set; a name the `Tensor` class defines
-itself (`astype`, `clone`, `numel`, `tolist`, ...) stays. Where torch has
-a method of the same name, a `Tensor` gets paddle's (``x.transpose([1,
-0])``, ``x.split(2)``, ``x.max(axis=1)``); a `Parameter` keeps torch's.
-The comparison dunders cast and dispatch under the jnp names the JAX
-package's `ops.logic` uses ("equal", "less", ...), `@` as "matmul".
+from the JAX package's list of modules with its `_SKIP` set; a name the
+`Tensor` class defines itself (`astype`, `clone`, `numel`, `tolist`,
+`rank`, ...) stays. Where torch has a method of the same name, a `Tensor`
+gets paddle's (``x.transpose([1, 0])``, ``x.split(2)``, ``x.max(axis=1)``,
+``x.argmax(-1)``, ``x.sort()``, ``x.norm(p=1)``, ``x.uniform_(min=0.)``);
+a `Parameter` keeps torch's, which `torch.nn.init` and torch's own code
+call (``param.uniform_(a, b, generator=g)``). The dunders call the
+library: `@` is `linalg.matmul`, the comparisons and bitwise operators
+`ops.logic`'s functions.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.tensor import Tensor, TensorMixin
-from . import creation, manipulation, math, search
-from ._dispatch import as_t, cast_in, out
+from . import (creation, linalg, logic, manipulation, math, random, search,
+               stat)
 
-_METHOD_SOURCES = [math, manipulation, search, creation]
+_METHOD_SOURCES = [math, manipulation, linalg, logic, search, stat, creation,
+                   random]
 
 _SKIP = {
     "zeros", "ones", "full", "arange", "linspace", "logspace", "eye", "empty",
@@ -47,31 +51,6 @@ def _binary_dunder(fn, reverse=False):
     return op
 
 
-def _operand(v, like):
-    return v if isinstance(v, (torch.Tensor, bool, int, float)) \
-        else as_t(v, like)
-
-
-def _tensor_op(jname, tfn):
-    """A binary op of a tensor and a tensor, scalar or array (an array
-    becomes a tensor on the other operand's device)."""
-    def op(x, y):
-        like = x if isinstance(x, torch.Tensor) else y
-        a, b = cast_in(jname, _operand(x, like), _operand(y, like))
-        return out(tfn(a, b), x, y)
-    return op
-
-
-def _invert(x):
-    if x.dtype == torch.bool:
-        (a,) = cast_in("logical_not", x)
-        return out(torch.logical_not(a), x)
-    (a,) = cast_in("bitwise_not", x)
-    return out(torch.bitwise_not(a), x)
-
-
-_matmul = _tensor_op("matmul", torch.matmul)
-
 Tensor.__add__ = _binary_dunder(math.add)
 Tensor.__radd__ = _binary_dunder(math.add, True)
 Tensor.__sub__ = _binary_dunder(math.subtract)
@@ -86,19 +65,20 @@ Tensor.__mod__ = _binary_dunder(math.remainder)
 Tensor.__rmod__ = _binary_dunder(math.remainder, True)
 Tensor.__pow__ = _binary_dunder(math.pow)
 Tensor.__rpow__ = _binary_dunder(math.pow, True)
-Tensor.__matmul__ = _binary_dunder(_matmul)
-Tensor.__rmatmul__ = _binary_dunder(_matmul, True)
+Tensor.__matmul__ = _binary_dunder(linalg.matmul)
+Tensor.__rmatmul__ = _binary_dunder(linalg.matmul, True)
 Tensor.__neg__ = lambda self: math.neg(self)
 Tensor.__abs__ = lambda self: math.abs(self)
-Tensor.__invert__ = _invert
-Tensor.__and__ = _binary_dunder(_tensor_op("bitwise_and", torch.bitwise_and))
-Tensor.__or__ = _binary_dunder(_tensor_op("bitwise_or", torch.bitwise_or))
-Tensor.__xor__ = _binary_dunder(_tensor_op("bitwise_xor", torch.bitwise_xor))
-Tensor.__eq__ = _binary_dunder(_tensor_op("equal", torch.eq))
-Tensor.__ne__ = _binary_dunder(_tensor_op("not_equal", torch.ne))
-Tensor.__lt__ = _binary_dunder(_tensor_op("less", torch.lt))
-Tensor.__le__ = _binary_dunder(_tensor_op("less_equal", torch.le))
-Tensor.__gt__ = _binary_dunder(_tensor_op("greater", torch.gt))
-Tensor.__ge__ = _binary_dunder(_tensor_op("greater_equal", torch.ge))
+Tensor.__invert__ = lambda self: logic.logical_not(self) \
+    if self.dtype == torch.bool else logic.bitwise_not(self)
+Tensor.__and__ = _binary_dunder(logic.bitwise_and)
+Tensor.__or__ = _binary_dunder(logic.bitwise_or)
+Tensor.__xor__ = _binary_dunder(logic.bitwise_xor)
+Tensor.__eq__ = _binary_dunder(logic.equal)
+Tensor.__ne__ = _binary_dunder(logic.not_equal)
+Tensor.__lt__ = _binary_dunder(logic.less_than)
+Tensor.__le__ = _binary_dunder(logic.less_equal)
+Tensor.__gt__ = _binary_dunder(logic.greater_than)
+Tensor.__ge__ = _binary_dunder(logic.greater_equal)
 Tensor.__hash__ = torch.Tensor.__hash__   # __eq__ would otherwise drop it
 

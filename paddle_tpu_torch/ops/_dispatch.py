@@ -11,7 +11,8 @@ from ..core import dtype as dtype_mod
 from ..core.tensor import Tensor, paddle_out
 
 __all__ = ["cast_in", "as_t", "out", "axes", "inexact", "to_inexact",
-           "float_scalar", "np_int", "is_int_like"]
+           "float_scalar", "np_int", "is_int_like", "pair", "operands",
+           "promote"]
 
 out = paddle_out
 
@@ -76,3 +77,31 @@ def np_int(v):
 def is_int_like(t):
     return isinstance(t, torch.Tensor) and not dtype_mod.is_inexact(t.dtype)
 
+
+def pair(x, y):
+    """Both operands of a binary op as torch takes them: tensors, or a
+    Python scalar beside a tensor (an integer tensor beside a float is
+    float64)."""
+    if isinstance(x, torch.Tensor):
+        if not isinstance(y, (torch.Tensor, bool, int, float, complex)):
+            y = as_t(y, x)
+        return float_scalar(x, y), y
+    if isinstance(y, torch.Tensor):
+        if not isinstance(x, (bool, int, float, complex)):
+            x = as_t(x, y)
+        return x, float_scalar(y, x)
+    return as_t(x), y
+
+
+def operands(x, y):
+    """Both operands as tensors: an array or scalar on the other's
+    device."""
+    a = as_t(x, y if isinstance(y, torch.Tensor)
+             and not isinstance(x, torch.Tensor) else None)
+    return a, as_t(y, a)
+
+
+def promote(a, b):
+    """Two tensors in their common dtype (torch's promotion)."""
+    dt = torch.result_type(a, b)
+    return a.to(dt), b.to(dt)

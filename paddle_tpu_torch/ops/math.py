@@ -18,6 +18,7 @@ import torch
 from ..core import dtype as dtype_mod
 from ._dispatch import (as_t, axes, cast_in, float_scalar, inexact,
                         is_int_like, out, to_inexact)
+from ._dispatch import pair as _pair
 
 __all__ = [
     "add", "subtract", "multiply", "divide", "floor_divide", "remainder",
@@ -33,20 +34,6 @@ __all__ = [
     "rad2deg", "deg2rad", "gcd", "lcm", "angle", "conj", "real", "imag",
     "heaviside", "frac", "sgn", "diff", "count_nonzero",
 ]
-
-
-def _pair(x, y):
-    """Both operands as torch takes them: tensors, or a Python scalar
-    beside a tensor (an integer tensor beside a float is float64)."""
-    if isinstance(x, torch.Tensor):
-        if not isinstance(y, (torch.Tensor, bool, int, float, complex)):
-            y = as_t(y, x)
-        return float_scalar(x, y), y
-    if isinstance(y, torch.Tensor):
-        if not isinstance(x, (bool, int, float, complex)):
-            x = as_t(x, y)
-        return x, float_scalar(y, x)
-    return as_t(x), y
 
 
 def _binary(jname, tfn):

@@ -380,6 +380,37 @@ def test_methods_are_the_library():
         assert name not in vars(tp.Tensor)
 
 
+def test_functionals_read_paddle_tensors_as_plain():
+    """Inside the port's functionals a paddle `Tensor` may reach a torch
+    method call that the library rebinds (`var`, `argmax`, `mean`): they
+    call torch's functions, so F.batch_norm and F.gumbel_softmax(hard=
+    True) give on paddle Tensors what they give on plain tensors, through
+    the `nn.functional` namespace and called directly."""
+    from paddle_tpu_torch.nn.functional import activation, norm
+    import paddle_tpu_torch.nn.functional as F
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 3, 5, 5)).astype(np.float32)
+    plain = torch.from_numpy(x)
+    for fn in (F.batch_norm, norm.batch_norm):
+        got = []
+        for t in (tp.to_tensor(x), plain):
+            rm, rv = torch.zeros(3), torch.ones(3)
+            y = fn(t, rm, rv, torch.ones(3), torch.zeros(3), training=True)
+            got.append((torch.Tensor.detach(y).numpy(), rm.numpy(),
+                        rv.numpy()))
+        for a, b in zip(*got):
+            np.testing.assert_array_equal(a, b)
+    logits = rng.standard_normal((6, 7)).astype(np.float32)
+    for fn in (F.gumbel_softmax, activation.gumbel_softmax):
+        got = []
+        for t in (tp.to_tensor(logits), torch.from_numpy(logits)):
+            tp.seed(3)
+            got.append(torch.Tensor.detach(fn(t, 0.5, hard=True)).numpy())
+        np.testing.assert_array_equal(*got)
+        np.testing.assert_allclose(got[0].sum(-1), np.ones(6), rtol=1e-6)
+        assert np.array_equal((got[0] > 0.5).sum(-1), np.ones(6))
+
+
 # -- places and devices -----------------------------------------------------------
 
 def test_places_match_jax():
