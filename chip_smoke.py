@@ -304,10 +304,45 @@ Phases, in order; any failure raises and the script exits non-zero:
      skipped, one device-to-host sync in `unscale_`, no hand kernel; ms
      per step over steps 6-25, images/s, peak memory, a step's device
      time by kernel group and busy share, beside 14(c)'s bf16 step;
- 16. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 16. the training input path and the rest of the trainer's surface:
+     (a) paddle's ImageNet recipe at config 2's width: 2048 seeded uint8
+     256x256x3 .npy images in 16 class folders, `vision.datasets.
+     DatasetFolder(loader=np.load)` with RandomResizedCrop(224) +
+     RandomHorizontalFlip + Normalize(HWC) + Transpose, `io.DataLoader(
+     batch_size=256, shuffle, drop_last, num_workers=min(8, cores - 2),
+     persistent_workers)` (spawned workers, shared memory; /dev/shm's free
+     space printed and required first), `resnet50()` under AMP O2 bf16
+     with Lars(0.1, multi_precision) through `Model.fit`: 2 epochs with
+     `prefetch_device=True`, one without, one with num_workers=0; for each
+     run every batch the step received against the host batch the loader
+     gave (labels exactly, a float64 sum of the images within
+     PIPE_SUM_REL; the host batches are kept and summed after the fit),
+     finite losses, no host sync in a train step (torch's sync debug mode
+     "error" around each), and the last epoch's images/s, ms per step,
+     the loop's wait for its batches, busy share and device ms by group
+     (torch.profiler) and peak memory; after the fits no worker process
+     alive and no loader segment in /dev/shm; one narrow Lars step on the
+     card against the CPU (OPT_CARD_REL); (b) GPT-2 124M on bench.py's
+     path (B=16, T=1024, AMP O2) with Lamb(lamb_weight_decay=0.01) through
+     `Model.fit` over a 2-worker DataLoader with prefetch, MetricsLogger
+     and VisualDL (persistent workers): flash launches 12 x steps for each
+     kernel, finite falling losses on repeated windows, no host sync in a
+     train step,
+     MetricsLogger's JSON lines with hbm_bytes_in_use, ms per step, the
+     Lamb update's device us beside Adam's on the same parameters, peak
+     memory, and a narrow Lamb step card vs CPU; (c) RMSProp (plain and
+     centered), Adagrad, Adadelta, Adamax and a bf16 Lars with fp32
+     masters, one narrow step each on the card against the CPU; (d)
+     `paddle.summary(resnet50(), (1, 3, 224, 224))` on the card (25,557,032
+     parameters) and `paddle.flops` equal to the CPU's; (e) run.py config
+     1's LeNet fit with prefetch_device on and off in turns; and before
+     (a)'s fits, the host's part of a batch timed in-process (loading and
+     transforming an image, and one batch's shared-memory, pinning and
+     sum costs);
+ 17. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
      fused backward; rows 5-8 carry phase 12's shape under "ernie");
- 17. last line {"ok": true, "device": {...}}.
+ 18. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -4908,6 +4943,611 @@ def phase_amp_fp16(torch, np, power, bf16_rec):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 16
+
+# the training input path: paddle's ImageNet recipe at config 2's width
+PIPE_IMAGES, PIPE_CLASSES, PIPE_HW, PIPE_CROP = 2048, 16, 256, 224
+PIPE_B = 256
+PIPE_MEAN = [123.675, 116.28, 103.53]
+PIPE_STD = [58.395, 57.12, 57.375]
+# a float64 sum of a batch's fp32 images, taken on the host from the
+# loader's batch and on the card from the step's: the same values summed
+# in two orders, so the sums agree to far better than fp32's 2^-24 a term
+PIPE_SUM_REL = 1e-6
+OPT_CARD_REL = 1e-4         # one narrow optimizer step, card vs CPU
+# GPT-2 124M on bench.py's path with Lamb: batch, sequence, GPTConfig
+# overrides (none: GPT-2 124M)
+LAMB_B, LAMB_T, LAMB_CFG = 16, 1024, {}
+
+
+def _opt_card_vs_cpu(torch, np, build, dtype="float32", steps=1):
+    """`build(params)`'s update on the card against the CPU over `steps`
+    steps of seeded gradients: narrow tensors (a zero one among them, whose
+    Lamb trust / Lars local lr is 1), fp32 (or bf16 parameters, whose fp32
+    masters are compared). Returns the worst difference over the largest
+    value, per tensor."""
+    rng = np.random.default_rng(0)
+    shapes = [(64, 48), (48,), (16, 3, 3, 3), (16,), (10,)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    init[-1][:] = 0.0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(
+            dev, getattr(torch, dtype))) for a in init]
+        o = build(ps)
+        for s in range(steps):
+            g = np.random.default_rng(10 + s)
+            for p, a in zip(ps, init):
+                p.grad = torch.from_numpy((g.standard_normal(a.shape) * 0.7)
+                                          .astype(np.float32)).to(dev,
+                                                                  p.dtype)
+            o.step()
+        vals = [o._master.get(id(p), p) for p in ps]
+        out[dev] = [v.detach().float().cpu().numpy() for v in vals]
+    return max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                1e-30)
+               for a, b in zip(out["cuda"], out["cpu"]))
+
+
+def _pipe_group(name):
+    """The group of a profiled kernel of an input-pipeline step (14(c)'s
+    groups, and the host-to-device copies)."""
+    low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "memcpy"
+    if any(w in low for w in ("batch_norm", "batchnorm", "bn_fw", "bn_bw")):
+        return "batch_norm"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "layout"
+    if any(w in low for w in ("conv", "dgrad", "wgrad", "fprop", "cudnn")):
+        return "conv"
+    if any(w in low for w in ("gemm", "cutlass", "nvjet")):
+        return "gemm"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer"
+    return "other"
+
+
+def _device_us(torch, prof):
+    """{kernel or copy name: device us} of a finished profiler."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            out[ev.key] = out.get(ev.key, 0.0) + us
+    return out
+
+
+class _FitWatch:
+    """Callbacks of a phase-16 fit (built on hapi's Callback at run time):
+    the sync gate around every train step (torch's sync debug mode set to
+    "error" from batch begin to batch end, as phase 11), and the last
+    epoch timed on the host clock between two synchronizes with the
+    card's kernels and copies recorded by torch.profiler (device
+    activity only)."""
+
+    @staticmethod
+    def make(torch, Callback, last_epoch):
+        from torch.profiler import ProfilerActivity, profile
+
+        class Watch(Callback):
+            def __init__(self):
+                super().__init__()
+                self.steps, self.wall, self.dev = 0, None, {}
+                self.losses = []
+                self._prof = None
+
+            def on_epoch_begin(self, epoch, logs=None):
+                if epoch == last_epoch:
+                    torch.cuda.synchronize()
+                    self._prof = profile(activities=[ProfilerActivity.CUDA])
+                    self._prof.start()
+                    self._t0 = time.perf_counter()
+
+            def on_train_batch_begin(self, step, logs=None):
+                torch.cuda.set_sync_debug_mode("error")
+
+            def on_train_batch_end(self, step, logs=None):
+                torch.cuda.set_sync_debug_mode(0)
+                self.losses.append(logs["loss"])      # read after the fit
+                if self._prof is not None:
+                    self.steps += 1
+
+            def on_epoch_end(self, epoch, logs=None):
+                if self._prof is not None:
+                    torch.cuda.synchronize()
+                    self.wall = time.perf_counter() - self._t0
+                    t0 = time.perf_counter()
+                    self._prof.stop()
+                    self.dev = _device_us(torch, self._prof)
+                    self.prof_s = time.perf_counter() - t0
+                    self._prof = None
+        return Watch()
+
+
+def _recording_loader(io):
+    """A DataLoader that keeps every host batch it produces, before it is
+    placed, so that the batches can be summed after the fit, off its
+    clock."""
+    class Loader(io.DataLoader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.produced = []
+
+        def _host_iter(self):
+            for batch in super()._host_iter():
+                self.produced.append(batch)
+                yield batch
+    return Loader
+
+
+def _write_image_folders(np, root):
+    rng = np.random.default_rng(0)
+    per = PIPE_IMAGES // PIPE_CLASSES
+    for c in range(PIPE_CLASSES):
+        d = os.path.join(root, f"class_{c:02d}")
+        os.makedirs(d)
+        imgs = rng.integers(0, 256, (per, PIPE_HW, PIPE_HW, 3),
+                            dtype=np.uint8)
+        for i in range(per):
+            np.save(os.path.join(d, f"{i:04d}.npy"), imgs[i])
+
+
+def _host_costs(torch, np, ds, power, images=64):
+    """The host's part of a batch, timed in this process: loading and
+    transforming an image (what each worker does), and for one batch of
+    the phase's size the copies the loader makes (into fresh shared
+    memory, out of it, into pinned memory, first and cached) and the
+    gate's float64 sum."""
+    from multiprocessing import shared_memory
+    t0 = time.perf_counter()
+    for i in range(images):
+        ds[i]
+    load_ms = (time.perf_counter() - t0) / images * 1e3
+    x = np.full((PIPE_B, 3, PIPE_CROP, PIPE_CROP), 0.5, np.float32)
+    seg = shared_memory.SharedMemory(create=True, size=x.nbytes)
+    try:
+        view = np.ndarray(x.shape, x.dtype, buffer=seg.buf)
+        t0 = time.perf_counter()
+        view[...] = x
+        t_in = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y = view.copy()
+        t_out = time.perf_counter() - t0
+    finally:
+        del view
+        seg.close()
+        seg.unlink()
+    pins = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        torch.from_numpy(y).pin_memory()
+        pins.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    np.sum(y, dtype=np.float64)
+    t_sum = time.perf_counter() - t0
+    log(f"PHASE 16(a) host [{power}]: np.load + transform {load_ms:.3f} ms "
+        f"an image in one process ({images} images); a {x.nbytes} B batch: "
+        f"into fresh shared memory {t_in * 1e3:.1f} ms, out of it "
+        f"{t_out * 1e3:.1f}, into pinned memory {pins[0] * 1e3:.1f} (first)"
+        f" / {pins[1] * 1e3:.1f} (cached), the gate's float64 sum "
+        f"{t_sum * 1e3:.1f}")
+
+
+def phase_lenet_prefetch(torch, np, power):
+    """Phase 16(e): run.py config 1's LeNet fit (n=8192, B=256, Adam) with
+    `prefetch_device` on and off in turns (on, off, off, on), each fit
+    synchronized: what the feeder thread costs a host-bound step."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.vision.models import LeNet
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    n, B = 8192, 256
+    rng = np.random.default_rng(0)
+    ds = TensorDataset([rng.normal(size=(n, 1, 28, 28)).astype(np.float32),
+                        rng.integers(0, 10, (n, 1)).astype(np.int64)])
+    model = Model(LeNet())
+    model.prepare(opt.Adam(learning_rate=1e-3,
+                           parameters=model.parameters()),
+                  paddle.nn.CrossEntropyLoss())
+    model.fit(ds, epochs=1, batch_size=B, verbose=0)
+    rates = {True: [], False: []}
+    for prefetch in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(ds, epochs=1, batch_size=B, verbose=0,
+                  prefetch_device=prefetch)
+        torch.cuda.synchronize()
+        rates[prefetch].append(n / (time.perf_counter() - t0))
+    log(f"PHASE 16(e) LeNet fit [{power}] n={n}, B={B}: samples/s with "
+        f"prefetch_device {[round(r, 1) for r in rates[True]]}, without "
+        f"{[round(r, 1) for r in rates[False]]} (turns: on, off, off, on)")
+
+
+def _shm_segments(dl_mod):
+    prefix = dl_mod.SHM_PREFIX + f"{os.getpid()}_"
+    return [n for n in os.listdir("/dev/shm") if n.startswith(prefix)]
+
+
+def phase_input_resnet(torch, np, power):
+    """Phase 16(a): ResNet-50 fed by the worker DataLoader with device
+    prefetch, paddle's ImageNet recipe at config 2's width."""
+    import gc
+    import multiprocessing as mp
+    import shutil
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.io as io
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import dataloader as dl_mod
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    t_phase = time.perf_counter()
+    workers = min(8, (os.cpu_count() or 1) - 2)
+    batch_bytes = PIPE_B * 3 * PIPE_CROP * PIPE_CROP * 4
+    need = (workers * 2 + 2) * batch_bytes
+    free = shutil.disk_usage("/dev/shm").free
+    log(f"PHASE 16 input pipeline: {workers} workers (min(8, cpu_count "
+        f"{os.cpu_count()} - 2)); /dev/shm free {free} B, a batch "
+        f"{batch_bytes} B, need {need} B")
+    if free < need:
+        raise RuntimeError(f"phase 16: /dev/shm has {free} B free, the "
+                           f"loader needs {need} B for {workers} workers x "
+                           f"prefetch_factor 2 batches of {batch_bytes} B")
+
+    # a narrow Lars step on the card against the CPU, first
+    lars_err = _opt_card_vs_cpu(torch, np, lambda P: opt.Lars(
+        0.1, momentum=0.9, lars_coeff=0.001, lars_weight_decay=5e-4,
+        parameters=P), steps=2)
+    if not lars_err <= OPT_CARD_REL:
+        raise RuntimeError(f"phase 16 Lars card vs cpu {lars_err}")
+
+    class Seen(nn.Layer):
+        """The network, recording a float64 sum of each batch of images
+        it receives (left on the card)."""
+
+        def __init__(self, net):
+            super().__init__()
+            self.net, self.sums = net, []
+
+        def forward(self, x):
+            self.sums.append(torch.sum(torch.Tensor.detach(x),
+                                       dtype=torch.float64))
+            return self.net(x)
+
+    class SeenLoss(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ce, self.labels = nn.CrossEntropyLoss(), []
+
+        def forward(self, logits, y):
+            self.labels.append(torch.Tensor.detach(y).clone())
+            return self.ce(logits, y)
+
+    Loader = _recording_loader(io)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _write_image_folders(np, root)
+        write_s = time.perf_counter() - t0
+        tf = T.Compose([T.RandomResizedCrop(PIPE_CROP),
+                        T.RandomHorizontalFlip(),
+                        T.Normalize(mean=PIPE_MEAN, std=PIPE_STD,
+                                    data_format="HWC"),
+                        T.Transpose()])
+        ds = datasets.DatasetFolder(root, loader=np.load,
+                                    extensions=(".npy",), transform=tf)
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        net = Seen(resnet50())
+        loss = SeenLoss()
+        model = Model(net)
+        s = DistributedStrategy()
+        s.amp = True
+        s.amp_configs.use_pure_bf16 = True
+        lars = opt.Lars(0.1, momentum=0.9, lars_coeff=0.001,
+                        lars_weight_decay=5e-4, multi_precision=True,
+                        parameters=model.parameters())
+        model.prepare(lars, loss=loss, strategy=s)
+        log(f"PHASE 16(a) setup: {PIPE_IMAGES} seeded uint8 {PIPE_HW}x"
+            f"{PIPE_HW}x3 .npy images in {PIPE_CLASSES} class folders "
+            f"written in {write_s:.3f}s; DatasetFolder({len(ds)} samples, "
+            f"RandomResizedCrop({PIPE_CROP}) + RandomHorizontalFlip + "
+            f"Normalize(HWC) + Transpose); resnet50() + Lars(0.1, momentum "
+            f"0.9, lars_coeff 0.001, lars_weight_decay 5e-4, "
+            f"multi_precision) + CrossEntropyLoss, AMP O2 bf16; narrow Lars "
+            f"step card vs cpu {lars_err:.3e} (gate {OPT_CARD_REL})")
+
+        _host_costs(torch, np, ds, power)
+        loader = Loader(ds, batch_size=PIPE_B, shuffle=True, drop_last=True,
+                        num_workers=workers, persistent_workers=True,
+                        timeout=600)
+        runs = [("workers, prefetch", loader, 2, True),
+                ("workers, no prefetch", loader, 1, False),
+                ("num_workers=0, prefetch", Loader(
+                    ds, batch_size=PIPE_B, shuffle=True, drop_last=True),
+                 1, True)]
+        results = []
+        for name, ld, epochs, prefetch in runs:
+            net.sums.clear()
+            loss.labels.clear()
+            ld.produced.clear()
+            watch = _FitWatch.make(torch, Callback, epochs - 1)
+            torch.cuda.reset_peak_memory_stats()
+            np.random.seed(1)
+            t0 = time.perf_counter()
+            try:
+                model.fit(ld, epochs=epochs, verbose=0,
+                          prefetch_device=prefetch, callbacks=[watch])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            fit_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            # every batch the step received is the one the loader gave
+            got = [(float(a.cpu()), b.cpu().numpy())
+                   for a, b in zip(net.sums, loss.labels)]
+            want = [(float(np.sum(x, dtype=np.float64)), y)
+                    for x, y in ld.produced]
+            ld.produced.clear()
+            steps = len(want)
+            if steps != len(got) or steps != epochs * (len(ds) // PIPE_B):
+                raise RuntimeError(f"phase 16(a) {name}: {len(got)} steps "
+                                   f"received, {steps} batches produced")
+            worst = 0.0
+            for i, ((gs, gl), (ws, wl)) in enumerate(zip(got, want)):
+                if not np.array_equal(gl, wl):
+                    raise RuntimeError(f"phase 16(a) {name}: batch {i}'s "
+                                       f"labels differ from the loader's")
+                worst = max(worst, abs(gs - ws) / max(abs(ws), 1e-30))
+            if not worst <= PIPE_SUM_REL:
+                raise RuntimeError(f"phase 16(a) {name}: image sums off the "
+                                   f"loader's by {worst} of their size")
+            vals = [float(x) for x in watch.losses]
+            if len(vals) != steps or not all(math.isfinite(v) for v in vals):
+                raise RuntimeError(f"phase 16(a) {name}: losses {vals}")
+            waits = model.batch_wait_s[-watch.steps:]
+            kern = {k: v for k, v in watch.dev.items()
+                    if _pipe_group(k) != "memcpy"}
+            groups = {}
+            for k, us in watch.dev.items():
+                g = _pipe_group(k)
+                groups[g] = groups.get(g, 0.0) + us / 1e3 / watch.steps
+            busy = sum(kern.values()) / 1e6 / watch.wall
+            ms = watch.wall * 1e3 / watch.steps
+            ips = PIPE_B * watch.steps / watch.wall
+            results.append((name, ips, ms))
+            log(f"PHASE 16(a) {name} [{power}]: Model.fit epochs={epochs}, "
+                f"{steps} steps in {fit_s:.3f}s; last epoch {watch.steps} "
+                f"steps in {watch.wall:.3f}s: {ips:.1f} images/s, "
+                f"ms_per_step {ms:.3f}; the loop's wait for a batch "
+                f"{sum(waits) * 1e3:.3f} ms in all (the epoch's first "
+                f"{waits[0] * 1e3:.3f}), "
+                f"{np.mean(waits) * 1e3:.3f} mean, {max(waits) * 1e3:.3f} "
+                f"max, "
+                f"{sum(waits) / watch.wall:.3f} of the epoch; losses "
+                f"{vals[0]:.4f} .. {vals[-1]:.4f}; busy share "
+                f"(kernels, copies left out) {busy:.3f}; device ms per step "
+                f"by group " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                    groups.items())) + f"; max_memory_allocated {peak} B; "
+                f"batches equal to the loader's: labels exactly, image sums "
+                f"within {worst:.3e} (gate {PIPE_SUM_REL}); no host sync in "
+                f"a train step; the profiler's stop and tally "
+                f"{watch.prof_s:.3f}s, after the epoch's clock")
+        del loader, runs, ld, watch
+        gc.collect()
+        t0 = time.perf_counter()
+        while mp.active_children() and time.perf_counter() - t0 < 30:
+            time.sleep(0.1)
+        alive, left = mp.active_children(), _shm_segments(dl_mod)
+        if alive or left:
+            raise RuntimeError(f"phase 16(a): after the fits, workers "
+                               f"{alive} alive, segments {left} left")
+    log(f"PHASE 16(a) [{power}]: images/s " + ", ".join(
+        f"{n} {ips:.1f} ({ms:.3f} ms a step)" for n, ips, ms in results)
+        + f"; no worker process alive and no loader segment in /dev/shm "
+        f"after the fits; {time.perf_counter() - t_phase:.3f}s")
+    del model, net, lars
+    torch.cuda.empty_cache()
+
+
+def phase_input_gpt_lamb(torch, np, power):
+    """Phase 16(b): GPT-2 124M on bench.py's path (B=16, T=1024, AMP O2)
+    with Lamb, fed by a 2-worker DataLoader with device prefetch, logging
+    through MetricsLogger and VisualDL."""
+    import gc
+    import json as json_mod
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.io as io
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi import callbacks as hapi_cbks
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.models.gpt import init_params_numpy
+    from paddle_tpu_torch.static import InputSpec
+
+    t_phase = time.perf_counter()
+    lamb_err = _opt_card_vs_cpu(torch, np, lambda P: opt.Lamb(
+        2e-2, lamb_weight_decay=0.01, parameters=P), steps=2)
+    if not lamb_err <= OPT_CARD_REL:
+        raise RuntimeError(f"phase 16 Lamb card vs cpu {lamb_err}")
+    cfg = GPTConfig(**LAMB_CFG)
+    B, T, reps, epochs = LAMB_B, LAMB_T, 6, 2
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    gpt = GPT(cfg).load_numpy(init_params_numpy(cfg, seed=0))
+
+    class LMLoss(nn.Layer):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ids, labels):
+            return self.m.loss(ids, labels)
+
+    model = Model(LMLoss(gpt), inputs=[InputSpec([None, T], "int32"),
+                                       InputSpec([None, T], "int32")])
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs.use_pure_bf16 = True
+    lamb = opt.Lamb(lamb_weight_decay=0.01, parameters=model.parameters())
+    model.prepare(lamb, strategy=s)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (B, T), dtype=np.int32)
+    labels = np.concatenate([ids[:, 1:], ids[:, :1]], axis=1)
+    # B token windows repeated: the losses must fall
+    data = io.TensorDataset([np.tile(ids, (reps, 1)),
+                             np.tile(labels, (reps, 1))])
+    loader = io.DataLoader(data, batch_size=B, shuffle=True, num_workers=2,
+                           persistent_workers=True, timeout=600)
+    watch = _FitWatch.make(torch, hapi_cbks.Callback, epochs - 1)
+    with tempfile.TemporaryDirectory() as td:
+        mpath = os.path.join(td, "metrics.jsonl")
+        cbs = [watch, hapi_cbks.MetricsLogger(log_freq=2, path=mpath),
+               hapi_cbks.VisualDL(log_dir=os.path.join(td, "vdl"))]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        np.random.seed(2)
+        t0 = time.perf_counter()
+        try:
+            model.fit(loader, epochs=epochs, verbose=0, callbacks=cbs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        fit_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(mpath) as f:
+            lines = [json_mod.loads(ln) for ln in f]
+        with open(os.path.join(td, "vdl", "scalars.tsv")) as f:
+            tsv = f.read().splitlines()
+    steps = reps * epochs
+    vals = [float(x) for x in watch.losses]
+    if len(vals) != steps or not all(math.isfinite(v) for v in vals) \
+            or not vals[-1] < vals[0]:
+        raise RuntimeError(f"phase 16(b) losses {vals}")
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_fwd": cfg.layers * steps,
+                 "flash_attention_bwd_dq": cfg.layers * steps,
+                 "flash_attention_bwd_dkv": cfg.layers * steps})
+    if counts != want:
+        raise RuntimeError(f"phase 16(b) launches {counts} != {want}")
+    hbm = [ln.get("hbm_bytes_in_use", {}).get("cuda:0") for ln in lines]
+    if len(lines) != steps // 2 + epochs or not all(
+            isinstance(h, int) and h > 0 for h in hbm) \
+            or len(tsv) != 1 + 3 * steps:
+        raise RuntimeError(f"phase 16(b) MetricsLogger {lines}, VisualDL "
+                           f"{len(tsv)} lines")
+    ms = watch.wall * 1e3 / watch.steps
+    waits = model.batch_wait_s[-watch.steps:]
+    busy_ms = (watch.wall - sum(waits)) * 1e3 / watch.steps
+    # the optimizer updates alone, on the gradients of the last step
+    params = model.parameters()
+    lr = lamb.get_lr()
+    adam = opt.Adam(learning_rate=1e-4, parameters=params)
+    with torch.no_grad():
+        lamb_us = sum(us for us, _ in profile_kernels(
+            torch, lambda: lamb._update(lr), 3).values())
+        adam._update(1e-4)                   # its moments, made once
+        adam_us = sum(us for us, _ in profile_kernels(
+            torch, lambda: adam._update(1e-4), 3).values())
+    step_us = sum(watch.dev.values()) / watch.steps
+    log(f"PHASE 16(b) GPT-2 124M + Lamb [{power}] B={B} T={T} AMP O2, "
+        f"io.DataLoader(TensorDataset, shuffle, num_workers=2) + device "
+        f"prefetch (persistent workers), MetricsLogger + VisualDL: {steps} "
+        f"steps in "
+        f"{fit_s:.3f}s, losses {[round(v, 4) for v in vals]}; last epoch "
+        f"ms_per_step {ms:.3f} (VisualDL reads every loss), less the "
+        f"loop's waits {busy_ms:.3f}, device ms a "
+        f"step {step_us / 1e3:.3f}; the loop's wait for the epoch's first "
+        f"batch {waits[0] * 1e3:.3f} ms, for the others "
+        f"{np.mean(waits[1:]) * 1e3:.3f} ms mean, the workers' start (the "
+        f"first epoch's first batch) {model.batch_wait_s[0]:.3f} s; "
+        f"Lamb update device us {lamb_us:.1f} beside phase 7's Adam update "
+        f"on the same parameters {adam_us:.1f}; max_memory_allocated {peak}"
+        f" B; launches {counts} (= 12 x {steps}); MetricsLogger "
+        f"{len(lines)} JSON lines, hbm_bytes_in_use {hbm[-1]} B; narrow "
+        f"Lamb step card vs cpu {lamb_err:.3e} (gate {OPT_CARD_REL}); no "
+        f"host sync in a train step; {time.perf_counter() - t_phase:.3f}s")
+    del model, gpt, lamb, adam, params, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_optimizers_and_summary(torch, np, power):
+    """Phase 16(c)-(d): the other four optimizers and a bf16 Lars with fp32
+    masters, one narrow step each on the card against the CPU; `summary`
+    and `flops` of ResNet-50 on the card."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    cases = {
+        "RMSProp": (lambda P: opt.RMSProp(1e-2, momentum=0.5, parameters=P,
+                                          weight_decay=0.01), "float32"),
+        "RMSProp centered": (lambda P: opt.RMSProp(
+            1e-2, centered=True, parameters=P), "float32"),
+        "Adagrad": (lambda P: opt.Adagrad(0.1, parameters=P,
+                                          weight_decay=0.01), "float32"),
+        "Adadelta": (lambda P: opt.Adadelta(1.0, parameters=P,
+                                            weight_decay=0.01), "float32"),
+        "Adamax": (lambda P: opt.Adamax(1e-2, parameters=P,
+                                        weight_decay=0.01), "float32"),
+        "Lars bf16, fp32 masters": (lambda P: opt.Lars(
+            0.1, lars_coeff=0.01, parameters=P, multi_precision=True),
+            "bfloat16"),
+    }
+    errs = {}
+    for name, (build, dtype) in cases.items():
+        errs[name] = _opt_card_vs_cpu(torch, np, build, dtype)
+        if not errs[name] <= OPT_CARD_REL:
+            raise RuntimeError(f"phase 16(c) {name} card vs cpu "
+                               f"{errs[name]}")
+    log(f"PHASE 16(c) [{power}] one narrow step on the card vs the CPU "
+        f"(fp32, TF32 off; worst |diff| / largest, gate {OPT_CARD_REL}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    size = (1, 3, 224, 224)
+    paddle.set_device("gpu")
+    net = resnet50()
+    res, text = _captured(paddle.summary, net, size)
+    macs = paddle.flops(net, list(size))
+    paddle.set_device("cpu")
+    macs_cpu = paddle.flops(resnet50(), list(size))
+    paddle.set_device("gpu")
+    if res["total_params"] != 25557032 or macs != macs_cpu:
+        raise RuntimeError(f"phase 16(d) summary {res}, flops {macs} on "
+                           f"the card, {macs_cpu} on the cpu")
+    log(f"PHASE 16(d) paddle.summary(resnet50(), {size}) on the card: "
+        f"{res} ({len(text.splitlines())} lines printed); paddle.flops "
+        f"{macs} MACs, equal to the CPU's")
+    del net
+    torch.cuda.empty_cache()
+
+
+def phase_input_path(torch, np, power):
+    """Phase 16: the training input path and the rest of the trainer's
+    surface."""
+    t0 = time.perf_counter()
+    phase_input_resnet(torch, np, power)
+    phase_input_gpt_lamb(torch, np, power)
+    phase_optimizers_and_summary(torch, np, power)
+    phase_lenet_prefetch(torch, np, power)
+    log(f"PHASE 16 took {time.perf_counter() - t0:.3f}s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5083,6 +5723,10 @@ def main():
     t0 = time.perf_counter()
     phase_amp_fp16(torch, np, power, bf16_rec)
     log(f"PHASE 15 took {time.perf_counter() - t0:.3f}s")
+
+    # phase 16: the training input path (worker DataLoader, device
+    # prefetch, transforms, folders) and the other optimizers, summary
+    phase_input_path(torch, np, power)
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

@@ -31,14 +31,23 @@ follow the JAX package so each counterpart is easy to find:
                             the training slice: layers and functionals,
                             gradient clips, op-by-op AMP with dynamic
                             loss scaling (`GradScaler`, `decorate`), SGD /
-                            Momentum / Adam / AdamW with LR schedulers,
-                            datasets, the strategy and its single-device
-                            train step, `Model.fit` / `evaluate` /
-                            `predict` / `save` / `load`
+                            Momentum / Adam / AdamW / Lamb / Lars /
+                            RMSProp / Adagrad / Adadelta / Adamax with LR
+                            schedulers,
+                            datasets, samplers, the worker DataLoader
+                            and `device_prefetch`, the strategy and its
+                            single-device train step, `Model.fit` /
+                            `evaluate` / `predict` / `save` / `load`,
+                            `summary` / `flops`, the callbacks
   * `metric`, `regularizer` Accuracy / Precision / Recall / Auc; L1Decay /
                             L2Decay
   * `io.checkpoint`         format-2 checkpoint directories (atomic,
-                            checksummed), one process
+                            checksummed), one process; `io.crypto`
+                            encrypted model files (`save` / `load`
+                            with `cipher_key`)
+  * `vision`                LeNet and ResNet (`vision.models`), the
+                            numpy transforms, the local-file datasets
+                            and folders, image loading
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (or calls ``set_device("cpu")``); without a GPU they raise instead of
@@ -67,7 +76,7 @@ from .ops import *  # noqa: F401,F403  (the tensor function library)
 from .ops import einsum  # noqa: F401
 
 from .framework import ParamAttr, load, save
-from .hapi import Model
+from .hapi import Model, callbacks, flops, summary
 from . import device, inference, observability, quant, utils  # noqa: F401
 from . import tensor  # noqa: F401,E402  (the paddle.tensor alias module)
 

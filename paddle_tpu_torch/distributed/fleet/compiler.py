@@ -4,7 +4,8 @@ paddle_tpu's `distributed/fleet/compiler.py` `compile_train_step`).
 `compile_train_step(layer, optimizer, strategy, loss_method="loss")` takes
 the JAX package's call, so code written against it (benchmarks/run.py's
 config 5: `compile_train_step`, `prog._put_data(ids)`, `prog.step(ids,
-ids)`) runs unchanged. `CompiledTrainStep.step(*data, lr=)` runs
+ids)`) runs unchanged. `put_batch` is the placement hook that
+`hapi.Model.fit(prefetch_device=True)` hands `io.device_prefetch`. `CompiledTrainStep.step(*data, lr=)` runs
 `getattr(layer, loss_method)(*data)` (the layer itself when `loss_method`
 is empty) under `amp.auto_cast(level="O2" if use_pure_bf16 else "O1",
 dtype="bfloat16")` when `strategy.amp` is set, backpropagates, and
@@ -60,12 +61,17 @@ class CompiledTrainStep:
         self._recompute = bool(strategy.recompute)
         self._policy = strategy.recompute_configs.policy
 
-    def _put_data(self, d):
-        """One batch item as a tensor on the step's device."""
+    def put_batch(self, d):
+        """One batch item as a paddle `Tensor` on the step's device, copied
+        on the caller's current stream; one already there passes through.
+        `step()` places each item so, and `io.device_prefetch` takes this
+        as its `place=` hook, to place a batch ahead of the step."""
         if isinstance(d, torch.Tensor):
-            return unwrap(d).to(self.device, non_blocking=True)
-        return torch.from_numpy(np.ascontiguousarray(d)).to(
-            self.device, non_blocking=True)
+            return wrap(unwrap(d).to(self.device, non_blocking=True))
+        return wrap(torch.from_numpy(np.ascontiguousarray(d)).to(
+            self.device, non_blocking=True))
+
+    _put_data = put_batch           # the JAX package's name for it
 
     def _forward_loss(self, *data):
         with amp_mod.auto_cast(enable=self._amp, level=self._level,
@@ -92,7 +98,7 @@ class CompiledTrainStep:
         accumulation (every batch by default), the optimizer update.
         Returns the loss, left on the device, as a paddle `Tensor`
         (`numpy()` reads it from any device)."""
-        data = [self._put_data(d) for d in data]
+        data = [unwrap(self.put_batch(d)) for d in data]
         self.layer.train()
         if self._micro == 0:
             self._opt.clear_grad()

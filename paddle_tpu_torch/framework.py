@@ -7,8 +7,9 @@ bf16 as an `ml_dtypes.bfloat16` array where ml_dtypes is installed, else
 as its raw bits in a structured uint16 array), so a file either package
 writes loads in the other. `load(path)` gives the arrays back as tensors
 on the default device (`set_device`; cuda, which raises without a GPU) or
-on `device=`; `return_numpy=True` keeps them numpy. Encrypted files
-(`cipher_key`, the JAX package's io/crypto) are not ported and raise.
+on `device=`; `return_numpy=True` keeps them numpy. A `cipher_key`
+encrypts the file through `io.crypto` (ChaCha20-Poly1305, the JAX
+package's file layout, so encrypted files cross too).
 
 `param_arrays(GPT(cfg))` is the param dict `models.gpt.gpt_decode_fns`
 takes: the port's `Layer.state_dict()` names are the JAX package's
@@ -78,31 +79,37 @@ def _from_saved(obj, device):
     return obj
 
 
-def _no_cipher(cipher_key):
-    if cipher_key is not None:
-        raise NotImplementedError("cipher_key: encrypted files (io/crypto) "
-                                  "are not ported to paddle_tpu_torch")
-
-
 def save(obj, path, protocol=4, cipher_key=None):
     """paddle.save: pickle a (possibly nested) state dict, tensors as host
-    numpy arrays."""
-    _no_cipher(cipher_key)
+    numpy arrays. A 32-byte `cipher_key` encrypts the file (`io.crypto`,
+    the JAX package's format)."""
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
+    if cipher_key is None:
+        with open(path, "wb") as f:
+            pickle.dump(_to_saveable(obj), f, protocol=protocol)
+        return
+    from .io import crypto
+    blob = crypto.encrypt(pickle.dumps(_to_saveable(obj), protocol=protocol),
+                          cipher_key)
     with open(path, "wb") as f:
-        pickle.dump(_to_saveable(obj), f, protocol=protocol)
+        f.write(blob)
 
 
 def load(path, return_numpy=False, cipher_key=None, device=None):
     """paddle.load: the pickled object, its arrays as tensors on `device`
-    (default: the default device), or as numpy with `return_numpy`."""
-    _no_cipher(cipher_key)
+    (default: the default device), or as numpy with `return_numpy`;
+    `cipher_key` decrypts a file saved with one."""
     dev = None if return_numpy else (
         default_device() if device is None else resolve_device(device))
-    with open(path, "rb") as f:
-        obj = pickle.load(f)
+    if cipher_key is None:
+        with open(path, "rb") as f:
+            obj = pickle.load(f)
+    else:
+        from .io import crypto
+        with open(path, "rb") as f:
+            obj = pickle.loads(crypto.decrypt(f.read(), cipher_key))
     return obj if return_numpy else _from_saved(obj, dev)
 
 

@@ -1,17 +1,22 @@
 """hapi callbacks (port of paddle_tpu's `hapi/callbacks.py`: Callback,
 CallbackList, config_callbacks, ProgBarLogger, ModelCheckpoint,
-LRScheduler, EarlyStopping). `config_callbacks` adds a ModelCheckpoint
-when `save_dir` is set and an LRScheduler callback always, as the JAX
-package's does."""
+LRScheduler, EarlyStopping, MetricsLogger, VisualDL). `config_callbacks`
+adds a ModelCheckpoint when `save_dir` is set and an LRScheduler callback
+always, as the JAX package's does."""
 from __future__ import annotations
 
+import json
 import numbers
 import os
+import sys
 import time
-from typing import List
+from typing import List, Optional
+
+import torch
 
 __all__ = ["Callback", "CallbackList", "ProgBarLogger", "ModelCheckpoint",
-           "LRScheduler", "EarlyStopping", "config_callbacks"]
+           "LRScheduler", "EarlyStopping", "MetricsLogger", "VisualDL",
+           "config_callbacks"]
 
 
 class Callback:
@@ -257,3 +262,129 @@ class EarlyStopping(Callback):
                 if self.verbose:
                     print(f"Early stopping at epoch {epoch + 1}: "
                           f"best {self.monitor}={self.best:.4f}")
+
+
+class MetricsLogger(Callback):
+    """Periodic machine-readable training telemetry, in the JAX package's
+    format.
+
+    Every ``log_freq`` train batches (and at each epoch end) one JSON line
+    goes to ``path`` (appended; default stderr, prefixed
+    ``TRAIN_METRICS``): the monotonic time, event, epoch and step, steps/s
+    over the window and the numeric entries of ``logs`` (the loss, read
+    off the device here, and the metrics). With `hbm` and a model on a
+    CUDA device, ``hbm_bytes_in_use`` maps that device (``"cuda:0"``) to
+    its allocated bytes (`torch.cuda.memory_stats`); on the CPU there is
+    nothing to report and the key is left out, as the JAX package leaves
+    it out for a backend that reports nothing. The port has no async step
+    pipeline, so the keys the JAX package takes from
+    ``model._async_pipeline.stats()`` (``steps_in_flight``,
+    ``host_blocked_s``, ``steps_submitted``, ``window``) are not
+    written."""
+
+    def __init__(self, log_freq: int = 50, path: Optional[str] = None,
+                 hbm: bool = True):
+        super().__init__()
+        self.log_freq = max(int(log_freq), 1)
+        self.path = path
+        self.hbm = hbm
+        self._f = None
+        self._step = 0
+        self._epoch = 0
+        self._win_t0 = None
+        self._win_step0 = 0
+
+    def _emit(self, payload: dict):
+        line = json.dumps(payload)
+        if self._f is not None:
+            self._f.write(line + "\n")
+            self._f.flush()
+        else:
+            print("TRAIN_METRICS " + line, file=sys.stderr, flush=True)
+
+    def on_train_begin(self, logs=None):
+        if self.path:
+            d = os.path.dirname(self.path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self._f = open(self.path, "a")
+        self._step = 0
+        self._win_t0 = time.monotonic()
+        self._win_step0 = 0
+        self._epoch = 0
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._epoch = epoch
+
+    def _hbm(self):
+        dev = getattr(self.model, "_device", None)
+        if dev is None or dev.type != "cuda":
+            return {}
+        used = torch.cuda.memory_stats(dev).get("allocated_bytes.all.current")
+        return {} if used is None else {
+            f"cuda:{dev.index if dev.index is not None else 0}": used}
+
+    def _payload(self, logs, event):
+        now = time.monotonic()
+        dt = now - (self._win_t0 or now)
+        steps = self._step - self._win_step0
+        payload = {k: float(v) for k, v in (logs or {}).items()
+                   if isinstance(v, numbers.Number)}
+        # the structural fields win over log entries of the same name
+        # (hapi's "step" is the index within the epoch)
+        payload.update(
+            ts_monotonic=round(now, 3),
+            event=event,
+            epoch=self._epoch,
+            step=self._step,
+            steps_per_s=round(steps / dt, 3) if dt > 0 and steps else 0.0)
+        if self.hbm:
+            hbm = self._hbm()
+            if hbm:
+                payload["hbm_bytes_in_use"] = hbm
+        self._win_t0 = now
+        self._win_step0 = self._step
+        return payload
+
+    def on_train_batch_end(self, step, logs=None):
+        self._step += 1
+        if self._step % self.log_freq == 0:
+            self._emit(self._payload(logs, "step"))
+
+    def on_epoch_end(self, epoch, logs=None):
+        self._emit(self._payload(logs, "epoch_end"))
+
+    def on_train_end(self, logs=None):
+        if self._f:
+            self._f.close()
+            self._f = None
+
+
+class VisualDL(Callback):
+    """Scalar logger writing ``{log_dir}/scalars.tsv`` (appended): a
+    ``# run <time>`` line per fit, then ``step<TAB>name<TAB>value`` for
+    every numeric log entry of every train batch (the loss is read off
+    the device for it), flushed each batch; the JAX package's format."""
+
+    def __init__(self, log_dir="vdl_log"):
+        super().__init__()
+        self.log_dir = log_dir
+        self._f = None
+        self._step = 0
+
+    def on_train_begin(self, logs=None):
+        os.makedirs(self.log_dir, exist_ok=True)
+        self._f = open(os.path.join(self.log_dir, "scalars.tsv"), "a")
+        self._f.write(f"# run {time.strftime('%Y-%m-%dT%H:%M:%S')}\n")
+
+    def on_train_batch_end(self, step, logs=None):
+        self._step += 1
+        for k, v in (logs or {}).items():
+            if isinstance(v, numbers.Number):
+                self._f.write(f"{self._step}\t{k}\t{v}\n")
+        self._f.flush()
+
+    def on_train_end(self, logs=None):
+        if self._f:
+            self._f.close()
+            self._f = None

@@ -10,7 +10,11 @@ network there. Without a strategy, `amp_configs` ("O1", "O2" or
 path; with one, the strategy's `amp` does (and `amp_configs` is ignored
 with a warning, as in the JAX package).
 
-`fit` loops over epochs and batches; each step's loss stays on the device
+`fit` loops over epochs and batches, which by default
+(`prefetch_device=True`, as in the JAX package) `io.device_prefetch`
+copies to the device ahead of the step through the step's `put_batch`;
+`batch_wait_s` keeps how long each step waited for its batch (the JAX
+loop's ``collate_s``). Each step's loss stays on the device
 inside an `_AsyncScalar` until something reads it with `float()`, as in
 the JAX package. The LR scheduler (stepped by the `LRScheduler` callback)
 and the beta powers live on the host, and the gradient clip keeps its
@@ -29,13 +33,16 @@ the slots keyed as the JAX package names the parameters
 (`framework.stacked_layout`). `load(path)` reads either package's pair.
 Evaluation runs under the strategy's AMP when there is a strategy and in
 fp32 otherwise; `predict` runs in fp32, as the JAX package's does.
-`save(training=False)` (the inference export) and `summary` are not
-ported and raise.
+`summary` prints `hapi.summary`'s table. `save(training=False)` (the
+inference export) is not ported and raises.
 """
 from __future__ import annotations
 
+import itertools
+import numbers
 import os
 import pickle
+import time
 import warnings
 from typing import List
 
@@ -45,15 +52,18 @@ import torch
 from .. import amp as amp_mod
 from ..core.arrays import to_numpy
 from ..core.device import default_device
+from ..core.tensor import unwrap
 from ..distributed.fleet.compiler import compile_train_step
 from ..distributed.fleet.strategy import DistributedStrategy
 from ..framework import indexed_layout, load as fload, save as fsave
 from ..framework import stacked_layout
-from ..io.dataloader import DataLoader
+from ..io.dataloader import DataLoader, device_prefetch
 from ..metric import Metric
 from . import callbacks as cbks_mod
 
 __all__ = ["Model"]
+
+_END = object()
 
 
 def _as_list(x):
@@ -79,6 +89,14 @@ class _AsyncScalar:
 
     def __repr__(self):
         return repr(float(self))
+
+
+def _len_or_none(loader):
+    """The loader's batch count; None for an IterableDataset's."""
+    try:
+        return len(loader)
+    except TypeError:
+        return None
 
 
 def _compute_loss(loss_fn, outputs, labels):
@@ -139,6 +157,9 @@ def _amp_level(amp_configs):
     return level
 
 
+numbers.Real.register(_AsyncScalar)     # a numeric log entry, as in JAX
+
+
 class Model:
     """Wraps a Layer with train / eval / predict loops."""
 
@@ -153,6 +174,7 @@ class Model:
         self._prog = None
         self._adapter = None
         self.stop_training = False
+        self.batch_wait_s = []
 
     # ------------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -198,10 +220,11 @@ class Model:
         return n_batch - 1 if n_batch > 1 else n_batch
 
     def _put(self, batch):
-        """Batch items (tensors or arrays) as tensors on the device."""
-        return [torch.as_tensor(np.ascontiguousarray(d)
-                                if not isinstance(d, torch.Tensor) else d)
-                .to(self._device) for d in batch]
+        """Batch items (tensors or arrays) as plain tensors on the device,
+        as the train step takes them (a loader's paddle `Tensor`s too)."""
+        return [unwrap(d).to(self._device) if isinstance(d, torch.Tensor)
+                else torch.as_tensor(np.ascontiguousarray(d)).to(
+                    self._device) for d in batch]
 
     def train_batch(self, inputs, labels=None, sync=True):
         """One batch through the train step; returns [loss] as a float,
@@ -298,10 +321,16 @@ class Model:
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
-            accumulate_grad_batches=1, num_iters=None):
+            accumulate_grad_batches=1, num_iters=None, prefetch_device=True):
         """Train for `epochs` over `train_data` (a Dataset or DataLoader),
         calling the callbacks' `on_train_batch_end(step, logs)` with
-        logs["loss"] an `_AsyncScalar`."""
+        logs["loss"] an `_AsyncScalar`. With `prefetch_device` (the
+        default) each epoch's batches come through
+        `io.device_prefetch(loader, place=step.put_batch)`: placed on the
+        device ahead of the step (by a feeder thread on a side stream
+        when the loader has workers).
+        `batch_wait_s` keeps, for every step of the last fit, the host
+        seconds the loop waited for its batch."""
         if self._prog is None:
             raise RuntimeError("call prepare(optimizer, loss) first")
         loader = self._make_loader(train_data, batch_size, shuffle, drop_last,
@@ -316,26 +345,37 @@ class Model:
             names += list(n) if isinstance(n, (list, tuple)) else [n]
         cbks = cbks_mod.config_callbacks(
             callbacks, model=self, batch_size=batch_size, epochs=epochs,
-            steps=len(loader), log_freq=log_freq, verbose=verbose,
+            steps=_len_or_none(loader), log_freq=log_freq, verbose=verbose,
             save_freq=save_freq, save_dir=save_dir, metrics=names)
         cbks.on_begin("train")
         self.stop_training = False
+        self.batch_wait_s = []
         logs, global_step = {}, 0
         for epoch in range(epochs):
             if self.stop_training:
                 break
             cbks.on_epoch_begin(epoch)
             self._reset_metrics()
-            for step, batch in enumerate(loader):
-                cbks.on_batch_begin("train", step, logs)
-                ins, lbls = self._split_batch(batch)
-                losses = self.train_batch(ins, lbls, sync=False)
-                logs = self._step_logs(losses, step, batch_size)
-                cbks.on_batch_end("train", step, logs)
-                global_step += 1
-                if num_iters is not None and global_step >= num_iters:
-                    self.stop_training = True
-                    break
+            it = device_prefetch(loader, place=self._prog.put_batch) \
+                if prefetch_device else iter(loader)
+            try:
+                for step in itertools.count():
+                    t0 = time.perf_counter()
+                    batch = next(it, _END)
+                    if batch is _END:
+                        break
+                    self.batch_wait_s.append(time.perf_counter() - t0)
+                    cbks.on_batch_begin("train", step, logs)
+                    ins, lbls = self._split_batch(batch)
+                    losses = self.train_batch(ins, lbls, sync=False)
+                    logs = self._step_logs(losses, step, batch_size)
+                    cbks.on_batch_end("train", step, logs)
+                    global_step += 1
+                    if num_iters is not None and global_step >= num_iters:
+                        self.stop_training = True
+                        break
+            finally:
+                it.close()      # a prefetch feeder leaves the loader first
             if eval_loader is not None and (epoch + 1) % eval_freq == 0:
                 eval_logs = self.evaluate(eval_loader, verbose=0,
                                           _inside_fit=cbks)
@@ -355,7 +395,7 @@ class Model:
         if cbks is None and (callbacks or verbose):
             cbks = cbks_mod.config_callbacks(
                 callbacks, model=self, verbose=verbose, log_freq=log_freq,
-                steps=len(loader), mode="eval")
+                steps=_len_or_none(loader), mode="eval")
         if cbks:
             cbks.on_begin("eval")
         for batch in loader:
@@ -431,16 +471,19 @@ class Model:
                 os.path.exists(path + ".pdopt"):
             opt_sd = fload(path + ".pdopt", return_numpy=True)
             fs = opt_sd.pop("functional_state", None)
+            # the functional state last: it is the one a train step used
+            # (a JAX file may also carry the eager optimizer's slots)
+            self._optimizer.set_state_dict(opt_sd)
             if fs:
                 self._optimizer.set_functional_state(
                     self.network.named_parameters(),
                     indexed_layout(fs, self.network))
-            self._optimizer.set_state_dict(opt_sd)
         return self
 
     def parameters(self, *args, **kwargs) -> List:
         return self.network.parameters(*args, **kwargs)
 
     def summary(self, input_size=None, dtype=None):
-        raise NotImplementedError("Model.summary is not ported to "
-                                  "paddle_tpu_torch")
+        """`hapi.summary` of the network."""
+        from .summary import summary as _summary
+        return _summary(self.network, input_size, dtypes=dtype)

@@ -17,8 +17,6 @@ pytest.importorskip("torch")
 import paddle_tpu  # noqa: E402,F401
 import paddle_tpu_torch  # noqa: E402,F401
 
-ITEM4 = "queue 1 item 4: small gaps (optimizers, io pipeline, crypto, " \
-    "summary / flops, callbacks)"
 ITEM5 = "queue 1 item 5.4: the predictor API"
 ITEM6 = "queue 1 item 6: the profiler and the rest of observability"
 ITEM7 = "queue 1 item 7: multi-GPU over NCCL"
@@ -34,7 +32,6 @@ def _group(reason, names):
 
 EXPECTED_ABSENT = {
     "": {
-        **_group(ITEM4, "callbacks summary flops"),
         **_group(ITEM6, "monitor profiler"),
         **_group(ITEM7, "DataParallel"),
         **_group(ITEM8, "jit onnx data"),
@@ -124,16 +121,9 @@ EXPECTED_ABSENT = {
             tensor_array_to_tensor triplet_margin_loss unfold upsample vision
             warpctc yolo_box yolov3_loss"""),
     },
-    "io": {
-        **_group(ITEM4, """
-            BatchSampler ChainDataset ComposeDataset ConcatDataset
-            DistributedBatchSampler IterableDataset RandomSampler Sampler
-            SequenceSampler Subset SubsetRandomSampler WeightedRandomSampler
-            crypto device_prefetch get_worker_info random_split sampler"""),
-        **_group(ITEM10, """
-            FS LocalFS fs sync_dir InMemoryDataset Slot data_feed"""),
-    },
-    "optimizer": _group(ITEM4, "Adadelta Adagrad Adamax Lamb Lars RMSProp"),
+    "io": _group(ITEM10, "FS LocalFS fs sync_dir InMemoryDataset Slot "
+                 "data_feed"),
+    "optimizer": {},
     "amp": {
         **_group(IMPL, "Dict Tensor dtype_mod jax jnp no_grad np"),
     },
@@ -153,12 +143,7 @@ EXPECTED_ABSENT = {
             serialize_program set_program_state xpu_places"""),
         **_group(IMPL, "dtype_mod"),
     },
-    "vision": {
-        **_group(ITEM9, "ops"),
-        **_group(ITEM10, """
-            datasets transforms image image_load get_image_backend
-            set_image_backend"""),
-    },
+    "vision": _group(ITEM9, "ops"),
     "vision.models": _group(ITEM9, """
         VGG vgg vgg11 vgg13 vgg16 vgg19 MobileNetV1 MobileNetV2 mobilenet
         mobilenet_v1 mobilenet_v2 mobilenetv1 mobilenetv2"""),

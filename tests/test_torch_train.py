@@ -395,11 +395,14 @@ def test_unported_strategy_toggles_raise_at_prepare(toggle):
 
 def test_unported_model_surface_raises(tmp_path):
     """What of hapi and the checkpoint surface is still unported: the
-    inference export, `summary`, encrypted files, a mesh or shardings at
-    restore, and AMP options the op-by-op bf16 AMP cannot express. (The
-    rest of what this test once asserted raised -- metrics, amp levels,
-    eval_data, evaluate, LR schedulers, weight decay -- is ported and
-    held to the JAX package in tests/test_torch_lifecycle.py.)"""
+    inference export, a mesh or shardings at restore, and AMP options the
+    op-by-op bf16 AMP cannot express. (The rest of what this test once
+    asserted raised -- metrics, amp levels, eval_data, evaluate, LR
+    schedulers, weight decay -- is ported and held to the JAX package in
+    tests/test_torch_lifecycle.py; `summary` and encrypted files in
+    tests/test_torch_hapi_tools.py: `summary` without an input size
+    raises the JAX package's ValueError, and an encrypted file loads back
+    only with its key.)"""
     from paddle_tpu_torch.io import checkpoint as tckpt
     _, tgpt = _pair()
     model = TModel(_TLoss(tgpt))
@@ -412,13 +415,17 @@ def test_unported_model_surface_raises(tmp_path):
     model.prepare(adam)
     with pytest.raises(NotImplementedError):
         model.save(str(tmp_path / "m"), training=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="input_size"):
         model.summary()
-    with pytest.raises(NotImplementedError):
-        ptt.save({"w": tgpt.wte.weight}, str(tmp_path / "w.pdparams"),
-                 cipher_key=b"k" * 32)
+    ptt.save({"w": tgpt.wte.weight}, str(tmp_path / "w.pdparams"),
+             cipher_key=b"k" * 32)
+    with pytest.raises(ValueError, match="wrong key"):
+        ptt.load(str(tmp_path / "w.pdparams"), cipher_key=b"j" * 32)
+    assert torch.equal(ptt.load(str(tmp_path / "w.pdparams"),
+                                cipher_key=b"k" * 32, device="cpu")["w"],
+                       tgpt.wte.weight.detach())
     ptt.save({"w": tgpt.wte.weight}, str(tmp_path / "w.pdparams"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not a paddle_tpu encrypted"):
         ptt.load(str(tmp_path / "w.pdparams"), cipher_key=b"k" * 32)
     tckpt.save_checkpoint(str(tmp_path / "step_1"), {"w": tgpt.wte.weight})
     with pytest.raises(NotImplementedError):
