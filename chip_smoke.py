@@ -339,10 +339,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      (a)'s fits, the host's part of a batch timed in-process (loading and
      transforming an image, and one batch's shared-memory, pinning and
      sum costs);
- 17. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 17. benchmarks/run.py config 4, GPT-2 345M with ZeRO stage 2, and the
+     strategies that run on one device: (a) the flash kernels at config
+     4's attention shape (B=8, T=1024, 16 heads of 64, bf16, causal, q, k,
+     v as strided views of one qkv tensor) against their plain versions
+     under the row gate (a left-out tile must fail it), twice bit-equal,
+     timed by graph replay beside the bounds, the plain versions, torch
+     sdpa's forward and the library's flash backward; (b) a narrow GPT
+     (phase 6's width, B=4) on the card in fp32 against the CPU through
+     gradient merge (k_steps 4, avg on and off), the lamb and lars swaps
+     and fleet.init -> distributed_model -> distributed_optimizer ->
+     minimize: losses, every parameter, the swapped class and the flash
+     launches (layers x microbatches x steps); (c) run.py's own
+     `config4_gpt2_345m_zero2` body with its `_compiled_lm` at full width
+     (B=8, T=1024, AMP O2, sharding stage 2, Adam, `_timed_steps(2,
+     10)`, run.py's `_peak_flops` set to 989 TFLOP/s): one device, dp 1,
+     sharding stage 2, finite losses, fp32 parameters and Adam moments,
+     24 launches a step of each flash kernel and none of any other, no
+     host sync in a step, run.py's MFU equal to the one computed here;
+     its JSON record, ms per step, MFU, peak memory, a step's device time
+     by kernel group and the busy share;
+ 18. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
-     fused backward; rows 5-8 carry phase 12's shape under "ernie");
- 18. last line {"ok": true, "device": {...}}.
+     fused backward; rows 5-8 carry phase 12's shape under "ernie" and
+     phase 17's under "gpt2_345m");
+ 19. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -3855,13 +3876,116 @@ def dropped_key_tile_errs(fa, inputs, plain, tile=64):
     return {"o": row_rel_err(o_cut, ro), "dv": row_rel_err(dv_cut, rdv)}
 
 
+def flash_shape_times(torch, fa, B, T, H, D, causal, seed, fused=False):
+    """The bf16 flash kernels at one shape: two runs bit-equal, then
+    device ms by graph replay of the forward, dq, dk/dv and the pair, of
+    their plain versions, of torch sdpa's forward and of the library's
+    flash backward (`aten._scaled_dot_product_flash_attention_backward`),
+    with each kernel's bound; q, k, v as `flash_inputs` makes them with
+    `fused`. Returns (ms by name, {name: (bound ms, bound by)}, sdpa's
+    error against the kernel's forward)."""
+    import torch.nn.functional as F
+    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, seed,
+                               fused)
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    first = (o, lse) + fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                   causal)
+    again = fa.flash_attention_forward(q, k, v, causal) \
+        + fa.flash_attention_backward(q, k, v, o, lse, do, causal)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise RuntimeError(f"flash bf16 B={B} T={T} H={H} D={D} causal="
+                           f"{causal}: two runs differ")
+    del first, again
+    _, delta, q_s = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = {"fwd": graph_ms(torch, lambda _: fa.flash_attention_forward(
+             q, k, v, causal), 20),
+         "dq": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+             q, k, v, o, do, lse, causal), 10),
+         "dkv": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+             q, k, v, do, lse, delta, causal, q_s=q_s), 10),
+         "pair": graph_ms(torch, lambda _: fa.flash_attention_backward(
+             q, k, v, o, lse, do, causal), 10),
+         "fwd_plain": graph_ms(torch, lambda _: fa.flash_attention_forward(
+             q, k, v, causal, kernel="reference"), 1),
+         "dq_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
+             q, k, v, o, do, lse, causal, kernel="reference"), 1),
+         "dkv_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
+             q, k, v, do, lse, delta, causal, kernel="reference"), 1),
+         "sdpa": graph_ms(torch, lambda _: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=causal), 20)}
+    lib_err = rel_err(F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal).transpose(1, 2), o)[0]
+    aten = torch.ops.aten
+    qc, kc, vc, doc = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_out = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0,
+                                                       causal)
+    lib_args = (doc, qc, kc, vc) + tuple(lib_out[:6]) + (0.0, causal) \
+        + tuple(lib_out[6:8])
+    t["bwd_library"] = graph_ms(torch, lambda _: (
+        aten._scaled_dot_product_flash_attention_backward(*lib_args)), 10)
+    del qc, kc, vc, doc, lib_out, lib_args
+    pairs = B * H * flash_pairs(T, causal)
+    elems = B * T * H * D
+    row_bytes = 4 * B * H * T              # one fp32 value per (b, h, t)
+    work = {   # bytes (each input read once, each output written once), flops
+        "fwd": (4 * 2 * elems + row_bytes, 4 * D * pairs),
+        # q, k, v, O, dO, lse in; dq and delta out: S, dP, dS.K
+        "dq": (6 * 2 * elems + 2 * row_bytes, 6 * D * pairs),
+        # q, k, v, dO, lse, delta in; dk and dv out: S, dP, dV, dK
+        "dkv": (6 * 2 * elems + 2 * row_bytes, 8 * D * pairs),
+        "pair": (8 * 2 * elems + row_bytes, 10 * D * pairs)}
+    bounds = {n: bound(nb, fl, BF16_FLOPS_PER_S) for n, (nb, fl)
+              in work.items()}
+    del q, k, v, do, o, lse, delta, q_s, qt, kt, vt
+    torch.cuda.empty_cache()
+    return t, bounds, lib_err
+
+
+def flash_shape_record(errs, t, bounds, B, T, H, D, causal):
+    """The numbers of rows 5-8 at one shape, by kernel record name, with
+    launches 0 (the caller sets a step's)."""
+    parts = {
+        "flash_attention_fwd": (t["fwd"], t["fwd_plain"], t["sdpa"],
+                                bounds["fwd"], errs["o"][1]),
+        "flash_attention_bwd_dq": (t["dq"], t["dq_plain"], None,
+                                   bounds["dq"], errs["dq"][1]),
+        "flash_attention_bwd_dkv": (t["dkv"], t["dkv_plain"], None,
+                                    bounds["dkv"],
+                                    max(errs["dk"][1], errs["dv"][1])),
+        "flash_attention_bwd": (t["pair"], t["dq_plain"] + t["dkv_plain"],
+                                t["bwd_library"], bounds["pair"],
+                                max(errs[n][1] for n in ("dq", "dk", "dv")))}
+    return {name: {"B": B, "T": T, "H": H, "D": D, "causal": causal,
+                   "launches": 0, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "library_ms": lib_ms}
+            for name, (ms, plain_ms, lib_ms, (bound_ms, by), err)
+            in parts.items()}
+
+
+def flash_shape_log(t, bounds, lib_err):
+    """One log line's account of `flash_shape_times`."""
+    return (f"fwd {t['fwd']:.6f} (bound {bounds['fwd'][0]:.6f} "
+            f"{bounds['fwd'][1]}, {t['fwd'] / bounds['fwd'][0]:.2f}x; plain "
+            f"{t['fwd_plain']:.6f}; torch sdpa {t['sdpa']:.6f}, vs the "
+            f"kernel {lib_err:.3e}); dq {t['dq']:.6f} (bound "
+            f"{bounds['dq'][0]:.6f} {bounds['dq'][1]}; plain "
+            f"{t['dq_plain']:.6f}); dkv {t['dkv']:.6f} (bound "
+            f"{bounds['dkv'][0]:.6f} {bounds['dkv'][1]}; plain "
+            f"{t['dkv_plain']:.6f}); pair {t['pair']:.6f} (bound "
+            f"{bounds['pair'][0]:.6f} {bounds['pair'][1]}, 10 D flops per "
+            f"pair, {t['pair'] / bounds['pair'][0]:.2f}x; library "
+            f"{t['bwd_library']:.6f}, aten._scaled_dot_product_flash_"
+            f"attention_backward)")
+
+
 def phase_ernie_flash(torch, power, records):
     """Phase 12 (a): the flash kernels at ERNIE's attention shape, bf16
     non-causal, against their plain versions under the row gate (with the
     left-out tiles), twice bit-equal, and timed by graph replay beside
     the bounds, the plain versions and the library calls. Adds the
     numbers to the records of rows 5-8 under "ernie"."""
-    import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     B, T, H, D = ERNIE_B, ERNIE_T, 12, 64
@@ -3882,89 +4006,14 @@ def phase_ernie_flash(torch, power, records):
         f"(o) {reach['o']:.3e} and 64-row query tile (dv) "
         f"{reach['dv']:.3e}")
 
-    q, k, v, do = flash_inputs(torch, B, T, H, D, torch.bfloat16, 42, False)
-    o, lse = fa.flash_attention_forward(q, k, v, False)
-    first = (o, lse) + fa.flash_attention_backward(q, k, v, o, lse, do,
-                                                   False)
-    again = fa.flash_attention_forward(q, k, v, False) \
-        + fa.flash_attention_backward(q, k, v, o, lse, do, False)
-    if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        raise RuntimeError("flash bf16 non-causal: two runs differ")
-    del first, again
-    _, delta, q_s = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, False)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    t = {"fwd": graph_ms(torch, lambda _: fa.flash_attention_forward(
-             q, k, v, False), 20),
-         "dq": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
-             q, k, v, o, do, lse, False), 10),
-         "dkv": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
-             q, k, v, do, lse, delta, False, q_s=q_s), 10),
-         "pair": graph_ms(torch, lambda _: fa.flash_attention_backward(
-             q, k, v, o, lse, do, False), 10),
-         "fwd_plain": graph_ms(torch, lambda _: fa.flash_attention_forward(
-             q, k, v, False, kernel="reference"), 1),
-         "dq_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dq(
-             q, k, v, o, do, lse, False, kernel="reference"), 1),
-         "dkv_plain": graph_ms(torch, lambda _: fa.flash_attention_bwd_dkv(
-             q, k, v, do, lse, delta, False, kernel="reference"), 1),
-         "sdpa": graph_ms(torch, lambda _: F.scaled_dot_product_attention(
-             qt, kt, vt), 20)}
-    lib_err = rel_err(F.scaled_dot_product_attention(qt, kt, vt)
-                      .transpose(1, 2), o)[0]
-    aten = torch.ops.aten
-    qc, kc, vc, doc = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    lib_out = aten._scaled_dot_product_flash_attention(qc, kc, vc, 0.0,
-                                                       False)
-    lib_args = (doc, qc, kc, vc) + tuple(lib_out[:6]) + (0.0, False) \
-        + tuple(lib_out[6:8])
-    t["bwd_library"] = graph_ms(torch, lambda _: (
-        aten._scaled_dot_product_flash_attention_backward(*lib_args)), 10)
-    del qc, kc, vc, doc, lib_out, lib_args
-    pairs = B * H * flash_pairs(T, False)
-    elems = B * T * H * D
-    row_bytes = 4 * B * H * T              # one fp32 value per (b, h, t)
-    work = {   # bytes (each input read once, each output written once), flops
-        "fwd": (4 * 2 * elems + row_bytes, 4 * D * pairs),
-        # q, k, v, O, dO, lse in; dq and delta out: S, dP, dS.K
-        "dq": (6 * 2 * elems + 2 * row_bytes, 6 * D * pairs),
-        # q, k, v, dO, lse, delta in; dk and dv out: S, dP, dV, dK
-        "dkv": (6 * 2 * elems + 2 * row_bytes, 8 * D * pairs),
-        "pair": (8 * 2 * elems + row_bytes, 10 * D * pairs)}
-    bounds = {n: bound(nb, fl, BF16_FLOPS_PER_S) for n, (nb, fl)
-              in work.items()}
-    ernie = {
-        "flash_attention_fwd": (t["fwd"], t["fwd_plain"], t["sdpa"],
-                                bounds["fwd"], errs["o"][1]),
-        "flash_attention_bwd_dq": (t["dq"], t["dq_plain"], None,
-                                   bounds["dq"], errs["dq"][1]),
-        "flash_attention_bwd_dkv": (t["dkv"], t["dkv_plain"], None,
-                                    bounds["dkv"],
-                                    max(errs["dk"][1], errs["dv"][1])),
-        "flash_attention_bwd": (t["pair"], t["dq_plain"] + t["dkv_plain"],
-                                t["bwd_library"], bounds["pair"],
-                                max(errs[n][1] for n in ("dq", "dk", "dv")))}
+    t, bounds, lib_err = flash_shape_times(torch, fa, B, T, H, D, False, 42)
+    ernie = flash_shape_record(errs, t, bounds, B, T, H, D, False)
     for rec in records:
-        ms, plain_ms, lib_ms, (bound_ms, by), err = ernie[rec["name"]]
-        rec["ernie"] = {"B": B, "T": T, "H": H, "D": D, "causal": False,
-                        "launches": 0, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": by, "library_ms": lib_ms}
+        rec["ernie"] = ernie[rec["name"]]
     log(f"PHASE 12 flash [{power}] B={B} T={T} H={H} D={D} bf16 non-causal "
-        f"(graph replay, ms): fwd {t['fwd']:.6f} (bound "
-        f"{bounds['fwd'][0]:.6f} {bounds['fwd'][1]}, "
-        f"{t['fwd'] / bounds['fwd'][0]:.2f}x; plain {t['fwd_plain']:.6f}; "
-        f"torch sdpa {t['sdpa']:.6f}, vs the kernel {lib_err:.3e}); dq "
-        f"{t['dq']:.6f} (bound {bounds['dq'][0]:.6f} {bounds['dq'][1]}; "
-        f"plain {t['dq_plain']:.6f}); dkv {t['dkv']:.6f} (bound "
-        f"{bounds['dkv'][0]:.6f} {bounds['dkv'][1]}; plain "
-        f"{t['dkv_plain']:.6f}); pair {t['pair']:.6f} (bound "
-        f"{bounds['pair'][0]:.6f} {bounds['pair'][1]}, 10 D flops per "
-        f"pair, {t['pair'] / bounds['pair'][0]:.2f}x; library "
-        f"{t['bwd_library']:.6f}, aten._scaled_dot_product_flash_attention"
-        f"_backward); per ERNIE step (12 layers) "
+        f"(graph replay, ms): " + flash_shape_log(t, bounds, lib_err)
+        + f"; per ERNIE step (12 layers) "
         f"{12 * (t['fwd'] + t['pair']):.3f} ms")
-    del q, k, v, do, o, lse, delta, q_s, qt, kt, vt
-    torch.cuda.empty_cache()
 
 
 def phase_ernie_parity(torch, np):
@@ -4493,6 +4542,32 @@ def phase_vision_parity(torch, np, power):
     ptt.set_device("gpu")
 
 
+def _run_py_module():
+    """benchmarks/run.py, loaded as a module of its own."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_run_py", os.path.join(ROOT, "benchmarks", "run.py"))
+    run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run)
+    return run
+
+
+def _run_py_define(run, ns, name):
+    """Define run.py's function `name` in `ns` with the JAX package's
+    imports pointed at paddle_tpu_torch, `import jax` dropped and
+    `jax.devices()` replaced by `port_devices()`, nothing else changed.
+    Returns the substitution counts."""
+    import inspect
+    body = inspect.getsource(getattr(run, name))
+    body, n_pkg = re.subn(r"\bpaddle_tpu\b", "paddle_tpu_torch", body)
+    body, n_imp = re.subn(r"^\s*import jax\n", "", body, flags=re.M)
+    body, n_dev = re.subn(r"\bjax\.devices\(\)", "port_devices()", body)
+    if re.search(r"\bjax\b", body):
+        raise RuntimeError(f"run.py {name}: jax left in the body")
+    exec(compile(body, f"run.py:{name}", "exec"), ns)
+    return n_pkg, n_imp, n_dev
+
+
 def run_py_body(name, devices):
     """benchmarks/run.py's function `name` with the JAX package's imports
     pointed at paddle_tpu_torch, `import jax` dropped and `jax.devices()`
@@ -4500,22 +4575,11 @@ def run_py_body(name, devices):
     in run.py's own module namespace (its _timed_steps and _emit), as
     tests/test_torch_vision_models.py runs it. Returns (the function, its
     namespace, the substitution counts)."""
-    import importlib.util
-    import inspect
-    spec = importlib.util.spec_from_file_location(
-        "_run_py", os.path.join(ROOT, "benchmarks", "run.py"))
-    run = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(run)
-    body = inspect.getsource(getattr(run, name))
-    body, n_pkg = re.subn(r"\bpaddle_tpu\b", "paddle_tpu_torch", body)
-    body, n_imp = re.subn(r"^\s*import jax\n", "", body, flags=re.M)
-    body, n_dev = re.subn(r"\bjax\.devices\(\)", "port_devices()", body)
-    if re.search(r"\bjax\b", body):
-        raise RuntimeError(f"run.py {name}: jax left in the body")
+    run = _run_py_module()
     ns = dict(vars(run))
     ns["port_devices"] = devices
-    exec(compile(body, f"run.py:{name}", "exec"), ns)
-    return ns[name], ns, (n_pkg, n_imp, n_dev)
+    subs = _run_py_define(run, ns, name)
+    return ns[name], ns, subs
 
 
 def _last_json(text):
@@ -5548,6 +5612,290 @@ def phase_input_path(torch, np, power):
     log(f"PHASE 16 took {time.perf_counter() - t0:.3f}s")
 
 
+# ----------------------------------------------------------- phase 17
+
+# GPT-2 345M with ZeRO stage 2 (benchmarks/run.py config 4): B=8, T=1024,
+# 16 heads of 64
+C4_B, C4_T, C4_H, C4_D = 8, 1024, 16, 64
+
+
+def phase_config4_flash(torch, power, records):
+    """Phase 17 (a): the flash kernels at config 4's attention shape,
+    bf16 causal, q, k, v as strided views of one qkv tensor (as the model
+    hands them over), against their plain versions under the row gate
+    (with a left-out tile), twice bit-equal, and timed by graph replay
+    beside the bounds, the plain versions, torch sdpa's forward and the
+    library's flash backward. Adds the numbers to the records of rows 5-8
+    under "gpt2_345m"."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, T, H, D = C4_B, C4_T, C4_H, C4_D
+    errs, inputs, plain = check_flash(
+        torch, fa, B, T, H, D, torch.bfloat16, True,
+        f"flash GPT-2 345M B={B} T={T} H={H} D={D} causal", "views", 51)
+    reach = dropped_tile_errs(fa, inputs, plain)
+    del inputs, plain
+    torch.cuda.empty_cache()
+    if min(reach.values()) <= FLASH_BF16_ROW_REL:
+        raise RuntimeError(f"flash bf16 gate {FLASH_BF16_ROW_REL} would pass "
+                           f"a left-out tile at config 4's shape: {reach}")
+    log(f"PHASE 17 flash check bf16 B={B} T={T} H={H} D={D} causal: "
+        + " ".join(f"{n}={g:.3e}" for n, (g, _) in errs.items())
+        + " (worst row RMS err / row RMS; lse max abs err); max abs err "
+        + " ".join(f"{n}={m:.3e}" for n, (_, m) in errs.items())
+        + f"; gate {FLASH_BF16_ROW_REL:.3e} against a left-out 64-row tile "
+        f"(o) {reach['o']:.3e}, (dv) {reach['dv']:.3e}")
+    t, bounds, lib_err = flash_shape_times(torch, fa, B, T, H, D, True, 52,
+                                           "views")
+    c4 = flash_shape_record(errs, t, bounds, B, T, H, D, True)
+    for rec in records:
+        rec["gpt2_345m"] = c4[rec["name"]]
+    log(f"PHASE 17 flash [{power}] B={B} T={T} H={H} D={D} bf16 causal "
+        f"(graph replay, ms): " + flash_shape_log(t, bounds, lib_err)
+        + f"; per config 4 step (24 layers) "
+        f"{24 * (t['fwd'] + t['pair']):.3f} ms")
+
+
+def _worst_param(gpu, cpu, hidden):
+    """(error / reference, name) of the worst parameter of `gpu` against
+    `cpu` ({name: tensor}): each against its own largest value, the key
+    third of a qkv bias (whose gradient is 0 in exact arithmetic, so it
+    moves by rounding alone) against the largest value of all."""
+    top = max(float(c.detach().abs().max()) for c in cpu.values())
+    worst = (0.0, "")
+    for name, c in cpu.items():
+        g, c = gpu[name].detach().cpu(), c.detach()
+        parts = [(g, c, float(c.abs().max()))]
+        if name.endswith("attn.qkv.bias"):
+            k = slice(hidden, 2 * hidden)
+            parts = [(g[:hidden], c[:hidden], float(c.abs().max())),
+                     (g[k], c[k], top),
+                     (g[2 * hidden:], c[2 * hidden:], float(c.abs().max()))]
+        for a, b, ref in parts:
+            err = float((a - b).abs().max())
+            worst = max(worst, (err / max(ref, 1e-12), name))
+    return worst
+
+
+def phase_strategy_parity(torch, np):
+    """Phase 17 (b): a narrow GPT (hidden 128, 2 layers, 2 heads of 64,
+    V=512, T=512, B=4, so sdpa routes to the flash kernels) on the card
+    in fp32 with TF32 off against the port on the CPU from the same numpy
+    weights, through the one-device strategies: gradient merge (k_steps
+    4, avg on and off; Momentum(0.1), two steps), the lamb and lars swaps
+    (of Adam(1e-3), two steps), and fleet.init -> distributed_model ->
+    distributed_optimizer(Momentum(0.1)) -> minimize (one eager step).
+    Gates: the losses within TRAIN_LOSS_TOL, every parameter within
+    TRAIN_GRAD_REL of its largest value (`_worst_param`), the swapped
+    class, and each flash kernel launched layers x microbatches x steps
+    times on the card."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.distributed.fleet as fleet
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, init_params_numpy
+
+    cfg = GPTConfig(vocab_size=512, max_seq_len=512, hidden=128, layers=2,
+                    heads=2)
+    arrays = init_params_numpy(cfg, seed=3)
+    ids = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (4, 512)).astype(np.int64)
+
+    def run(device, case):
+        ptt.set_device(device)
+        model = GPT(cfg).load_numpy(arrays)
+        s = fleet.DistributedStrategy()
+        if case == "fleet":
+            fleet.init(is_collective=True, strategy=s)
+            net = fleet.distributed_model(model)
+            o = fleet.distributed_optimizer(opt.Momentum(
+                learning_rate=0.1, parameters=net.parameters()))
+            loss = net.loss(ids, ids)
+            o.minimize(loss)
+            fleet.clear_grad()
+            return [float(loss.detach())], dict(model.named_parameters()), \
+                type(o._inner).__name__
+        if case.startswith("merge"):
+            s.gradient_merge = True
+            s.gradient_merge_configs.k_steps = 4
+            s.gradient_merge_configs.avg = case == "merge_avg"
+            o = opt.Momentum(learning_rate=0.1,
+                             parameters=model.parameters())
+        else:
+            setattr(s, case, True)
+            o = opt.Adam(learning_rate=1e-3, parameters=model.parameters())
+        prog = fleet.compile_train_step(model, o, s)
+        d = prog._put_data(ids)
+        losses = [float(prog.step(d, d)) for _ in range(2)]
+        return losses, dict(model.named_parameters()), \
+            type(prog._opt).__name__
+
+    cases = {"merge_avg": (4, 2, "Momentum"), "merge_sum": (4, 2, "Momentum"),
+             "lamb": (1, 2, "Lamb"), "lars": (1, 2, "Lars"),
+             "fleet": (1, 1, "Momentum")}
+    lines = []
+    for case, (micro, steps, cls) in cases.items():
+        zero_counts()
+        gl, gp, gcls = run("cuda", case)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        cl, cp, ccls = run("cpu", case)
+        ptt.set_device("cuda")
+        want = {k: 0 for k in counts}
+        want.update({k: cfg.layers * micro * steps for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")})
+        dl = max(abs(a - b) for a, b in zip(gl, cl))
+        worst = _worst_param(gp, cp, cfg.hidden)
+        if counts != want or gcls != ccls or gcls != cls or \
+                dl > TRAIN_LOSS_TOL or worst[0] > TRAIN_GRAD_REL:
+            raise RuntimeError(
+                f"phase 17 {case}: launches {counts} (want {want}), "
+                f"optimizer {gcls}/{ccls} (want {cls}), losses {gl} vs {cl} "
+                f"(gate {TRAIN_LOSS_TOL}), worst parameter {worst} (gate "
+                f"{TRAIN_GRAD_REL})")
+        lines.append(f"{case}: {cls}, losses {gl} vs cpu {cl} (diff "
+                     f"{dl:.3e}), worst parameter {worst[1]} at "
+                     f"{worst[0]:.3e} of its largest, flash launches "
+                     f"{cfg.layers} x {micro} x {steps}")
+    log("PHASE 17 strategy parity: GPT hidden=128 layers=2 heads=2 V=512 "
+        "T=512 B=4 fp32 (TF32 off), cuda vs cpu from one set of numpy "
+        f"weights (gates {TRAIN_LOSS_TOL} / {TRAIN_GRAD_REL}): "
+        + "; ".join(lines))
+    torch.cuda.empty_cache()
+
+
+def phase_config4(torch, np, power, records):
+    """Phase 17 (c), the slice: run.py config 4's own body at full width,
+    `config4_gpt2_345m_zero2(False)` with run.py's `_compiled_lm`, both
+    with their imports pointed at the port (GPT-2 345M, paddle.seed(0)
+    weights, B=8, T=1024, AMP O2 pure bf16, sharding stage 2, Adam(1e-4),
+    compile_train_step, run.py's `_timed_steps(2, 10)`), its `_peak_flops`
+    set to 989 TFLOP/s. Gates: one device, prog.mesh.shape["dp"] == 1,
+    the strategy's sharding_stage() == 2, finite losses, fp32 parameters
+    and Adam moments (the masters of the bf16 compute), 24 launches a step
+    of each flash kernel and none of any other kernel, no host sync inside
+    a step (torch's sync debug mode "error"), and run.py's MFU equal to
+    the one computed here. Prints run.py's JSON record, ms per step, the
+    MFU, peak memory, a step's device time by kernel group and the busy
+    share; sets the launches a step in the records' "gpt2_345m"."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import device as device_mod
+
+    ptt.set_device("gpu")
+    run = _run_py_module()
+    # run.py's _mfu reads _peak_flops from its own module: the card's
+    # peak, not bench.py's TPU table (bench.py is the JAX package's)
+    run._peak_flops = lambda: BF16_FLOPS_PER_S
+    ns = dict(vars(run))
+    ns["port_devices"] = lambda: [device_mod.default_device()]
+    subs = {name: _run_py_define(run, ns, name)
+            for name in ("_compiled_lm", "config4_gpt2_345m_zero2")}
+    if subs != {"_compiled_lm": (4, 1, 1),
+                "config4_gpt2_345m_zero2": (3, 0, 0)}:
+        raise RuntimeError(f"phase 17 substitutions {subs}")
+    seen = {}
+    compiled, timed = ns["_compiled_lm"], ns["_timed_steps"]
+
+    def compiled_lm(model_cfg_fn, strategy_fn, B, T, smoke):
+        def strat(n):
+            seen.update(n_devices=n, strategy=strategy_fn(n))
+            return seen["strategy"]
+        tps, prog = compiled(model_cfg_fn, strat, B, T, smoke)
+        seen.update(prog=prog, B=B, T=T)
+        return tps, prog
+
+    def timed_steps(step_fn, n_short=2, n_long=10):
+        losses = []
+
+        def step():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = step_fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            losses.append(out)
+            return out
+        seen.update(step=step_fn, losses=losses, n=(n_short, n_long))
+        seen["dt"] = timed(step, n_short, n_long)
+        return seen["dt"]
+
+    ns["_compiled_lm"], ns["_timed_steps"] = compiled_lm, timed_steps
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, out = _captured(ns["config4_gpt2_345m_zero2"], False)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rec = _last_json(out)
+    prog, s = seen["prog"], seen["strategy"]
+    model = prog.layer
+    B, T, L = seen["B"], seen["T"], model.cfg.layers
+    n = timed_step_count(*seen["n"])
+    vals = [float(v) for v in seen["losses"]]
+    want = {k: 0 for k in counts}
+    want.update({k: L * n for k in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")})
+    fpt = model.flops_per_token(T)
+    tokens_s = B * T / seen["dt"]
+    mfu = tokens_s * fpt / BF16_FLOPS_PER_S
+    dtypes = ({str(p.dtype) for p in model.parameters()},
+              {str(prog._opt.state(p)[m].dtype) for p in model.parameters()
+               for m in ("moment1", "moment2")})
+    if seen["n_devices"] != 1 or prog.mesh.shape["dp"] != 1 or \
+            s.sharding_stage() != 2 or len(vals) != n or \
+            not all(math.isfinite(v) for v in vals) or counts != want or \
+            dtypes != ({"torch.float32"}, {"torch.float32"}) or \
+            rec["config"] != "4_gpt2_345m_zero2" or rec["dp"] != 1 or \
+            rec["mfu"] != round(mfu, 4) or (B, T, L) != (8, 1024, 24):
+        raise RuntimeError(
+            f"phase 17 config 4: devices {seen['n_devices']}, mesh "
+            f"{prog.mesh}, sharding stage {s.sharding_stage()}, losses "
+            f"{vals} over {n} steps, launches {counts} (want {want}), "
+            f"dtypes {dtypes}, record {rec} (MFU here {mfu:.6f}), "
+            f"B, T, layers {B, T, L}")
+    for r in records:
+        r["gpt2_345m"]["launches"] = counts.get(
+            r["name"], counts["flash_attention_bwd_dq"]) // n
+    ms = seen["dt"] * 1e3
+    log(f"PHASE 17 config 4 [{power}] run.py config4_gpt2_345m_zero2 + "
+        f"_compiled_lm: GPT(gpt2_345m()) ({model.num_params()} params), "
+        f"B={B} T={T}, AMP O2 pure bf16, sharding stage "
+        f"{s.sharding_stage()}, Adam(1e-4), mesh {dict(prog.mesh.shape)}: "
+        f"{rec['value']} tokens/s, ms_per_step {ms:.3f} (run.py's "
+        f"_timed_steps{seen['n']}), {n} steps, losses {vals[0]:.4f} .. "
+        f"{vals[-1]:.4f}; MFU {mfu:.4f} (x flops_per_token({T})={fpt} / "
+        f"989e12; run.py's _mfu {rec['mfu']}); max_memory_allocated {peak} "
+        f"B; parameters and Adam moments fp32; launches {counts} (= per "
+        f"step x {n}); no host sync in a step; {wall:.3f}s")
+
+    prof = profile_kernels(torch, seen["step"], 2)
+    total = sum(us for us, _ in prof.values())
+    groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
+              "flash_attention_bwd_dkv": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, (us, _) in prof.items():
+        if flash_group(name):
+            groups[flash_group(name)] += us
+        elif any(w in name.lower() for w in ("gemm", "xmma", "cutlass",
+                                              "nvjet")):
+            groups["gemm"] += us
+        else:
+            groups["other"] += us
+    top = "; ".join(f"{k[:70]} {us:.1f}us x{c:g}" for k, (us, c) in sorted(
+        prof.items(), key=lambda kv: -kv[1][0])[:12])
+    flash_ms = sum(v for k, v in groups.items() if k.startswith("flash"))
+    log(f"PHASE 17 step breakdown [{power}] (torch.profiler, 2 steps): "
+        f"device_ms_per_step {total / 1e3:.3f} of which " + ", ".join(
+            f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+        + f"; flash kernels {flash_ms / 1e3:.3f} ({flash_ms / total:.3f}); "
+        f"busy share {total / 1e3 / ms:.3f} of the marginal step; top "
+        f"kernels per step: {top}")
+    log(out.strip().splitlines()[-1])
+    del prog, model, seen, s
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5727,6 +6075,14 @@ def main():
     # phase 16: the training input path (worker DataLoader, device
     # prefetch, transforms, folders) and the other optimizers, summary
     phase_input_path(torch, np, power)
+
+    # phase 17: run.py config 4 (GPT-2 345M, ZeRO stage 2) and the
+    # strategies that run on one device
+    t0 = time.perf_counter()
+    phase_config4_flash(torch, power, flash_records)
+    phase_strategy_parity(torch, np)
+    phase_config4(torch, np, power, flash_records)
+    log(f"PHASE 17 took {time.perf_counter() - t0:.3f}s")
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

@@ -75,6 +75,7 @@ from .core.autograd import grad
 from .ops import *  # noqa: F401,F403  (the tensor function library)
 from .ops import einsum  # noqa: F401
 
+from .distributed.parallel import DataParallel  # noqa: F401
 from .framework import ParamAttr, load, save
 from .hapi import Model, callbacks, flops, summary
 from . import device, inference, observability, quant, utils  # noqa: F401

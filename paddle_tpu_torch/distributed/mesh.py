@@ -6,7 +6,7 @@ returns a `Mesh` whose axes all have size 1: code that reads
 ``mesh.shape.get("dp", 1)`` or passes a one-device mesh to
 `compile_train_step` (benchmarks/run.py's configs 2 and 3) runs
 unchanged. A mesh over more than one device, or with an axis larger than
-1, needs collectives over NCCL (ROADMAP queue 1 item 8) and raises
+1, needs collectives over NCCL (ROADMAP queue 1 item 7) and raises
 `NotImplementedError`. `named_sharding` is not ported.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ from ..core.device import default_device, resolve_device
 __all__ = ["Mesh", "build_mesh", "set_mesh", "get_mesh"]
 
 _MULTI = ("only a one-device mesh is ported to paddle_tpu_torch; more "
-          "devices need NCCL collectives (ROADMAP queue 1 item 8)")
+          "devices need NCCL collectives (ROADMAP queue 1 item 7)")
 
 
 class Mesh:

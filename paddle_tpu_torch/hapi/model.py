@@ -180,8 +180,13 @@ class Model:
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, strategy=None):
         """Build the train step (when there is an optimizer) on the
-        default device. Strategy toggles the port does not run, and
-        amp_configs it cannot express, raise `NotImplementedError`."""
+        default device. The strategy's one-device toggles (sharding,
+        pipeline at pp_degree 1, gradient_merge, the lars / lamb swaps)
+        run as `compile_train_step` runs them; `network` may be a
+        `fleet.distributed_model` layer or a `DataParallel`, and
+        `optimizer` a `fleet.distributed_optimizer`. Toggles the port does
+        not run, and amp_configs it cannot express, raise
+        `NotImplementedError`."""
         self._metrics = _as_list(metrics)
         for m in self._metrics:
             if not isinstance(m, Metric):
@@ -443,11 +448,18 @@ class Model:
         if self._optimizer is not None:
             opt_sd = {"LR_Scheduler": self._optimizer._scheduler_state(),
                       "functional_state": stacked_layout(
-                          self._optimizer.functional_state(
+                          self._slot_optimizer().functional_state(
                               self.network.named_parameters()),
                           self.network)}
             with open(path + ".pdopt", "wb") as f:
                 pickle.dump(opt_sd, f, protocol=4)
+
+    def _slot_optimizer(self):
+        """The optimizer whose slots the train step updates: the
+        strategy's `lamb` / `lars` swap makes it another than the one
+        given to `prepare`, as in the JAX package."""
+        return self._prog._opt if self._prog is not None else \
+            self._optimizer
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         """Load ``{path}.pdparams`` into the network (a shape mismatch
@@ -475,7 +487,7 @@ class Model:
             # (a JAX file may also carry the eager optimizer's slots)
             self._optimizer.set_state_dict(opt_sd)
             if fs:
-                self._optimizer.set_functional_state(
+                self._slot_optimizer().set_functional_state(
                     self.network.named_parameters(),
                     indexed_layout(fs, self.network))
         return self

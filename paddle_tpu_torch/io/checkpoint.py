@@ -79,7 +79,7 @@ def _no_mesh(mesh, shardings):
     if mesh is not None or shardings:
         raise NotImplementedError("mesh= / shardings=: multi-GPU restore is "
                                   "not ported to paddle_tpu_torch (one "
-                                  "device)")
+                                  "device; ROADMAP queue 1 item 7)")
 
 
 # -- integrity plumbing -------------------------------------------------------

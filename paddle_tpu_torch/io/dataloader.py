@@ -346,12 +346,13 @@ def _pack_batch(data, name):
 
 
 def _unlink(name):
+    """Remove segment `name` by name alone: a worker stopped between
+    creating a segment and sizing it leaves an empty one, which
+    `SharedMemory` cannot open (it maps what it opens)."""
     try:
-        seg = shm_mod.SharedMemory(name=name)
+        shm_mod._posixshmem.shm_unlink("/" + name)
     except FileNotFoundError:
-        return
-    seg.close()
-    seg.unlink()
+        pass
 
 
 def _unpack_batch(msg: _ShmBatch):
@@ -453,6 +454,9 @@ class _Pool:
                 w.terminate()
         for w in self.workers:
             w.join(timeout=5.0)
+            if w.is_alive():            # SIGTERM not taken in time
+                w.kill()
+                w.join()
         self.workers = []
         try:
             while True:

@@ -235,7 +235,7 @@ class Bert(Layer):
         """Tensor-parallel PartitionSpecs need a multi-device mesh."""
         raise NotImplementedError(
             "Bert.param_shardings: tensor parallelism is not ported to "
-            "paddle_tpu_torch (ROADMAP queue 1 item 8)")
+            "paddle_tpu_torch (ROADMAP queue 1 item 7)")
 
     def load_numpy(self, arrays: Mapping[str, np.ndarray]):
         """Load the JAX Bert's weights as numpy arrays (its raw stacked

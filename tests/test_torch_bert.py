@@ -279,7 +279,7 @@ def test_ernie_base_is_config3s_model():
     n = sum(int(np.prod(s)) for s in param_shapes(cfg).values())
     assert n == 99_903_744
     assert 6 * n + 12 * cfg.layers * cfg.hidden * 512 == 656_045_568
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         Bert(bert_tiny()).param_shardings({})
 
 
@@ -418,7 +418,7 @@ def test_one_device_mesh_and_nothing_larger():
                  lambda: s.build_mesh(devices=[cpu, cpu]),
                  lambda: compile_train_step(net, adam, s, "mlm_loss",
                                             mesh=object())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             call()
 
 

@@ -7,7 +7,6 @@ an early `break` leaving no process or segment behind, and `timeout`.
 Every test bounds its waits: the loader's `timeout` and a join timeout
 on each worker. The datasets are in tests/torch_io_cases.py (numpy
 only), which the workers import."""
-import multiprocessing as mp
 import os
 import time
 
@@ -27,24 +26,51 @@ import torch_io_cases as C                                    # noqa: E402
 TIMEOUT = 60          # seconds: the loader's own bound on a batch
 
 
+# the worker pools the current test's loaders started, with every worker
+# each one had (a pool forgets its workers at shutdown)
+_POOLS = []
+
+
+class _RecordedPool(dl_mod._Pool):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.started = []
+        _POOLS.append(self)
+
+    def shutdown(self):
+        self.started += [w for w in self.workers if w not in self.started]
+        super().shutdown()
+
+
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
     monkeypatch.setattr(tdevice, "_DEFAULT", [torch.device("cpu")])
+    monkeypatch.setattr(dl_mod, "_Pool", _RecordedPool)
+    _POOLS.clear()
+    yield
+    _POOLS.clear()
 
 
 def _segments():
+    """The shared-memory segments of this test's loaders still on disk
+    (each pool names its segments under its own `shm_base`)."""
     if not os.path.isdir("/dev/shm"):
         return []
-    return sorted(n for n in os.listdir("/dev/shm")
-                  if n.startswith(dl_mod.SHM_PREFIX + f"{os.getpid()}_"))
+    bases = tuple(p.shm_base for p in _POOLS)
+    return sorted(n for n in os.listdir("/dev/shm") if bases and
+                  n.startswith(bases))
 
 
 def _workers_gone(deadline=15.0):
-    """Every child process has exited (joined within `deadline`)."""
+    """Every worker process of this test's loaders has exited (joined
+    within `deadline`)."""
+    def alive():
+        return [w for p in _POOLS for w in p.started + p.workers
+                if w.is_alive()]
     t0 = time.monotonic()
-    while mp.active_children() and time.monotonic() - t0 < deadline:
+    while alive() and time.monotonic() - t0 < deadline:
         time.sleep(0.05)
-    return not mp.active_children()
+    return bool(_POOLS) and not alive()
 
 
 def _flat(batch):
@@ -293,6 +319,25 @@ def test_early_break_leaves_no_process_or_segment():
     del it
     assert _workers_gone()
     assert not _segments()
+
+
+def test_shutdown_sweeps_an_empty_segment():
+    """A worker stopped between creating its segment and sizing it leaves
+    an empty one, which cannot be mapped: the shutdown's sweep removes it
+    by name, and then the rest of the pool's segments."""
+    from multiprocessing import shared_memory as shm_mod
+    loader = tio.DataLoader(C.Arrays(40), batch_size=4, num_workers=2,
+                            timeout=TIMEOUT)
+    it = iter(loader)
+    next(it)
+    pool = _POOLS[-1]
+    name = pool.shm_base + "0_999"
+    os.close(shm_mod._posixshmem.shm_open(
+        "/" + name, os.O_CREAT | os.O_EXCL | os.O_RDWR, mode=0o600))
+    assert name in _segments()
+    pool.shutdown()
+    assert _workers_gone() and not _segments()
+    del it
 
 
 def test_iterable_dataset_in_workers_and_fork_flag():

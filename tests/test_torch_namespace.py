@@ -18,6 +18,7 @@ import paddle_tpu  # noqa: E402,F401
 import paddle_tpu_torch  # noqa: E402,F401
 
 ITEM5 = "queue 1 item 5.4: the predictor API"
+ITEM5_2 = "queue 1 item 5.2: host-RAM KV tiering"
 ITEM6 = "queue 1 item 6: the profiler and the rest of observability"
 ITEM7 = "queue 1 item 7: multi-GPU over NCCL"
 ITEM8 = "queue 1 item 8: export and static graph"
@@ -33,7 +34,6 @@ def _group(reason, names):
 EXPECTED_ABSENT = {
     "": {
         **_group(ITEM6, "monitor profiler"),
-        **_group(ITEM7, "DataParallel"),
         **_group(ITEM8, "jit onnx data"),
         **_group(ITEM10, """
             legacy_alias create_global_var create_parameter crop_tensor
@@ -143,6 +143,60 @@ EXPECTED_ABSENT = {
             serialize_program set_program_state xpu_places"""),
         **_group(IMPL, "dtype_mod"),
     },
+    "distributed": {
+        **_group(ITEM7, """
+            CountFilterEntry EntryAttr FileStore PipelineLayer
+            ProbabilityEntry ReduceOp Store TCPStore all_gather all_reduce
+            alltoall broadcast cloud_utils collective elastic entry_attr
+            get_group named_sharding new_group p2p pipeline pipeline_spmd
+            recv reduce reduce_scatter scatter send sequence_parallel
+            sharding spawn stack_stage_params store"""),
+        **_group(ITEM10, "InMemoryDataset QueueDataset"),
+    },
+    "distributed.fleet": {
+        **_group(ITEM7, "data_generator dataset metrics"),
+        **_group(IMPL, "jax"),
+    },
+    "observability": _group(ITEM6, """
+        ExecProfiler FlightRecorder MEM_RING MemRing Objective PROFILER RING
+        SLOEngine SpanRecorder TimeSeriesStore TraceRing capture_oom
+        capture_thread_stacks fetch_memz fetch_trace flight_recorder
+        install_default_collectors load_trace memz merge_memz merge_traces
+        next_request_id oom_dumps profilez register_pool request_id_base
+        ring_capacity router_objectives serve_objectives slo
+        slo_burn_factors slo_windows spans stall_dump_dir stall_timeout
+        timeseries trace_sample_rate tracez varz_capacity varz_interval"""),
+    "nn.initializer": {
+        **_group(ITEM9, """
+            Assign Bilinear Dirac Initializer KaimingNormal KaimingUniform
+            Orthogonal TruncatedNormal Uniform XavierUniform assign
+            calculate_gain constant kaiming normal set_global_initializer
+            uniform xavier"""),
+        **_group(IMPL, "Tensor dtype_mod jax jnp np random_mod"),
+    },
+    "utils": {
+        **_group(ITEM6, "Profiler ProfilerOptions get_profiler"),
+        **_group(ITEM10, """
+            OpLastCheckpointChecker collective_bench compat cpp_extension
+            custom_op deprecated download dump_config op_bench register_op
+            require_version retry run_check try_import unique_name"""),
+    },
+    "quant": {
+        **_group(ITEM10, """
+            Int8Linear PTQ QAT QATLinear fake_quant_abs_max quanted_layers"""),
+        **_group(IMPL, "F Tensor annotations apply jax jnp nn np"),
+        **_group("not paddle API: a JAX ShapeDtypeStruct for AOT tracing",
+                 "kv_pool_sds"),
+    },
+    "memory": _group(ITEM5_2, """
+        HostPageStore MigrationEngine MigrationTicket Residency
+        TieredPageAllocator migration"""),
+    "device": {
+        **_group(ITEM10, """
+            CPUPlace Place TPUPlace device_count get_all_device_type
+            is_compiled_with_cuda is_compiled_with_tpu synchronize"""),
+        **_group(IMPL, "annotations jax"),
+    },
     "vision": _group(ITEM9, "ops"),
     "vision.models": _group(ITEM9, """
         VGG vgg vgg11 vgg13 vgg16 vgg19 MobileNetV1 MobileNetV2 mobilenet
@@ -161,6 +215,7 @@ ABSENT_MODULES = {
     "text": ITEM10,
     "distribution": ITEM10,
     "incubate": ITEM10,
+    "static.nn": ITEM8,
 }
 
 

@@ -35,7 +35,6 @@ import paddle_tpu_torch.nn as tnn                             # noqa: E402
 import paddle_tpu_torch.optimizer as topt                     # noqa: E402
 from paddle_tpu_torch.core import device as tdevice           # noqa: E402
 from paddle_tpu_torch.distributed.fleet import DistributedStrategy  # noqa: E402
-from paddle_tpu_torch.distributed.fleet.strategy import _UNPORTED  # noqa: E402
 from paddle_tpu_torch.hapi import Model as TModel             # noqa: E402
 from paddle_tpu_torch.hapi import callbacks as tcbks          # noqa: E402
 from paddle_tpu_torch.io import TensorDataset as TTensorDataset  # noqa: E402
@@ -368,12 +367,23 @@ def test_o2_dtypes_along_the_gpt_path(monkeypatch):
 
 # ------------------------------------------------------ (vii) strategy
 
-@pytest.mark.parametrize("toggle", list(_UNPORTED) + [
-    "recompute", "recompute_policy", "dp_degree", "mp_degree",
-    "sharding_degree", "custom_white_list", "custom_black_list"])
+# the JAX strategy's toggles: what each does at prepare on one device
+_RUNS = ("sharding", "pipeline", "gradient_merge", "lars", "lamb")
+_MULTI = ("tensor_parallel", "sequence_parallel", "expert_parallel",
+          "localsgd", "adaptive_localsgd", "dgc", "fp16_allreduce",
+          "dp_degree", "mp_degree", "pp_degree", "sharding_degree")
+
+
+@pytest.mark.parametrize("toggle", list(_RUNS) + list(_MULTI) + [
+    "recompute", "recompute_policy", "custom_white_list",
+    "custom_black_list"])
 def test_unported_strategy_toggles_raise_at_prepare(toggle):
-    """Recompute runs per block with the dots_saveable / nothing_saveable
-    policies; named checkpoints and other policies raise."""
+    """Each toggle of the JAX strategy at `Model.prepare`. On one device
+    sharding (stage 2 by default), pipeline (pp_degree 1), gradient_merge
+    and the lars / lamb swaps build the step; what needs more devices
+    raises naming ROADMAP queue 1 item 7; recompute runs per block with
+    the dots_saveable / nothing_saveable policies, and named checkpoints,
+    other policies and custom AMP op lists raise."""
     s = DistributedStrategy()
     if toggle == "recompute":
         s.recompute = True
@@ -387,10 +397,26 @@ def test_unported_strategy_toggles_raise_at_prepare(toggle):
         setattr(s.amp_configs, toggle, ["gelu"])
     else:
         setattr(s, toggle, True)
+    if toggle == "gradient_merge":
+        s.gradient_merge_configs.k_steps = 2
     _, tgpt = _pair()
     model = TModel(_TLoss(tgpt))
-    with pytest.raises(NotImplementedError):
-        model.prepare(topt.Adam(parameters=model.parameters()), strategy=s)
+    adam = topt.Adam(parameters=model.parameters())
+    if toggle not in _RUNS:
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 7" if toggle in _MULTI
+                           else "not ported"):
+            model.prepare(adam, strategy=s)
+        return
+    model.prepare(adam, strategy=s)
+    prog = model._prog
+    assert dict(prog.mesh.shape) == {"pp": 1, "dp": 1, "ep": 1, "sp": 1,
+                                     "tp": 1}
+    assert s.sharding_stage() == (2 if toggle == "sharding" else 0)
+    assert prog._k_merge == (2 if toggle == "gradient_merge" else 1)
+    want = {"lars": topt.Lars, "lamb": topt.Lamb}.get(toggle, topt.Adam)
+    assert type(prog._opt) is want
+    assert (prog._opt is adam) == (toggle not in ("lars", "lamb"))
 
 
 def test_unported_model_surface_raises(tmp_path):
