@@ -359,11 +359,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      host sync in a step, run.py's MFU equal to the one computed here;
      its JSON record, ms per step, MFU, peak memory, a step's device time
      by kernel group and the busy share;
- 18. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 18. the serving engine's multi-tenant QoS, host-RAM KV tier and KV
+     handoff: (a) GPT-2 124M on the seed-0 weights, fp32 pages, 8 slots,
+     16-token pages, a device pool of 88 pages (the slots' working set, a
+     quarter or less of the 424 pages of KV of the 50 streams in flight)
+     over a pinned host tier of 400 pages; tenants b then a (weights 1
+     and 3) queue 20 fresh 96-token prompts each at once (32 new tokens),
+     after the first stream's 8th token two tenant-c requests at priority
+     5 preempt, then 8 conversations return with prompt + answer + 16
+     tokens: every stream within LOGIT_TOL of a full forward
+     (teacher-forced), spills, restores and preemptions each >= 1, every
+     restored page's crc32 on the device equal to the one it was spilled
+     with, launches equal to expected_counts, and tenant a's share of the
+     admissions made while both tenants had fresh requests queued (after
+     the slots' first fill) >= QOS_SHARE_MIN; tokens/s, spill and restore
+     MB/s and ms a page, and the tier's copies alone on the idle card
+     beside one bulk pinned copy each way; (b) the same on int8 weights
+     and int8 pages (both int8 leaves of a page cross the tier) at 4
+     slots and 12 prompts a tenant, within INT8_LOGIT_TOL; (c) two
+     in-process InferenceServers over a save_for_decode artifact of the
+     seed-0 weights, role prefill and role decode, warmed up: kv_export,
+     kv_handoff, then the decode stream on that connection; the landed
+     pages crc32-equal to the exported ones, no prefill on the decode
+     worker and its prefix-hit tokens 16 x the exported pages, the stream
+     teacher-forced; (b)'s int8 payload refused with FAILED_PRECONDITION
+     naming kv_dtype, and that stream then prefilled; handoff ms (client
+     and in the engines) and bytes;
+ 19. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
      fused backward; rows 5-8 carry phase 12's shape under "ernie" and
      phase 17's under "gpt2_345m");
- 19. last line {"ok": true, "device": {...}}.
+ 20. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -1205,16 +1231,16 @@ def phase_decode_attention(torch, np):
 
 # ------------------------------------------------------------ phase 3
 
-def teacher_forced(torch, model, prompt, out):
+def teacher_forced(torch, model, prompt, out, device="cuda"):
     """Largest gap between the max logit and the chosen token's logit of a
     full forward over prompt + out, at every generated position."""
-    toks = torch.tensor([list(prompt) + list(out)], device="cuda")
+    toks = torch.tensor([list(prompt) + list(out)], device=device)
     logits = model(toks)[0]
     if not torch.isfinite(logits).all():
         raise RuntimeError("full forward produced non-finite logits")
     rows = logits[len(prompt) - 1:len(prompt) - 1 + len(out)]
-    chosen = rows[torch.arange(len(out), device="cuda"),
-                  torch.tensor(out, device="cuda")]
+    chosen = rows[torch.arange(len(out), device=device),
+                  torch.tensor(out, device=device)]
     return (rows.max(dim=-1).values - chosen).max().item()
 
 
@@ -5896,6 +5922,475 @@ def phase_config4(torch, np, power, records):
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------- phase 18: QoS, tier, handoff
+
+QOS_WEIGHTS = "a:3,b:1"     # phase 18's two tenants, weighted 3:1
+# tenant a's share of the admissions made while both tenants still had
+# fresh requests queued, after the slots' first fill, must reach this; the
+# weights give 0.75, the JAX test (tests/test_decode_qos.py:241-281, 4:1
+# weights behind one slot) asks 6 of the first 10, 0.6. The first fill is
+# made at equal virtual time (nothing served yet), so it goes to the
+# tenant queued first — b, the light one — in both packages
+QOS_SHARE_MIN = 0.6
+
+
+def page_crcs(torch, eng, pages):
+    """crc32 chain of each of `pages` over every pool of `eng` (the
+    handoff's per-page checksum, `memory.migration.serialize_pages`)."""
+    from paddle_tpu_torch.memory.migration import serialize_pages
+    from paddle_tpu_torch.memory.page_allocator import gather_pages
+    ids = torch.tensor(list(pages), dtype=torch.long)
+    chunk = tuple(gather_pages(p, ids) for p in eng._pools())
+    return serialize_pages(chunk, len(pages))[1]["crcs"]
+
+
+def tier_audit(torch, eng):
+    """Record the crc32 of every page the engine spills (from the gathered
+    snapshot it hands the migration worker) and, at every restore, hold
+    each restored page's crc32 on the device to the one it was spilled
+    with. Returns the audit dict (spilled, restored, mismatches)."""
+    from paddle_tpu_torch.memory.migration import serialize_pages
+    audit = {"spilled": {}, "restored": 0, "mismatch": []}
+    spill, restore = eng._migrate.spill, eng._tier_restore
+
+    def spill_rec(chunk, handles, count, on_done=None):
+        crcs = serialize_pages(chunk, count)[1]["crcs"]
+        audit["spilled"].update(zip(handles, crcs))
+        return spill(chunk, handles, count, on_done=on_done)
+
+    def restore_rec(t, req, pinned):
+        ok = restore(t, req, pinned)
+        if ok:
+            for d, h in pinned:
+                ent = eng._prefix._entries.get(d)
+                if ent is None or ent[0] < 0:
+                    continue
+                (crc,) = page_crcs(torch, eng, [ent[0]])
+                audit["restored"] += 1
+                if crc != audit["spilled"].get(h):
+                    audit["mismatch"].append((h, ent[0]))
+        return ok
+    eng._migrate.spill = spill_rec
+    eng._tier_restore = restore_rec
+    return audit
+
+
+def admission_log(eng):
+    """Record, in order, the tenant of each request's first admission
+    attempt and how many fresh requests of each tenant were still queued
+    then."""
+    log_, seen, admit = [], set(), eng._admit
+
+    def recording(req):
+        if req.id not in seen:
+            seen.add(req.id)
+            queued = {}
+            with eng._cond:
+                for r in eng._pending:
+                    queued[r.tenant] = queued.get(r.tenant, 0) + 1
+            log_.append((req.tenant, queued))
+        return admit(req)
+    eng._admit = recording
+    return log_
+
+
+def serving_qos_run(torch, np, power, cfg, eng, oracle, tol, tag, int8,
+                    n_per_tenant, plen, max_new, n_turn2, n_hi=2,
+                    device="cuda", before_stop=None):
+    """Phase 18 (a)/(b) on one tiered engine: tenants b then a (weights
+    3:1) each queue `n_per_tenant` fresh `plen`-token prompts at once;
+    after the first stream's 8th token, `n_hi` tenant-c requests at
+    priority 5 preempt; then `n_turn2` conversations come back with
+    prompt + answer + 16 new tokens (their prompt pages are on the host
+    tier by then). Gates: every stream done and teacher-forced within
+    `tol` of the oracle's max logit, spills, restores and preemptions each
+    >= 1, every restored page's crc32 equal to its spilled one, launches
+    equal to `expected_counts`, tenant a's share of the admissions made
+    while both tenants had fresh requests queued, after the slots' first
+    fill, >= QOS_SHARE_MIN.
+    `before_stop(eng)` runs on the idle engine before it stops."""
+    rng = np.random.default_rng(18 if not int8 else 19)
+    vocab = cfg.vocab_size
+    fresh = {t: [[int(x) for x in rng.integers(0, vocab, plen)]
+                 for _ in range(n_per_tenant)] for t in ("b", "a")}
+    hi = [[int(x) for x in rng.integers(0, vocab, plen)]
+          for _ in range(n_hi)]
+    follow = [[int(x) for x in rng.integers(0, vocab, 16)]
+              for _ in range(n_turn2)]
+    eng.warmup()
+    audit = tier_audit(torch, eng)
+    adm = admission_log(eng)
+    before = eng.stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with eng._cond:              # the whole backlog queued before the first
+        streams = {t: [eng.submit(p, max_new_tokens=max_new, tenant=t)
+                       for p in ps] for t, ps in fresh.items()}
+    first = streams["b"][0]
+    for _ in range(8):
+        first.next_event(timeout=600)
+    hi_streams = [eng.submit(p, max_new_tokens=max_new, tenant="c",
+                             priority=5) for p in hi]
+    outs = {t: [s.result(timeout=600) for s in ss]
+            for t, ss in streams.items()}
+    hi_outs = [s.result(timeout=600) for s in hi_streams]
+    wall1 = time.perf_counter() - t0
+    mid = eng.stats()
+    # turn 2: the first conversations of each tenant come back
+    conv = [(t, i) for i in range(n_turn2 // 2) for t in ("a", "b")]
+    turn2 = [fresh[t][i] + outs[t][i] + follow[k]
+             for k, (t, i) in enumerate(conv)]
+    t1 = time.perf_counter()
+    t2_streams = [eng.submit(p, max_new_tokens=max_new, tenant=t)
+                  for p, (t, _) in zip(turn2, conv)]
+    t2_outs = [s.result(timeout=600) for s in t2_streams]
+    wall2 = time.perf_counter() - t1
+    counts = kernel_counts()
+    after = eng.stats()
+    tier = after["kv_tier"]
+    if before_stop is not None:
+        before_stop(eng)
+    eng.stop()
+    bench = tier_copy_bench(torch, eng) if device == "cuda" else None
+    steps = after["steps"] - before["steps"]
+    prefills = after["prefills"] - before["prefills"]
+    want = expected_counts(cfg, steps, prefills, int8)
+    if counts != want or steps == 0:
+        raise RuntimeError(f"{tag}: kernel launches {counts} != {want} "
+                           f"({steps} steps, {prefills} prefills)")
+    pairs = [(p, o) for t in fresh for p, o in zip(fresh[t], outs[t])]
+    pairs += list(zip(hi, hi_outs)) + list(zip(turn2, t2_outs))
+    if any(len(o) != max_new for _, o in pairs):
+        raise RuntimeError(f"{tag}: short streams "
+                           f"{[len(o) for _, o in pairs]}")
+    gaps = [teacher_forced(torch, oracle, p, o, device=device)
+            for p, o in pairs]
+    if max(gaps) > tol:
+        raise RuntimeError(f"{tag}: teacher-forced check failed: {gaps}")
+    preempt = after["preemptions"] - before["preemptions"]
+    spills, restores = tier["spilled_total"], tier["refetched_total"]
+    if min(preempt, spills, restores, audit["restored"]) < 1 \
+            or audit["mismatch"]:
+        raise RuntimeError(
+            f"{tag}: preemptions {preempt}, spills {spills}, restores "
+            f"{restores}, pages crc-checked {audit['restored']}, crc "
+            f"mismatches {audit['mismatch']}")
+    both = [t for t, q in adm[eng.max_slots:] if t in ("a", "b")
+            and q.get("a", 0) and q.get("b", 0)]
+    share = both.count("a") / max(len(both), 1)
+    if len(both) < 8 or share < QOS_SHARE_MIN:
+        raise RuntimeError(f"{tag}: tenant a took {both.count('a')} of "
+                           f"{len(both)} contended admissions ({share:.3f}"
+                           f" < {QOS_SHARE_MIN}): {[t for t, _ in adm]}")
+    page_b = after["kv_page_bytes"]
+    tokens = sum(len(o) for _, o in pairs)
+    n_streams = len(pairs)
+    kv_pages = sum(-(-(len(p) + len(o)) // eng.page_tokens)
+                   for p, o in pairs)
+    log(f"{tag} gpt2_124m kv_dtype={after['kv_dtype']} slots="
+        f"{eng.max_slots} page_tokens={eng.page_tokens} device_pages="
+        f"{eng.num_pages - 1} host_pages={eng.host_pages} (streams "
+        f"{n_streams}, their KV {kv_pages} pages; page {page_b} B; host "
+        f"arena {tier['host_arena_bytes']} B pinned="
+        f"{tier['host_arena_pinned']}) tenants={QOS_WEIGHTS} + c priority 5"
+        f": streams_done={n_streams} tokens={tokens} steps={steps} "
+        f"prefills={prefills} preemptions={preempt} resumes="
+        f"{after['preempt_resumes'] - before['preempt_resumes']} "
+        f"prefix={after['prefix_cache']} kernel_launches={counts} "
+        f"teacher_forced_max_gap={max(gaps):.3e} (gate {tol})")
+    log(f"{tag} admissions: tenant a {both.count('a')} of {len(both)} "
+        f"contended after the first fill of {eng.max_slots} = {share:.3f} "
+        f"(weights give 0.75, gate "
+        f"{QOS_SHARE_MIN}); order {''.join(t for t, _ in adm)}; "
+        f"admissions {after['tenant_admissions']}; vtokens "
+        f"{after['tenants']}")
+    sp_s, rf_s = tier["spill_seconds"], tier["refetch_seconds"]
+    sp_n, rf_n = tier["spill_pages"], tier["refetch_pages"]
+    log(f"{tag} tier [{power}]: spilled {sp_n} pages in {sp_s:.6f}s "
+        f"({sp_n * page_b / max(sp_s, 1e-12) / 1e6:.3f} MB/s, "
+        f"{sp_s / max(sp_n, 1) * 1e3:.6f} ms a page; batch p50 "
+        f"{tier['spill_p50_ms']} p95 {tier['spill_p95_ms']} ms), restored "
+        f"{rf_n} pages in {rf_s:.6f}s ({rf_n * page_b / max(rf_s, 1e-12) / 1e6:.3f} MB/s, "
+        f"{rf_s / max(rf_n, 1) * 1e3:.6f} ms a page; batch p50 "
+        f"{tier['refetch_p50_ms']} p95 {tier['refetch_p95_ms']} ms); "
+        f"{audit['restored']} restored pages crc32-equal to their spills; "
+        f"host pages used at the end {tier['host_pages_used']}")
+    if bench is not None:
+        log(f"{tag} tier copies alone on the idle card [{power}], "
+            f"{bench['pages']} pages ({bench['bytes']} B), best of 5: spill "
+            f"path {bench['spill']:.3f} MB/s, refetch path "
+            f"{bench['refetch']:.3f} MB/s; one bulk pinned copy "
+            f"d2h {bench['d2h_bulk']:.3f} MB/s, h2d {bench['h2d_bulk']:.3f} "
+            f"MB/s")
+    log(f"{tag} [{power}]: turn 1 + preemption {wall1:.6f}s "
+        f"({sum(len(o) for t in outs for o in outs[t]) + sum(map(len, hi_outs))}"
+        f" tokens, {(sum(len(o) for t in outs for o in outs[t]) + sum(map(len, hi_outs))) / wall1:.3f} tokens/s), "
+        f"turn 2 {wall2:.6f}s ({sum(map(len, t2_outs)) / wall2:.3f} tokens/s)")
+    return {"steps": steps, "prefills": prefills, "launches": counts,
+            "spills": spills, "restores": restores, "preemptions": preempt}
+
+
+def tier_copy_bench(torch, eng, n=16, reps=5):
+    """The tier's copies alone, on the stopped engine's pools and pinned
+    arena with the card otherwise idle: `n` pages gathered page-major and
+    put into the arena page by page on a side stream (the spill path),
+    then assembled back (the refetch path), and one bulk copy of the same
+    bytes each way between one device buffer and one pinned buffer (the
+    link). Best of `reps` on the host clock; returns MB/s (1e6 B)."""
+    from paddle_tpu_torch.memory.migration import pool_leaves
+    store, leaves = eng._store, pool_leaves(eng._pools())
+    ids = torch.arange(1, n + 1, device="cuda")
+    side = torch.cuda.Stream()
+    nbytes = n * sum(x[:, 0].numel() * x.element_size() for x in leaves)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def spill():
+        chunk = [x.transpose(0, 1).index_select(0, ids).transpose(0, 1)
+                 for x in leaves]
+        ev = torch.cuda.Event()
+        ev.record()
+        with torch.cuda.stream(side):
+            side.wait_event(ev)
+            for j in range(n):
+                store.put(j, chunk, j)
+        side.synchronize()
+
+    def refetch():
+        with torch.cuda.stream(side):
+            store.assemble(list(range(n)), n, device="cuda")
+        side.synchronize()
+
+    def best(fn):
+        fn()
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return nbytes / min(out) / 1e6
+    return {"spill": best(spill), "refetch": best(refetch),
+            "d2h_bulk": best(lambda: (host.copy_(dev, non_blocking=True),
+                                      torch.cuda.synchronize())),
+            "h2d_bulk": best(lambda: (dev.copy_(host, non_blocking=True),
+                                      torch.cuda.synchronize())),
+            "pages": n, "bytes": nbytes}
+
+
+def serving_engine(torch, cfg, params, eps, int8, n_streams, plen, max_new,
+                   slots=8, pt=16, device="cuda", **kw):
+    """A tiered engine for phase 18: its device pool holds the slots'
+    working set (and at most a quarter of the KV of the `n_streams`
+    streams in flight), its host tier all of that KV."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    per = -(-(plen + 16 + 2 * max_new) // pt)      # a turn-2 stream
+    total = n_streams * -(-(plen + max_new) // pt)
+    device_pages = slots * per
+    if 4 * device_pages > total:
+        raise RuntimeError(f"phase 18 sizing: {device_pages} device pages "
+                           f"> a quarter of {total}")
+    return DecodeEngine(cfg=cfg, params=params, eps=eps, max_slots=slots,
+                        page_tokens=pt, num_pages=device_pages + 1,
+                        host_pages=total, preempt=True,
+                        tenant_weights=QOS_WEIGHTS,
+                        kv_dtype="int8" if int8 else "float32",
+                        max_pending=4 * n_streams, device=device, **kw)
+
+
+def handoff_exchange(np, jport_pre, jport_dec, prompt, opts=None):
+    """kv_export to the prefill server, kv_handoff of its reply to the
+    decode server, then the stream on that connection. Returns (meta,
+    arrays, ack, tokens, export_s, handoff_s)."""
+    from paddle_tpu_torch.inference.serve import (decode_request,
+                                                  read_reply_ctx,
+                                                  write_tensors)
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", jport_pre),
+                                  timeout=600) as s:
+        write_tensors(s, [np.asarray(prompt, np.int32)],
+                      ctx={"trace_id": "phase18", "kv_export": {}})
+        arrays, err, rctx = read_reply_ctx(s)
+    if err is not None:
+        raise RuntimeError(f"kv_export refused: {err}")
+    t1 = time.perf_counter()
+    meta = rctx["kv_export"]
+    with socket.create_connection(("127.0.0.1", jport_dec),
+                                  timeout=600) as s:
+        write_tensors(s, arrays, ctx={"trace_id": "phase18",
+                                      "kv_handoff": meta})
+        ack, err, actx = read_reply_ctx(s)
+        t2 = time.perf_counter()
+        if err is not None:
+            raise RuntimeError(f"kv_handoff refused: {err}")
+        toks = decode_request(s, prompt, opts=opts or {})
+    return meta, arrays, actx["kv_handoff"], toks, t1 - t0, t2 - t1
+
+
+def handoff_stage_seconds():
+    """Seconds the engines have spent in handoff export and import (the
+    paddle_tpu_handoff_seconds histogram's sums, by stage)."""
+    from paddle_tpu_torch.observability import REGISTRY
+    fam = REGISTRY.get("paddle_tpu_handoff_seconds")
+    out = {"export": 0.0, "import": 0.0}
+    for labels, child in (fam.samples() if fam is not None else []):
+        out[labels["stage"]] = child.state()[1]
+    return out
+
+
+def phase_disagg(torch, np, power, cfg, arrays, oracle, int8_payload,
+                 tol=LOGIT_TOL, device="cuda", max_new=32, plen=200):
+    """Phase 18 (c): two in-process `InferenceServer`s on the card over a
+    save_for_decode artifact of the seed-0 weights, role prefill and role
+    decode. A client sends kv_export, kv_handoff, then the decode request.
+    Gates: the landed pages crc-equal to the exported ones, the decode
+    worker prefills nothing and its prefix-hit tokens are the exported
+    pages x 16, the stream teacher-forced within `tol`; an int8 engine's
+    payload (`int8_payload`, from phase 18(b)) refused with a typed
+    FAILED_PRECONDITION naming kv_dtype, after which that stream
+    re-prefills (one prefill) and passes the same check; launches equal
+    to `expected_counts` of the decode worker's steps."""
+    from paddle_tpu_torch.inference.decode import save_for_decode
+    from paddle_tpu_torch.inference.serve import (InferenceServer,
+                                                  decode_request,
+                                                  read_reply_ctx,
+                                                  write_tensors)
+    rng = np.random.default_rng(20)
+    prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, plen)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "gpt2_124m")
+        save_for_decode(arrays, cfg, 1e-5, prefix)
+        # warmed up as a deployment starts them (`serve --warmup`): the
+        # pools are allocated and every step shape run before traffic
+        pre = InferenceServer(prefix, port=0, decode=True, decode_slots=8,
+                              decode_max_new=max_new, device=device,
+                              role="prefill", warmup=True)
+        dec = InferenceServer(prefix, port=0, decode=True, decode_slots=8,
+                              decode_max_new=max_new, device=device,
+                              role="decode", warmup=True)
+    setup = time.perf_counter() - t0
+    try:
+        deng = dec.engine
+        before = deng.stats()
+        stage0 = handoff_stage_seconds()
+        zero_counts()
+        meta, wire, ack, toks, exp_s, hand_s = handoff_exchange(
+            np, pre.port, dec.port, prompt, {"max_new_tokens": max_new})
+        counts = kernel_counts()
+        stage = {k: v - stage0[k]
+                 for k, v in handoff_stage_seconds().items()}
+        mid = deng.stats()
+        n = meta["n_pages"]
+        pages, _ = deng._prefix.lookup(prompt, owner=("phase18",))
+        landed = page_crcs(torch, deng, pages[:n])
+        for p in pages:
+            deng._alloc.release(p, owner=("phase18",))
+        nbytes = sum(a.nbytes for a in wire)
+        # the int8 engine's pages refused by the fp32 decode worker
+        with socket.create_connection(("127.0.0.1", dec.port),
+                                      timeout=600) as s:
+            write_tensors(s, int8_payload["arrays"],
+                          ctx={"trace_id": "phase18-int8",
+                               "kv_handoff": {k: v for k, v in
+                                              int8_payload.items()
+                                              if k != "arrays"}})
+            _, err, _ = read_reply_ctx(s)
+            p8 = int8_payload["prompt"]
+            toks8 = decode_request(s, p8, opts={"max_new_tokens": max_new})
+        after = deng.stats()
+    finally:
+        pre.stop()
+        dec.stop()
+    steps = mid["steps"] - before["steps"]
+    want = expected_counts(cfg, steps, 0, False)
+    if counts != want or steps == 0:
+        raise RuntimeError(f"phase 18(c): kernel launches {counts} != "
+                           f"{want} ({steps} decode-worker steps)")
+    if ack != {"landed": n} or n != plen // 16 or landed != meta["crcs"]:
+        raise RuntimeError(f"phase 18(c): landed {ack}, {n} pages, crc "
+                           f"{landed} != {meta['crcs']}")
+    hit = mid["prefix_cache"]["hit_tokens"] \
+        - before["prefix_cache"]["hit_tokens"]
+    if mid["prefills"] != before["prefills"] or hit != n * 16:
+        raise RuntimeError(f"phase 18(c): decode worker prefilled "
+                           f"{mid['prefills'] - before['prefills']}, "
+                           f"prefix-hit tokens {hit} != {n} x 16")
+    if err is None or not err.startswith("FAILED_PRECONDITION") \
+            or "kv_dtype mismatch" not in err \
+            or after["prefills"] != mid["prefills"] + 1:
+        raise RuntimeError(f"phase 18(c): int8 payload answer {err!r}, "
+                           f"prefills {mid['prefills']} -> "
+                           f"{after['prefills']}")
+    gaps = [teacher_forced(torch, oracle, prompt, toks, device=device),
+            teacher_forced(torch, oracle, p8, toks8, device=device)]
+    if len(toks) != max_new or len(toks8) != max_new or max(gaps) > tol:
+        raise RuntimeError(f"phase 18(c): streams {len(toks)}, "
+                           f"{len(toks8)}; gaps {gaps}")
+    log(f"PHASE 18(c) disaggregated [{power}]: servers up in {setup:.3f}s "
+        f"(artifact + 2 x load + warmup); {plen}-token prompt: kv_export "
+        f"{exp_s * 1e3:.3f} ms (prefill + gather + serialize + wire; in "
+        f"the engine {stage['export'] * 1e3:.3f}), kv_handoff "
+        f"{hand_s * 1e3:.3f} ms (wire + verify + land; in the engine "
+        f"{stage['import'] * 1e3:.3f}), "
+        f"{n} pages, {nbytes} B ({nbytes / max(exp_s + hand_s, 1e-12) / 1e6:.3f}"
+        f" MB/s end to end); landed crc32 equal to exported; decode "
+        f"worker prefills 0, prefix-hit tokens {hit}, steps {steps}, "
+        f"kernel_launches {counts}; int8 payload refused ({err[:80]!r}) "
+        f"and re-prefilled; teacher_forced_max_gap={max(gaps):.3e}")
+
+
+def phase_serving_qos(torch, np, power, cfg, arrays, qarrays,
+                      device="cuda"):
+    """Phase 18: multi-tenant QoS with preemption and a host-RAM KV tier,
+    fp32 (a) and int8 (b), then the disaggregated prefill/decode handoff
+    between two servers (c)."""
+    from paddle_tpu_torch.models.gpt import GPTDecoder, params_from_numpy
+    from paddle_tpu_torch.quant.ptq import dequantize_params
+    t0 = time.perf_counter()
+    params = params_from_numpy(cfg, arrays, device)
+    oracle = GPTDecoder(cfg, device=device)
+    oracle.load_state_dict(params)
+    n_a, plen, max_new, n_turn2 = 20, 96, 32, 8
+    eng = serving_engine(torch, cfg, params, 1e-5, False,
+                         2 * n_a + 2 + n_turn2, plen, max_new,
+                         device=device)
+    serving_qos_run(torch, np, power, cfg, eng, oracle, LOGIT_TOL,
+                    "PHASE 18(a)", False, n_a, plen, max_new, n_turn2,
+                    device=device)
+    del eng
+    log(f"PHASE 18(a) took {time.perf_counter() - t0:.3f}s")
+    t1 = time.perf_counter()
+    qparams = params_from_numpy(cfg, qarrays, device)
+    oracle8 = GPTDecoder(cfg, device=device)
+    oracle8.load_state_dict(params_from_numpy(
+        cfg, dequantize_params(qarrays), device))
+    n_b = 12
+    eng8 = serving_engine(torch, cfg, qparams, 1e-5, True,
+                          2 * n_b + 2 + 4, plen, max_new, slots=4,
+                          device=device, handoff=True)
+    int8_payload = {}
+
+    def export_int8(e):
+        # phase (c)'s mismatched payload: this engine's int8 pages of a
+        # fresh 200-token prompt
+        rng = np.random.default_rng(21)
+        int8_payload.update(e.export_kv(
+            [int(t) for t in rng.integers(0, cfg.vocab_size, 200)]))
+    serving_qos_run(torch, np, power, cfg, eng8, oracle8, INT8_LOGIT_TOL,
+                    "PHASE 18(b)", True, n_b, plen, max_new, 4,
+                    device=device, before_stop=export_int8)
+    del eng8, oracle8, qparams
+    log(f"PHASE 18(b) took {time.perf_counter() - t1:.3f}s")
+    t2 = time.perf_counter()
+    phase_disagg(torch, np, power, cfg, arrays, oracle, int8_payload,
+                 device=device)
+    log(f"PHASE 18(c) took {time.perf_counter() - t2:.3f}s")
+    del oracle, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6083,6 +6578,12 @@ def main():
     phase_strategy_parity(torch, np)
     phase_config4(torch, np, power, flash_records)
     log(f"PHASE 17 took {time.perf_counter() - t0:.3f}s")
+
+    # phase 18: multi-tenant QoS, the host-RAM KV tier and the
+    # prefill/decode KV handoff in the engine and the server
+    t0 = time.perf_counter()
+    phase_serving_qos(torch, np, power, cfg, arrays, qarrays)
+    log(f"PHASE 18 took {time.perf_counter() - t0:.3f}s")
 
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",

@@ -14,7 +14,7 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 
 @dataclass
@@ -96,6 +96,14 @@ def define_env_flag(name, default, doc, parser=None):
                                    parser or _parser_for(default))
 
 
+def env_raw(name) -> Optional[str]:
+    """Unparsed environment value for a catalogued flag (None when unset),
+    for call sites with a spec grammar the parser cannot express."""
+    if name not in _ENV_REGISTRY:
+        raise KeyError(f"Env flag {name!r} is not in the catalog")
+    return os.environ.get(name)
+
+
 def env_value(name) -> Any:
     """Parsed value of a catalogued flag; unset/empty/unparsable -> default."""
     flag = _ENV_REGISTRY.get(name)
@@ -110,6 +118,11 @@ def env_value(name) -> Any:
         return flag.default
 
 
+define_env_flag(
+    "PADDLE_TPU_CHAOS", "",
+    "Deterministic fault-injection schedule for the chaos harness "
+    "(testing/chaos.py), e.g. 'page.migrate:2:RuntimeError'. Unset "
+    "disables injection.")
 define_env_flag(
     "PADDLE_TPU_DECODE_BUCKETS", "",
     "Decode-engine batch bucket ladder override, space/comma-separated "
@@ -127,6 +140,21 @@ define_env_flag(
     "(quant/ptq.py). Draft numerics only move the acceptance rate, "
     "never the target token stream.")
 define_env_flag(
+    "PADDLE_TPU_DECODE_HANDOFF", False,
+    "Enable the decode engine's cross-process KV-page handoff endpoints "
+    "for disaggregated prefill/decode serving (inference/decode.py "
+    "export_kv/import_kv): a prefill worker ships a prompt's full KV "
+    "pages to a decode worker, which admits the stream as a prefix-cache "
+    "hit. Implied on by serve --role prefill/decode; enabling it implies "
+    "the prefix cache.")
+define_env_flag(
+    "PADDLE_TPU_DECODE_HOST_PAGES", 0,
+    "Host-RAM KV tier capacity in pages for the paged decode engine "
+    "(memory/migration.py): under pool pressure cold pages spill to a "
+    "preallocated (pinned, on a GPU) host arena and refetch on demand, "
+    "turning device memory into a cache over a larger KV store. 0 "
+    "disables tiering; enabling it implies the prefix cache.")
+define_env_flag(
     "PADDLE_TPU_DECODE_KV_DTYPE", "float32",
     "Decode KV page-pool dtype: 'float32', or 'int8' for quantized "
     "pages (quant/kv.py) — int8 payload plus one fp32 scale per "
@@ -136,6 +164,13 @@ define_env_flag(
     "PADDLE_TPU_DECODE_PAGE_TOKENS", 16,
     "KV-cache page size in tokens for the paged decode engine "
     "(inference/decode.py, memory/page_allocator.py).")
+define_env_flag(
+    "PADDLE_TPU_DECODE_PREEMPT", True,
+    "Allow the decode engine to preempt the lowest-priority active slot "
+    "to host when a strictly higher-priority request cannot be admitted "
+    "(inference/decode.py). The victim's pages are released, its state "
+    "stays host-side, and it resumes token-identically when pressure "
+    "drops. Off = priorities only order the queue.")
 define_env_flag(
     "PADDLE_TPU_DECODE_PREFIX_CACHE", True,
     "Enable copy-on-write prefix sharing in the paged decode engine: "
@@ -162,8 +197,31 @@ define_env_flag(
     "Seconds an idle client connection is kept open before the server "
     "closes it (inference/serve.py).")
 define_env_flag(
+    "PADDLE_TPU_SERVE_MAX_QUEUE", 0,
+    "Admission-control watermark: queued requests past this are shed "
+    "with RESOURCE_EXHAUSTED (inference/batching.py). 0 disables "
+    "shedding.")
+define_env_flag(
     "PADDLE_TPU_SERVE_REQUEST_TIMEOUT", 120.0,
     "Server-side per-request deadline in seconds (inference/serve.py).")
+define_env_flag(
+    "PADDLE_TPU_SERVE_ROLE", "unified",
+    "Serving-topology role of a decode worker (inference/serve.py "
+    "--role): 'unified' (prefill + decode, the default), 'prefill' "
+    "(prompt forward + KV export) or 'decode' (KV import + token "
+    "streaming). Non-unified roles imply PADDLE_TPU_DECODE_HANDOFF.")
+define_env_flag(
+    "PADDLE_TPU_TENANT_QUOTA", "",
+    "Per-tenant service-rate quotas, 'tenant:rate,...' with '*' for "
+    "unlisted tenants: tokens/second in the decode engine "
+    "(inference/batching.py tenant_quotas). A tenant in quota debt is "
+    "deferred — queued, never dropped. Empty or 0 = unlimited.")
+define_env_flag(
+    "PADDLE_TPU_TENANT_WEIGHTS", "",
+    "Per-tenant fair-share weights, 'tenant:weight,...' with '*' for "
+    "unlisted tenants (inference/batching.py tenant_weights). Admission "
+    "picks the most-underserved tenant by tokens_served/weight; unlisted "
+    "tenants weigh 1.0.")
 
 define_flag("use_pallas_attention", True,
             "Route qualifying scaled_dot_product_attention calls (no mask, "

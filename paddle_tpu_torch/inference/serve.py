@@ -27,6 +27,28 @@ request gets exactly one frame with the accumulated tokens.
         --draft-model <draft> --speculate-k 4 [--draft-quant] \
         --metrics-port 0         # speculative decoding + the admin plane
 
+    python -m paddle_tpu_torch.inference.serve <prefix> --decode \
+        --role prefill --port 9001      # disaggregated prefill worker
+    python -m paddle_tpu_torch.inference.serve <prefix> --decode \
+        --role decode --host-pages 4096 --port 9002   # decode worker with
+                                        # a host-RAM KV tier
+
+A PDI2 decode request's ``ctx["decode"]`` may carry a ``tenant`` (who to
+bill the tokens to; default ``"default"``) and an integer ``priority``
+(a strictly higher one may preempt a running stream), for the engine's
+weighted-fair QoS (PADDLE_TPU_TENANT_WEIGHTS / _QUOTA). Two control
+frames carry the prefill/decode KV handoff on the same connections:
+``ctx["kv_export"]`` (to a prefill worker: the prompt tensor in, the
+prompt's full KV pages out as leaf arrays with the export metadata in the
+reply's ``ctx["kv_export"]``) and ``ctx["kv_handoff"]`` (to a decode
+worker: those arrays in, with that metadata as the ctx; the ack reports
+``{"landed": n}``); the follow-up decode request then admits as a prefix
+hit. A refusal (handoff off, compat or checksum mismatch, pool
+exhausted) is a typed error frame, and the stream simply prefills.
+``--role prefill|decode`` arms the engine's handoff endpoints
+(``unified``, the default, leaves them off); ``--host-pages N`` gives the
+engine a host-RAM KV tier of N pages.
+
 With ``--metrics-port`` (or PADDLE_TPU_METRICS_PORT; 0 = an ephemeral
 port) the daemon mounts `observability.AdminServer` (``/metrics``,
 ``/healthz``, ``/statusz``) and prints ``METRICS <port>`` first. It prints
@@ -39,8 +61,8 @@ counted since ``SERVING`` (``paged_decode_attention_launches=N
 paged_decode_attention_int8_launches=N int8_weight_matmul_launches=N``,
 so a run can show the kernels served its requests), then ``DRAINED
 ok=<bool>``, and exits 0. The one-shot (non-decode) predictor mode, the
-router, the admin plane's other endpoints and KV handoff are later
-slices of the port.
+router, the membership advertisement of a role and the admin plane's
+other endpoints are later slices of the port.
 """
 from __future__ import annotations
 
@@ -73,6 +95,27 @@ _JOIN_TIMEOUT_S = 30.0      # stop(): how long each server thread may take
 
 def _recv_exact(sock, n):
     return recv_exact(sock, n, what="client")
+
+
+_TENANT_METRICS = None
+
+
+def _tenant_serve_metrics():
+    """Per-tenant request/error counters (the JAX server's families)."""
+    global _TENANT_METRICS
+    if _TENANT_METRICS is None:
+        from ..observability import counter
+        _TENANT_METRICS = {
+            "requests": counter(
+                "paddle_tpu_tenant_requests_total",
+                "Decode requests served per tenant",
+                labelnames=("tenant",)),
+            "errors": counter(
+                "paddle_tpu_tenant_errors_total",
+                "Decode requests that ended in a typed error frame, "
+                "per tenant", labelnames=("tenant",)),
+        }
+    return _TENANT_METRICS
 
 
 def max_request_bytes() -> int:
@@ -260,18 +303,30 @@ def decode_request(sock, prompt, opts=None, trace=True,
 class InferenceServer:
     """Serves one `save_for_decode` artifact over TCP through a
     `DecodeEngine` on `device` (default cuda). Loopback by default: the
-    daemon is unauthenticated."""
+    daemon is unauthenticated. `role` ("unified", "prefill" or "decode";
+    default PADDLE_TPU_SERVE_ROLE) is the worker's place in disaggregated
+    serving: a non-unified role arms the engine's KV handoff endpoints.
+    `host_pages` gives the engine a host-RAM KV tier of that many
+    pages."""
 
     def __init__(self, model_prefix: str, port: int = 0,
                  host: str = "127.0.0.1", decode: bool = True,
                  decode_slots: int = None, decode_max_new: int = None,
                  warmup: bool = False, kv_dtype: str = None, device=None,
                  draft_model: str = None, speculate_k: int = None,
-                 draft_quant: bool = None, metrics_port: int = None):
+                 draft_quant: bool = None, metrics_port: int = None,
+                 host_pages: int = None, role: str = None):
         if not decode:
             raise NotImplementedError(
                 "paddle_tpu_torch serves decode mode only (pass "
                 "decode=True / --decode)")
+        if role is None:
+            role = str(_flags.env_value("PADDLE_TPU_SERVE_ROLE"))
+        role = str(role).lower()
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"unknown serve role {role!r} (want "
+                             f"'unified', 'prefill' or 'decode')")
+        self.role = role
         from .decode import load_for_decode
         kw = {}
         if decode_slots:
@@ -286,6 +341,12 @@ class InferenceServer:
             kw["speculate_k"] = int(speculate_k)
         if draft_quant:
             kw["draft_quant"] = True
+        if host_pages is not None:
+            kw["host_pages"] = int(host_pages)
+        if role != "unified":
+            # disaggregated worker: arm the engine's KV handoff endpoints
+            # (export on prefill, import on decode)
+            kw["handoff"] = True
         self._engine = load_for_decode(model_prefix, device=device, **kw)
         self.warmup_steps = self._engine.warmup(verbose=True) if warmup \
             else 0
@@ -346,6 +407,8 @@ class InferenceServer:
             "port": self.port,
             "metrics_port": self.metrics_port,
             "trace_wire": True,
+            # serving-topology role (disaggregated prefill/decode)
+            "role": self.role,
             "draining": self._draining.is_set(),
             "inflight_requests": self.inflight_requests,
             "config": {
@@ -385,6 +448,15 @@ class InferenceServer:
                     opts[key] = int(d[key])
             if d.get("temperature") is not None:
                 opts["temperature"] = float(d["temperature"])
+            # multi-tenant QoS identity: who to bill the tokens to, and
+            # how urgently to schedule them
+            if d.get("tenant") is not None:
+                opts["tenant"] = str(d["tenant"])
+            if d.get("priority") is not None:
+                opts["priority"] = int(d["priority"])
+        tenant = opts.get("tenant") or "default"
+        tm = _tenant_serve_metrics()
+        tm["requests"].labels(tenant=tenant).inc()
 
         def _sctx(stream_fields, req_id=None):
             if ctx is None:
@@ -411,6 +483,7 @@ class InferenceServer:
                     "decode prompt must be int32/int64 [T] or [1, T]")
             stream = self._engine.submit(prompt.reshape(-1), **opts)
         except TypedServeError as e:
+            tm["errors"].labels(tenant=tenant).inc()
             try:
                 write_error(conn, str(e),
                             ctx=_sctx({"done": True, "error": True}))
@@ -438,12 +511,61 @@ class InferenceServer:
                                    "done": False}, stream.request_id))
                 seq += 1
         except TypedServeError as e:
+            tm["errors"].labels(tenant=tenant).inc()
             try:
                 write_error(conn, str(e),
                             ctx=_sctx({"done": True, "error": True,
                                        "seq": seq}))
             except OSError:
                 pass
+            return True
+        except (ConnectionError, TimeoutError, OSError):
+            return False
+
+    def _serve_handoff(self, conn, inputs, ctx) -> bool:
+        """One KV-handoff control frame.
+
+        ``kv_export`` (prefill side): the prompt tensor comes in, the
+        reply frame carries the prompt's full KV pages as leaf arrays plus
+        the export metadata (compat facts, page count, per-page checksums)
+        in the reply ctx. ``kv_handoff`` (decode side): the leaf arrays
+        come in with the metadata in the request ctx, and the ack frame
+        reports how many pages landed. Any refusal — disabled endpoint,
+        compat mismatch, checksum failure, pool exhaustion — is a typed
+        error frame. Returns False when the socket is unusable."""
+        timeout = self._request_timeout \
+            if self._request_timeout and self._request_timeout > 0 \
+            else 30.0
+        tctx = {"trace_id": ctx.get("trace_id")} \
+            if ctx.get("trace_id") is not None else {}
+        try:
+            try:
+                if ctx.get("kv_export") is not None:
+                    if len(inputs) != 1:
+                        raise TypedServeError(
+                            ERR_INVALID_ARGUMENT,
+                            f"kv_export wants exactly one prompt "
+                            f"tensor, got {len(inputs)}")
+                    prompt = np.asarray(inputs[0]).reshape(-1)
+                    payload = self._engine.export_kv(prompt,
+                                                     timeout=timeout)
+                    arrays = payload.pop("arrays")
+                    write_tensors(conn, arrays,
+                                  ctx=dict(tctx, kv_export=payload))
+                else:
+                    meta = ctx.get("kv_handoff")
+                    if not isinstance(meta, dict):
+                        raise TypedServeError(
+                            ERR_INVALID_ARGUMENT,
+                            "kv_handoff ctx must be a metadata object")
+                    payload = dict(meta)
+                    payload["arrays"] = [np.asarray(a) for a in inputs]
+                    n = self._engine.import_kv(payload, timeout=timeout)
+                    write_tensors(conn, [np.asarray([n], np.int32)],
+                                  ctx=dict(tctx,
+                                           kv_handoff={"landed": n}))
+            except TypedServeError as e:
+                write_error(conn, str(e), ctx=tctx or None)
             return True
         except (ConnectionError, TimeoutError, OSError):
             return False
@@ -474,7 +596,14 @@ class InferenceServer:
                 with self._conn_lock:
                     self._conn_inflight += 1
                 try:
-                    if not self._serve_decode(conn, inputs, ctx):
+                    if ctx is not None \
+                            and (ctx.get("kv_export") is not None
+                                 or ctx.get("kv_handoff") is not None):
+                        # KV-handoff control frames ride the same
+                        # connection as decode streams
+                        if not self._serve_handoff(conn, inputs, ctx):
+                            return
+                    elif not self._serve_decode(conn, inputs, ctx):
                         return
                 finally:
                     with self._conn_lock:
@@ -594,6 +723,21 @@ def main(argv=None):
                          "— draft numerics only move the speculation "
                          "acceptance rate, never the target stream "
                          "(default PADDLE_TPU_DECODE_DRAFT_QUANT)")
+    ap.add_argument("--role", choices=("unified", "prefill", "decode"),
+                    default=None,
+                    help="serving-topology role for disaggregated "
+                         "prefill/decode: 'prefill' runs prompt forwards "
+                         "and exports KV pages (kv_export frames), "
+                         "'decode' imports them (kv_handoff frames) and "
+                         "streams tokens, 'unified' (default) does both "
+                         "locally. Non-unified roles arm the engine's KV "
+                         "handoff endpoints (default PADDLE_TPU_SERVE_ROLE)")
+    ap.add_argument("--host-pages", type=int, default=None,
+                    help="host-RAM KV tier capacity in pages "
+                         "(memory/migration.py): cold pages spill to a "
+                         "pinned host arena under pool pressure and "
+                         "refetch on demand; default "
+                         "PADDLE_TPU_DECODE_HOST_PAGES (0 = tiering off)")
     ap.add_argument("--metrics-port", type=int, default=None,
                     help="mount /metrics + /healthz + /statusz on this "
                          "port (0 = ephemeral; default off, or "
@@ -617,7 +761,8 @@ def main(argv=None):
                           device=args.device, draft_model=args.draft_model,
                           speculate_k=args.speculate_k,
                           draft_quant=args.draft_quant,
-                          metrics_port=args.metrics_port)
+                          metrics_port=args.metrics_port,
+                          host_pages=args.host_pages, role=args.role)
 
     def counts():
         return {"paged_decode_attention_launches": decode_attention.launches,
@@ -648,7 +793,7 @@ def main(argv=None):
             f"spec_rollback_released={sp['rollback_released']} "
             f"spec_draft_steps={sp['draft_steps']} "
             f"spec_draft_prefills={sp['draft_prefills']} ")
-        print(f"DECODE STATS device={st['device']} "
+        print(f"DECODE STATS device={st['device']} role={srv.role} "
               f"kv_dtype={st['kv_dtype']} steps={st['steps']} "
               f"prefills={st['prefills']} tokens={st['tokens']} "
               f"{spec}{served}", flush=True)

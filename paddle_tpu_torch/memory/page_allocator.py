@@ -27,8 +27,10 @@ Owner attribution: every alloc/retain/release accepts an optional
 ``("trie", node)`` — kept in a side table under the same lock. Rollups
 attribute each used page to its **primary owner** (the first
 still-holding tagger), so the per-owner page counts always sum to
-exactly ``pages_used``. The JAX package also records each operation on
-its memz ring; that plane is not ported yet.
+exactly ``pages_used``; `retag` moves one reference between tags when
+it changes hands (a host-tier refetch landing in the prefix trie). The
+JAX package also records each operation on its memz ring; that plane is
+not ported yet.
 
 `write_pages` / `copy_page` / `gather_pages` are the pool ops that pair
 with the bookkeeping, as torch index ops over a pool whose axis 1 is the
@@ -49,7 +51,7 @@ import torch
 #: Attribution bucket for alloc/retain/release calls with no owner tag.
 UNTAGGED: Tuple[str, ...] = ("untagged",)
 
-#: The one pool the port allocates from: the decode engine's KV pages.
+#: Default pool label: the decode engine's KV pages.
 POOL = "kv"
 
 #: Page id of the reserved null page.
@@ -80,10 +82,11 @@ def owner_str(owner) -> str:
 class PageAllocator:
     """Bookkeeping for a pool of `num_pages` fixed-size device pages."""
 
-    def __init__(self, num_pages: int):
+    def __init__(self, num_pages: int, *, label: str = POOL):
         if num_pages < 2:
             raise ValueError(f"page pool needs >= 2 pages, got {num_pages}")
         self.num_pages = int(num_pages)
+        self.label = str(label)
         self._lock = threading.Lock()
         # kept sorted ascending at all times: alloc slices the head,
         # release bisect-inserts — never a full sort on the hot path
@@ -142,9 +145,9 @@ class PageAllocator:
                 self._high_water = max(self._high_water, len(self._refs))
         if pages is None:
             raise PageExhausted(
-                f"pool '{POOL}': requested {n} pages for "
+                f"pool '{self.label}': requested {n} pages for "
                 f"{owner_str(tag)}, {free} free of {self.num_pages}",
-                pool=POOL, owner=tag, requested=n, free=free)
+                pool=self.label, owner=tag, requested=n, free=free)
         return pages
 
     def retain(self, page: int, owner: Optional[Tuple] = None) -> int:
@@ -199,6 +202,17 @@ class PageAllocator:
                     self._owners.pop(p, None)
                     insort(self._free, p)
         return len(tail)
+
+    def retag(self, page: int, old: Tuple, new: Tuple) -> None:
+        """Move one owner ref of `page` from tag `old` to tag `new`
+        without touching the refcount — used when a reference changes
+        hands (a tier refetch lands and the trie becomes the holder).
+        No-op on an unallocated page."""
+        with self._lock:
+            if page not in self._refs:
+                return
+            self._owner_drop(page, old)
+            self._owner_add(page, new)
 
     def refcount(self, page: int) -> int:
         with self._lock:

@@ -49,10 +49,6 @@ from paddle_tpu_torch.observability import metrics as tmetrics  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PT = 4
 TIMEOUT = 120
-# JAX families the port does not register yet (queue 1 items 5.3, 5.5)
-UNPORTED = {"tenant_tokens", "tenant_admissions", "tenant_shed",
-            "tenant_quota_deferred", "preemptions", "preempt_resumes",
-            "preempted_tokens", "preempted_waiting"}
 
 
 def _exercise(m):
@@ -100,15 +96,28 @@ def test_registry_renders_the_jax_text():
 
 
 def test_decode_families_match_jax():
-    jm, tm = jdecode._decode_metrics(), tdecode._decode_metrics()
-    assert set(jm) - set(tm) == UNPORTED and set(tm) <= set(jm)
-    for key, fam in tm.items():
-        want = jm[key]
-        assert (fam.name, fam.typename, fam.help, fam.labelnames) \
-            == (want.name, want.typename, want.help, want.labelnames), key
-        assert tmetrics.REGISTRY.get(fam.name) is fam
-        assert fam.name.startswith("paddle_tpu_decode_")
-        assert fam.name.endswith("_total") == (fam.typename == "counter")
+    """Every family of the JAX engine's decode (with its tenant and
+    preemption families), handoff and KV-tier registries, under the same
+    names, types, help strings and label names."""
+    from paddle_tpu.memory import migration as jmigration
+    from paddle_tpu_torch.memory import migration as tmigration
+    for jm, tm, prefixes in (
+            (jdecode._decode_metrics(), tdecode._decode_metrics(),
+             ("paddle_tpu_decode_", "paddle_tpu_tenant_")),
+            (jdecode._handoff_metrics(), tdecode._handoff_metrics(),
+             ("paddle_tpu_handoff_",)),
+            (jmigration.tier_metrics(), tmigration.tier_metrics(),
+             ("paddle_tpu_kv_tier_",))):
+        assert set(jm) == set(tm)
+        for key, fam in tm.items():
+            want = jm[key]
+            assert (fam.name, fam.typename, fam.help, fam.labelnames) \
+                == (want.name, want.typename, want.help,
+                    want.labelnames), key
+            assert tmetrics.REGISTRY.get(fam.name) is fam
+            assert fam.name.startswith(prefixes)
+            assert fam.name.endswith(("_total", "_seconds")) == \
+                (fam.typename in ("counter", "histogram")), key
 
 
 _COUNTERS = ("tokens", "steps", "prefills", "prefix_hits", "prefix_misses",

@@ -17,8 +17,8 @@ pytest.importorskip("torch")
 import paddle_tpu  # noqa: E402,F401
 import paddle_tpu_torch  # noqa: E402,F401
 
-ITEM5 = "queue 1 item 5.4: the predictor API"
-ITEM5_2 = "queue 1 item 5.2: host-RAM KV tiering"
+ITEM8_PREDICTOR = ("queue 1 item 8: the predictor API, the one-shot "
+                   "DynamicBatcher and the server's predictor mode")
 ITEM6 = "queue 1 item 6: the profiler and the rest of observability"
 ITEM7 = "queue 1 item 7: multi-GPU over NCCL"
 ITEM8 = "queue 1 item 8: export and static graph"
@@ -188,9 +188,10 @@ EXPECTED_ABSENT = {
         **_group("not paddle API: a JAX ShapeDtypeStruct for AOT tracing",
                  "kv_pool_sds"),
     },
-    "memory": _group(ITEM5_2, """
-        HostPageStore MigrationEngine MigrationTicket Residency
-        TieredPageAllocator migration"""),
+    "memory": {},
+    "memory.migration": {},
+    "testing": {},
+    "testing.chaos": {},
     "device": {
         **_group(ITEM10, """
             CPUPlace Place TPUPlace device_count get_all_device_type
@@ -202,10 +203,25 @@ EXPECTED_ABSENT = {
         VGG vgg vgg11 vgg13 vgg16 vgg19 MobileNetV1 MobileNetV2 mobilenet
         mobilenet_v1 mobilenet_v2 mobilenetv1 mobilenetv2"""),
     "inference": {
-        **_group(ITEM5, """
+        **_group(ITEM8_PREDICTOR, """
             Config DataType PlaceType PrecisionType Predictor PredictorPool
             create_predictor get_num_bytes_of_data_type get_version"""),
         **_group(IMPL, "Tensor annotations jit_mod np"),
+    },
+    "inference.batching": {
+        **_group(ITEM8_PREDICTOR,
+                 "DynamicBatcher DEFAULT_MAX_BATCH DEFAULT_TIMEOUT_MS"),
+        **_group(IMPL, """
+            Dict ERR_RESOURCE_EXHAUSTED ERR_UNAVAILABLE Future
+            InvalidStateError Queue TypedServeError chaos deque np product
+            threading time"""),
+    },
+    "inference.decode": {
+        **_group(ITEM6, "SpanRecorder next_request_id monitor profiler"),
+        **_group(ITEM8, "AotCache"),
+        **_group(IMPL, "jax jnp quantize_kv"),
+        **_group("not paddle API: a JAX ShapeDtypeStruct for AOT tracing",
+                 "kv_pool_sds"),
     },
 }
 
