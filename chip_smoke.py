@@ -385,11 +385,42 @@ Phases, in order; any failure raises and the script exits non-zero:
      teacher-forced; (b)'s int8 payload refused with FAILED_PRECONDITION
      naming kv_dtype, and that stream then prefilled; handoff ms (client
      and in the engines) and bytes;
- 19. one JSON line {"kernels": [...]} with every kernel's numbers (eleven
+ 19. the observability planes: (a) an in-process decode InferenceServer
+     over a save_for_decode artifact of the seed-0 GPT-2 124M weights, 8
+     slots, 16-token pages, metrics_port=0 and a pinned host tier, its
+     default device pool (512 pages) smaller than the KV of 16 PDI2
+     requests of 736-token prompts over tenants a and b; then 4 second
+     turns; fp32, then int8 weights and pages: every stream teacher-forced
+     within LOGIT_TOL / INT8_LOGIT_TOL, launches equal to expected_counts,
+     /tracez Chrome JSON with one serve.request span per request and
+     decode.step and exec:decode.pstep spans equal to the engine's steps,
+     page.spill / page.refetch spans equal to the tier's batches, /profilez
+     ranked by block with each label's calls equal to the engine's
+     dispatches (steps, prefills, copy-on-writes, spill batches, landed
+     restores) and a non-zero block on every label called, /memz's owner
+     rollups summing to pages_used with no ghost page, an exhausted 8-page
+     pool (no tier) leaving a /memz?oom=1 dump that accounts for every
+     page, /statusz's device_memory["cuda:0"] and the
+     paddle_tpu_hbm_bytes_in_use gauge non-zero with bytes_limit equal to
+     the card's total memory, /alertz listing serve_objectives() with none
+     firing; (b) 8 streams traced with torch.profiler with the planes on
+     (rings, sampled spans, dispatch hooks, a scraped admin server) and
+     off (rings at capacity 0, sampling 0, the entry points called bare):
+     equal counts of cudaStreamSynchronize / cudaDeviceSynchronize /
+     cudaEventSynchronize calls and device-to-host copies, equal tokens;
+     tokens/s of the steady window on, off, off, on (printed, no gate);
+     (c) GPT-2 124M, B=16, T=1024, AMP O2, Adam, 3 Model.fit steps inside
+     profiler.start_trace / stop_trace around a RecordEvent: the Chrome
+     trace's device rows name each flash wgmma kernel 12 times a step,
+     equal to the launch counters, the RecordEvent span is there, and a
+     loop of paddle-API ops under profiler.profiler() gives summary() rows
+     under the dispatch names; ms a step with the trace off, on, off;
+ 20. the whole script's seconds, the card's name and power limit, then
+     one JSON line {"kernels": [...]} with every kernel's numbers (eleven
      records: the ten kernels, and the flash dq + dk/dv pair as the TPU's
      fused backward; rows 5-8 carry phase 12's shape under "ernie" and
      phase 17's under "gpt2_345m");
- 20. last line {"ok": true, "device": {...}}.
+ 21. last line {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout (no paddle_tpu_torch to import), it
 exits non-zero and prints no result. It imports neither jax nor
@@ -6391,7 +6422,665 @@ def phase_serving_qos(torch, np, power, cfg, arrays, qarrays,
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- phase 19
+
+# the synchronizing CUDA runtime calls phase 19(b) counts in a trace; a
+# device-to-host copy counts by its device row ("Memcpy DtoH ...")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def http_json(port, path):
+    return json.loads(scrape(port, path)[1])
+
+
+def labeled_value(text, name, **labels):
+    """The value of one labeled sample in 0.0.4 exposition text."""
+    want = name + "{" + ",".join(f'{k}="{v}"' for k, v in labels.items()) \
+        + "}"
+    for line in text.splitlines():
+        if line.startswith(want + " "):
+            return float(line.split()[1])
+    raise RuntimeError(f"/metrics has no sample {want}")
+
+
+def span_counts(doc):
+    """{event name: count} over a Chrome trace's non-metadata events."""
+    out = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") != "M":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def settled(eng, timeout=30.0):
+    """Wait (host clock, no device call) until the engine's dispatch hook
+    has observed every dispatch and the tier has retired every batch."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        tier = eng.stats().get("kv_tier", {})
+        if not eng._dispatched and not tier.get("inflight"):
+            return
+        time.sleep(0.01)
+    raise RuntimeError(f"engine not settled: {len(eng._dispatched)} "
+                       f"dispatches pending, tier {tier}")
+
+
+def planes_oom(torch, cfg, params, device):
+    """A pool with no tier and no prefix cache exhausted on purpose: a
+    64-token stream holds 4 of the 8 pages when a 100-token prompt asks
+    for 7. Returns the OOM dump's sequence number and the denied
+    stream's error."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.observability import memz
+    eng = DecodeEngine(cfg=cfg, params=params, eps=1e-5, max_slots=2,
+                       page_tokens=16, num_pages=9, prefix_cache=False,
+                       device=device)
+    try:
+        seq0 = len(memz.oom_dumps())
+        with eng._cond:          # both admitted in the same tick, in order
+            hold = eng.submit(list(range(1, 65)), max_new_tokens=8)
+            big = eng.submit(list(range(1, 101)), max_new_tokens=8)
+        hold.result(timeout=600)
+        try:
+            big.result(timeout=600)
+            raise RuntimeError("phase 19(a): the 100-token prompt was "
+                               "admitted into an 8-page pool")
+        except Exception as e:
+            err = repr(e)
+        if len(memz.oom_dumps()) != seq0 + 1:
+            raise RuntimeError(f"phase 19(a): {len(memz.oom_dumps())} OOM "
+                               f"dumps, wanted {seq0 + 1}")
+        return memz.oom_dumps()[-1]["seq"], err
+    finally:
+        eng.stop()
+
+
+def planes_server_run(torch, np, power, cfg, arrays, oracle, tol, tag,
+                      int8, device="cuda"):
+    """Phase 19(a) on one server: the admin plane on a live decode
+    InferenceServer with a host tier; see `phase_planes`."""
+    from paddle_tpu_torch.inference.decode import save_for_decode
+    from paddle_tpu_torch.inference.serve import (InferenceServer,
+                                                  decode_request)
+    from paddle_tpu_torch.models.gpt import params_from_numpy
+    from paddle_tpu_torch.observability import PROFILER, RING
+    from paddle_tpu_torch.observability import serve_objectives
+    pt, slots, max_new, n_tenant, n_turn2 = 16, 8, 32, 8, 4
+    plen = 3 * cfg.max_seq_len // 4 - max_new
+    per = -(-(plen + max_new) // pt)
+    host_pages = (2 * n_tenant + n_turn2) * (per + 2)
+    rng = np.random.default_rng(19 + int(int8))
+    vocab = cfg.vocab_size
+    fresh = {t: [[int(x) for x in rng.integers(0, vocab, plen)]
+                 for _ in range(n_tenant)] for t in ("a", "b")}
+    follow = [[int(x) for x in rng.integers(0, vocab, 16)]
+              for _ in range(n_turn2)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "gpt2_124m")
+        save_for_decode(arrays, cfg, 1e-5, prefix,
+                        quant="int8" if int8 else None)
+        srv = InferenceServer(prefix, port=0, decode=True,
+                              decode_slots=slots, decode_max_new=max_new,
+                              device=device, warmup=True,
+                              kv_dtype="int8" if int8 else "float32",
+                              host_pages=host_pages, metrics_port=0)
+    setup = time.perf_counter() - t0
+    eng, mport = srv.engine, srv.metrics_port
+    restores, spill_tickets = [], []
+    restore, spill = eng._tier_restore, eng._migrate.spill
+
+    def restore_rec(t, req, pinned):
+        ok = restore(t, req, pinned)
+        restores.append(ok)
+        return ok
+
+    def spill_rec(*args, **kw):
+        spill_tickets.append(spill(*args, **kw))
+        return spill_tickets[-1]
+    eng._tier_restore, eng._migrate.spill = restore_rec, spill_rec
+    try:
+        if eng.num_pages - 1 >= 2 * n_tenant * per:
+            raise RuntimeError(f"{tag} sizing: {eng.num_pages - 1} device "
+                               f"pages hold all {2 * n_tenant * per}")
+        before = eng.stats()
+        prof0 = PROFILER.snapshot()
+        RING.clear()
+        zero_counts()
+        results, errors = {}, []
+
+        def client(key, prompt, tenant):
+            try:
+                with socket.create_connection(("127.0.0.1", srv.port),
+                                              timeout=600) as s:
+                    results[key] = decode_request(
+                        s, prompt, opts={"max_new_tokens": max_new,
+                                         "temperature": 0.0,
+                                         "tenant": tenant})
+            except Exception as e:          # surfaced below
+                errors.append(f"{key}: {e!r}")
+
+        def wave(jobs):
+            threads = [threading.Thread(target=client, args=j)
+                       for j in jobs]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        t1 = time.perf_counter()
+        wave([((t, i), p, t) for t, ps in fresh.items()
+              for i, p in enumerate(ps)])
+        conv = [(t, i) for i in range(n_turn2 // 2) for t in ("a", "b")]
+        turn2 = {("2", t, i): fresh[t][i] + results.get((t, i), [])
+                 + follow[k] for k, (t, i) in enumerate(conv)}
+        wave([(key, p, key[1]) for key, p in turn2.items()])
+        wall = time.perf_counter() - t1
+        if errors or len(results) != 2 * n_tenant + n_turn2:
+            raise RuntimeError(f"{tag}: requests failed: {errors}")
+        settled(eng)
+        counts = kernel_counts()
+        after = eng.stats()
+        tier = after["kv_tier"]
+        steps = after["steps"] - before["steps"]
+        prefills = after["prefills"] - before["prefills"]
+        cows = after["cow_copies"] - before["cow_copies"]
+        want = expected_counts(cfg, steps, prefills, int8)
+        if counts != want or steps == 0:
+            raise RuntimeError(f"{tag}: kernel launches {counts} != {want}"
+                               f" ({steps} steps, {prefills} prefills)")
+        n_req = 2 * n_tenant + n_turn2
+        trace = http_json(mport, "/tracez")
+        names = span_counts(trace)
+        # the tier's spans against what the engine asked of it: one
+        # page.spill per spill ticket submitted, one page.refetch per
+        # landed refetch the scheduler restored, their pages summing to
+        # the tier's page totals
+        spills, refetches = len(spill_tickets), len(restores)
+        pages = {k: sum(e["args"]["pages"] for e in trace["traceEvents"]
+                        if e["name"] == k)
+                 for k in ("page.spill", "page.refetch")}
+        wpages = {"page.spill": tier["spill_pages"]
+                  - before["kv_tier"]["spill_pages"],
+                  "page.refetch": tier["refetch_pages"]
+                  - before["kv_tier"]["refetch_pages"]}
+        got = {k: names.get(k, 0) for k in
+               ("serve.request", "decode.step", "exec:decode.pstep",
+                "page.spill", "page.refetch")}
+        wspan = {"serve.request": n_req, "decode.step": steps,
+                 "exec:decode.pstep": steps, "page.spill": spills,
+                 "page.refetch": refetches}
+        if got != wspan or pages != wpages or min(spills, refetches) < 1:
+            raise RuntimeError(f"{tag}: tracez spans {got} != {wspan}, "
+                               f"pages {pages} != {wpages}")
+        pz = http_json(mport, "/profilez")
+        calls = {r["exe"]: r["calls"] - prof0.get(r["exe"], {}).get(
+            "calls", 0) for r in pz["top"]}
+        wcalls = {"decode.pstep": steps, "decode.prefill": prefills,
+                  "decode.pcow": cows, "decode.pgather": spills,
+                  "decode.ptier": sum(restores)}
+        got_calls = {k: calls.get(k, 0) for k in wcalls}
+        blocks = [r["block_s"] for r in pz["top"]]
+        if got_calls != wcalls or blocks != sorted(blocks, reverse=True) \
+                or {k for k, v in calls.items() if v} - set(wcalls) \
+                or (device == "cuda" and not all(
+                    r["block_s"] > 0 for r in pz["top"] if calls[r["exe"]])):
+            raise RuntimeError(f"{tag}: /profilez calls {calls} (wanted "
+                               f"{wcalls}), rows {pz['top']}")
+        mz = http_json(mport, "/memz")["pools"]["kv"]
+        ms = mz["stats"]
+        if sum(ms["owner_kinds"].values()) != ms["pages_used"] \
+                or sum(ms["owners"].values()) != ms["pages_used"] \
+                or mz["ghost_pages"] != 0 or after["active"]:
+            raise RuntimeError(f"{tag}: /memz {ms['pages_used']} pages "
+                               f"used, kinds {ms['owner_kinds']}, ghosts "
+                               f"{mz['ghost_pages']}")
+        st = http_json(mport, "/statusz")
+        dm = st["device_memory"].get("cuda:0", {})
+        total = torch.cuda.get_device_properties(0).total_memory \
+            if device == "cuda" else 0
+        text = scrape(mport, "/metrics")[1]
+        gauge = labeled_value(text, "paddle_tpu_hbm_bytes_in_use",
+                              device="cuda:0") if device == "cuda" else 0
+        if device == "cuda" and (dm.get("bytes_in_use", 0) <= 0
+                                 or dm.get("bytes_limit") != total
+                                 or gauge <= 0):
+            raise RuntimeError(f"{tag}: /statusz device_memory {dm}, card "
+                               f"total {total}, gauge {gauge}")
+        if st["memory"]["pools"]["kv"]["pages_used"] != ms["pages_used"]:
+            raise RuntimeError(f"{tag}: /statusz memory {st['memory']}")
+        al = http_json(mport, "/alertz")
+        objs = [o.name for o in serve_objectives()]
+        if [v["name"] for v in al["slos"]] != objs or any(
+                v["state"] == "firing" for v in al["slos"]):
+            raise RuntimeError(f"{tag}: /alertz {al}")
+        varz = http_json(mport, "/varz")
+        seq, err = planes_oom(torch, cfg, eng.params, device)
+        dumps = http_json(mport, "/memz?oom=1")["oom_dumps"]
+        dump = [d for d in dumps if d["seq"] == seq]
+        if len(dump) != 1:
+            raise RuntimeError(f"{tag}: /memz?oom=1 has no dump {seq}")
+        d = dump[0]
+        if d["pages_used"] + d["pages_free"] != 8 \
+                or sum(d["owner_kinds"].values()) != d["pages_used"] \
+                or sum(d["top_owners"].values()) != d["pages_used"] \
+                or d["requested"] != 7 or d["pages_used"] != 4 \
+                or "RESOURCE_EXHAUSTED" not in err:
+            raise RuntimeError(f"{tag}: OOM dump {d}; denied with {err}")
+    finally:
+        srv.stop()
+    pairs = [(fresh[t][i], results[(t, i)]) for t in fresh
+             for i in range(n_tenant)]
+    pairs += [(p, results[key]) for key, p in turn2.items()]
+    if any(len(o) != max_new for _, o in pairs):
+        raise RuntimeError(f"{tag}: short streams "
+                           f"{[len(o) for _, o in pairs]}")
+    gaps = [teacher_forced(torch, oracle, p, o, device=device)
+            for p, o in pairs]
+    if max(gaps) > tol:
+        raise RuntimeError(f"{tag}: teacher-forced check failed: {gaps}")
+    top = ", ".join(
+        f"{r['exe']} {calls[r['exe']]} calls block "
+        f"{r['block_s'] - prof0.get(r['exe'], {}).get('block_s', 0):.6f}s "
+        f"wall {r['wall_s'] - prof0.get(r['exe'], {}).get('wall_s', 0):.6f}s"
+        for r in pz["top"] if calls[r["exe"]])
+    log(f"{tag} [{power}] gpt2_124m kv_dtype={after['kv_dtype']} "
+        f"server up in {setup:.3f}s (artifact + load + warmup), "
+        f"{slots} slots, {eng.num_pages - 1} device pages, host tier "
+        f"{host_pages} pages; {n_req} PDI2 requests ({2 * n_tenant} over "
+        f"tenants a, b, then {n_turn2} second turns) of {plen}-token "
+        f"prompts in {wall:.6f}s: steps {steps}, prefills {prefills}, "
+        f"cow {cows}, tier batches spill {spills} refetch {refetches} "
+        f"(restored {sum(restores)}), launches {counts}; /tracez "
+        f"{len(trace['traceEvents'])} events, spans {got}; /profilez "
+        f"(this run's calls and seconds): {top}; /memz "
+        f"{ms['pages_used']} pages used by {ms['owner_kinds']}, 0 ghosts; "
+        f"OOM dump {d['pages_used']} used + {d['pages_free']} free, owners "
+        f"{d['top_owners']}; /statusz cuda:0 {dm}; hbm gauge {gauge:.0f}; "
+        f"/alertz {[(v['name'], v['state']) for v in al['slos']]}; /varz "
+        f"{varz['ring']['samples']} samples; teacher_forced_max_gap="
+        f"{max(gaps):.3e} (gate {tol})")
+
+
+def _bare(label, fn, *args):
+    """An engine entry point called with no dispatch hook."""
+    return fn(*args)
+
+
+def planes_toggle(eng, on, saved):
+    """Planes on: the tracez and memz rings at their capacities, every
+    finished stream's span line sampled into a JSONL file, the engine's
+    entry points behind its dispatch hook. Off: both rings at capacity
+    0, sampling 0, the entry points called bare."""
+    from paddle_tpu_torch.observability import MEM_RING, RING
+    RING.capacity = saved["ring"] if on else 0
+    MEM_RING.capacity = saved["mem"] if on else 0
+    eng._spans.sample = 1.0 if on else 0.0
+    if on:
+        eng.__dict__.pop("_timed", None)
+    else:
+        eng._timed = _bare
+
+
+def sync_calls(torch, fn):
+    """Synchronizing CUDA runtime calls and device-to-host copies while
+    `fn` runs, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {k: 0 for k in SYNC_CALLS + ("Memcpy DtoH",)}
+    for ev in prof.key_averages():
+        for k in out:
+            if ev.key.startswith(k):
+                out[k] += ev.count
+    return out
+
+
+def planes_window(eng, prompts, max_new):
+    """`prompts` queued under the engine's lock (admitted together, so the
+    batching is the same every time); returns (outputs, wall seconds,
+    steps, prefills)."""
+    before = eng.stats()
+    t0 = time.perf_counter()
+    with eng._cond:
+        streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    outs = [s.result(timeout=600) for s in streams]
+    wall = time.perf_counter() - t0
+    after = eng.stats()
+    return (outs, wall, after["steps"] - before["steps"],
+            after["prefills"] - before["prefills"])
+
+
+def planes_tier_window(torch, cfg, params, waves, max_new, on, saved,
+                       spans_path, device):
+    """One traced window of phase 19(b) on a fresh tiered engine (so both
+    windows start from the same state): `waves` of prompts, each queued
+    under the engine's lock and run to its end, with the tier idle,
+    before the next. Returns (synchronizing calls, outputs, steps,
+    prefills, work, seconds): `work` the tier's and the copy-on-write's
+    counts and the hook's dispatch counts by label, `seconds` the
+    engine's set-up and the traced waves with the trace's reading."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.observability import PROFILER
+    t0 = time.perf_counter()
+    eng = DecodeEngine(cfg=cfg, params=params, eps=1e-5, max_slots=8,
+                       page_tokens=16, num_pages=81, host_pages=128,
+                       device=device)
+    try:
+        eng.warmup()
+        t1 = time.perf_counter()
+        eng._spans.path = spans_path
+        planes_toggle(eng, on, saved)
+        before, prof0 = eng.stats(), PROFILER.snapshot()
+        box = {"outs": []}
+
+        def run():
+            for wave in waves:
+                box["outs"] += planes_window(eng, wave, max_new)[0]
+                settled(eng)
+        calls = sync_calls(torch, run)
+        seconds = (t1 - t0, time.perf_counter() - t1)
+        after = eng.stats()
+        tb, ta = before["kv_tier"], after["kv_tier"]
+        work = {"cow": after["cow_copies"] - before["cow_copies"],
+                "spill_pages": ta["spill_pages"] - tb["spill_pages"],
+                "refetch_pages": ta["refetch_pages"] - tb["refetch_pages"]}
+        prof = PROFILER.snapshot()
+        work.update({k: prof.get(k, {}).get("calls", 0)
+                     - prof0.get(k, {}).get("calls", 0)
+                     for k in ("decode.pcow", "decode.pgather",
+                               "decode.ptier")})
+        return (calls, box["outs"], after["steps"] - before["steps"],
+                after["prefills"] - before["prefills"], work, seconds)
+    finally:
+        planes_toggle(eng, True, saved)
+        eng.stop()
+
+
+def planes_sync_run(torch, np, power, cfg, params, device="cuda"):
+    """Phase 19(b): the planes add no synchronization. See
+    `phase_planes`."""
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.observability import (MEM_RING, RING,
+                                                AdminServer)
+    saved = {"ring": RING.capacity, "mem": MEM_RING.capacity}
+    rng = np.random.default_rng(191)
+    # 128-token (page-aligned) prompts, 8 new tokens: wave B's prefills
+    # spill wave A's cached prefixes to the host tier (80 usable pages
+    # cannot hold a wave's 72 beside the trie's 64), and two of A's
+    # prompts asked again one at a time refetch them (decode.ptier) and,
+    # a full hit, re-feed the last prompt token into a shared page
+    # (decode.pcow)
+    a, b = ([[int(t) for t in rng.integers(0, cfg.vocab_size, 128)]
+             for _ in range(8)] for _ in range(2))
+    waves = [a, b] + [[p] for p in a[:2]]
+    steady = [[[int(t) for t in rng.integers(0, cfg.vocab_size, 128)]
+               for _ in range(8)] for _ in range(4)]
+    rates = {}
+    RING.clear()
+    with tempfile.TemporaryDirectory() as td:
+        adm = AdminServer(port=0)
+        stop = threading.Event()
+
+        def scrape_loop():       # an operator polling the planes
+            while not stop.wait(0.5):
+                for path in ("/metrics", "/tracez", "/memz"):
+                    scrape(adm.port, path)
+        scraper = threading.Thread(target=scrape_loop, daemon=True)
+        eng = None
+        try:
+            scraper.start()
+            spans = os.path.join(td, "spans.jsonl")
+            traced = {on: planes_tier_window(torch, cfg, params, waves, 8,
+                                             on, saved, spans, device)
+                      for on in (True, False)}
+            eng = DecodeEngine(cfg=cfg, params=params, eps=1e-5,
+                               max_slots=8, page_tokens=16,
+                               prefix_cache=False, device=device)
+            eng.warmup()
+            eng._spans.path = spans
+            ring = len(RING.snapshot()[0])
+            for k, on in enumerate((True, False, False, True)):
+                planes_toggle(eng, on, saved)
+                outs, wall, _, _ = planes_window(eng, steady[k], 64)
+                rates.setdefault(on, []).append(
+                    sum(map(len, outs)) / wall)
+        finally:
+            if eng is not None:
+                planes_toggle(eng, True, saved)
+                eng.stop()
+            stop.set()
+            scraper.join(timeout=30)
+            adm.stop()
+    (c_on, o_on, s_on, p_on, w_on, t_on), \
+        (c_off, o_off, s_off, p_off, w_off, t_off) = \
+        traced[True], traced[False]
+    hooked = {k: w_on[k] for k in ("decode.pcow", "decode.pgather",
+                                   "decode.ptier")}
+    plain = {k: w_off[k] for k in ("cow", "spill_pages", "refetch_pages")}
+    if min(hooked.values()) < 1 or min(plain.values()) < 1 \
+            or plain != {k: w_on[k] for k in plain} \
+            or any(w_off[k] for k in hooked):
+        raise RuntimeError(f"phase 19(b): the windows' work: on {w_on}, "
+                           f"off {w_off}")
+    if c_on != c_off or (s_on, p_on) != (s_off, p_off) or o_on != o_off:
+        raise RuntimeError(f"phase 19(b): synchronizing calls planes on "
+                           f"{c_on} over (steps, prefills) {(s_on, p_on)}, "
+                           f"off {c_off} over {(s_off, p_off)}; outputs "
+                           f"equal {o_on == o_off}")
+    log(f"PHASE 19(b) [{power}] planes on (tracez + memz rings, every "
+        f"span sampled to JSONL, dispatch hooks, an admin server scraped "
+        f"every 0.5 s) vs off (rings at capacity 0, sampling 0, entry "
+        f"points called bare), each on a fresh tiered engine (80 device "
+        f"pages, 128 host pages): 8 then 8 other 128-token prompts, then "
+        f"2 of the first asked again one at a time, 8 new tokens each "
+        f"({p_on} prefills, {s_on} steps; on: {hooked} dispatches, both: "
+        f"{plain}): synchronizing calls on {c_on}, off {c_off} "
+        f"({sum(c_on.values()) / s_on:.3f} a step both), tokens equal; "
+        f"seconds (engine set-up, traced waves with the trace's reading) "
+        f"on {t_on[0]:.3f}, {t_on[1]:.3f}, off {t_off[0]:.3f}, "
+        f"{t_off[1]:.3f}; steady window (8 x 128-token prompts, 64 new "
+        f"tokens, no tier; the tracez ring holding {ring} events as the "
+        f"scraper renders it) tokens/s in turns on {rates[True][0]:.3f}, "
+        f"off {rates[False][0]:.3f}, off {rates[False][1]:.3f}, on "
+        f"{rates[True][1]:.3f}")
+
+
+def trace_gaps(doc):
+    """What a Chrome trace from `profiler.stop_trace` leaves out or
+    renames: its CUDA launches that have no device row, each as (runtime
+    call, the innermost CPU op around it, ms from the trace's first
+    event); its flash kernels' row names with their counts; and how far
+    the device side of each `RecordEvent` span starts after its host
+    side (ms)."""
+    evs = doc["traceEvents"]
+    rows = {e.get("args", {}).get("correlation") for e in evs
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    ops = [e for e in evs if e.get("cat") == "cpu_op"]
+    t0 = min(e["ts"] for e in evs if "ts" in e and e.get("ph") != "M")
+    gaps = []
+    for e in evs:
+        if e.get("cat") == "cuda_runtime" and "aunch" in e["name"] \
+                and e.get("args", {}).get("correlation") not in rows:
+            inner = [o for o in ops
+                     if o["ts"] <= e["ts"] <= o["ts"] + o.get("dur", 0)]
+            op = min(inner, key=lambda o: o.get("dur", 0))["name"] \
+                if inner else None
+            gaps.append((e["name"], op, round((e["ts"] - t0) / 1e3, 3)))
+    flash = {}
+    for e in evs:
+        if e.get("cat") == "kernel" and "flash" in e["name"]:
+            flash[e["name"]] = flash.get(e["name"], 0) + 1
+    spans = {}
+    for e in evs:
+        if e.get("cat") in ("user_annotation", "gpu_user_annotation"):
+            spans.setdefault(e["name"], {})[e["cat"]] = e["ts"]
+    skew = {k: round((v["gpu_user_annotation"] - v["user_annotation"])
+                     / 1e3, 3)
+            for k, v in spans.items() if len(v) == 2}
+    return gaps, flash, skew
+
+
+def planes_train_run(torch, np, power):
+    """Phase 19(c): `paddle.profiler` on a GPT-2 124M training step. See
+    `phase_planes`."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.optimizer as opt
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.models.gpt import init_params_numpy
+    from paddle_tpu_torch.static import InputSpec
+    cfg = GPTConfig()
+    B, T, n = 16, 1024, 3
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    gpt = GPT(cfg).load_numpy(init_params_numpy(cfg, seed=0))
+
+    class _LMLoss(nn.Layer):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ids, labels):
+            return self.m.loss(ids, labels)
+
+    net = _LMLoss(gpt)
+    net.train()
+    model = Model(net, inputs=[InputSpec([None, T], "int32"),
+                               InputSpec([None, T], "int32")])
+    s = DistributedStrategy()
+    s.amp = True
+    s.amp_configs.use_pure_bf16 = True
+    model.prepare(opt.Adam(learning_rate=1e-4,
+                           parameters=model.parameters()), strategy=s)
+    rng = np.random.default_rng(19)
+    ids = rng.integers(0, cfg.vocab_size, (n * B, T), dtype=np.int32)
+    ds = TensorDataset([ids, np.roll(ids, -1, axis=1)])
+
+    def fit():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.fit(ds, batch_size=B, epochs=1, verbose=0, shuffle=False,
+                  log_freq=10 ** 9)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+    fit()                                   # warm-up
+    off = [fit()]
+    flash = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+             "flash_bwd_dkv_wgmma_kernel")
+    launched = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")
+    zero_counts()
+    with tempfile.TemporaryDirectory() as td:
+        profiler.start_trace(td)
+        # the trace's first steps, outside the span: whether their
+        # launches kept their device rows is printed, not gated
+        fit()
+        warm = [kernel_counts()[k] for k in launched]
+        zero_counts()
+        with profiler.RecordEvent("phase19.fit"):
+            on = [fit()]
+        path = profiler.stop_trace()
+        with open(path) as f:
+            doc = json.load(f)
+    counts = kernel_counts()
+    off += [fit(), fit()]
+    evs = doc["traceEvents"]
+    spans = [e for e in evs if e.get("name") == "phase19.fit"
+             and e.get("cat") == "user_annotation"]
+    # the device rows of the launches made inside the span, by their
+    # correlation with the launch (any thread: backward's too)
+    inside = {e.get("args", {}).get("correlation") for e in evs
+              if e.get("cat") == "cuda_runtime" and spans
+              and spans[0]["ts"] <= e["ts"] <= spans[0]["ts"]
+              + spans[0]["dur"]}
+    kern = {k: 0 for k in flash}
+    before = {k: 0 for k in flash}
+    for e in evs:
+        if e.get("cat") == "kernel":
+            rows = kern if e.get("args", {}).get("correlation") in inside \
+                else before
+            for stem in flash:
+                rows[stem] += stem in e["name"]
+    want = cfg.layers * n
+    if kern != {k: want for k in flash} \
+            or [counts[k] for k in launched] != [want] * 3 or not spans:
+        gaps, names, skew = trace_gaps(doc)
+        raise RuntimeError(f"phase 19(c): trace kernels in the span "
+                           f"{kern}, launch counters {counts}, wanted "
+                           f"{want} each over {n} steps; RecordEvent "
+                           f"spans {len(spans)}; launches with no device "
+                           f"row {gaps}; flash rows by name {names}; "
+                           f"device-side span starts after the host's, "
+                           f"ms {skew}")
+    # the host table: a short loop of paddle-API ops
+    x = paddle.to_tensor(np.ones((64, 64), np.float32))
+    with profiler.profiler():
+        for _ in range(3):
+            y = paddle.matmul(x, x)
+            y = paddle.exp(y * 1e-3) + x
+            paddle.sum(y).item()
+    table = profiler.summary()
+    rows = {ln.split()[0]: int(ln.split()[1]) for ln in table.splitlines()[1:]}
+    if not {"op::matmul", "op::exp"} <= set(rows):
+        raise RuntimeError(f"phase 19(c): summary rows {rows}")
+    del model, net, gpt
+    torch.cuda.empty_cache()
+    log(f"PHASE 19(c) [{power}] GPT-2 124M B={B} T={T} AMP O2 Adam "
+        f"Model.fit, {n} steps in a RecordEvent span inside "
+        f"profiler.start_trace/stop_trace after {n} more: the Chrome "
+        f"trace's device rows of the span's launches {kern} (= "
+        f"{cfg.layers} x {n}, equal to the launch counters); the {n} "
+        f"steps before the span kept {list(before.values())} rows of "
+        f"{warm} launches; ms per step "
+        f"(CUDA events over the fit) trace off {off[0]:.3f}, on "
+        f"{on[0]:.3f}, off {off[1]:.3f}, {off[2]:.3f}; summary() rows of "
+        f"a paddle-API loop {rows}")
+
+
+def phase_planes(torch, np, power, cfg, arrays, qarrays, device="cuda"):
+    """Phase 19: the observability planes on the card. (a) the admin
+    plane on a live decode server with a host tier, fp32 then int8;
+    (b) the planes add no synchronization; (c) `paddle.profiler` on a
+    GPT-2 124M training step."""
+    from paddle_tpu_torch.models.gpt import GPTDecoder, params_from_numpy
+    from paddle_tpu_torch.quant.ptq import dequantize_params
+    t0 = time.perf_counter()
+    params = params_from_numpy(cfg, arrays, device)
+    oracle = GPTDecoder(cfg, device=device)
+    oracle.load_state_dict(params)
+    planes_server_run(torch, np, power, cfg, arrays, oracle, LOGIT_TOL,
+                      "PHASE 19(a)", False, device=device)
+    oracle.load_state_dict(params_from_numpy(
+        cfg, dequantize_params(qarrays), device))
+    planes_server_run(torch, np, power, cfg, qarrays, oracle,
+                      INT8_LOGIT_TOL, "PHASE 19(a)-int8", True,
+                      device=device)
+    del oracle
+    log(f"PHASE 19(a) took {time.perf_counter() - t0:.3f}s")
+    if device != "cuda":
+        return
+    t1 = time.perf_counter()
+    planes_sync_run(torch, np, power, cfg, params, device=device)
+    del params
+    log(f"PHASE 19(b) took {time.perf_counter() - t1:.3f}s")
+    t2 = time.perf_counter()
+    planes_train_run(torch, np, power)
+    log(f"PHASE 19(c) took {time.perf_counter() - t2:.3f}s")
+    torch.cuda.empty_cache()
+
+
 def main():
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; nothing was run")
@@ -6585,11 +7274,19 @@ def main():
     phase_serving_qos(torch, np, power, cfg, arrays, qarrays)
     log(f"PHASE 18 took {time.perf_counter() - t0:.3f}s")
 
+    # phase 19: the observability planes (tracez, profilez, memz, varz /
+    # SLO on the admin plane of a live server, no added synchronization,
+    # paddle.profiler's device trace of a training step)
+    t0 = time.perf_counter()
+    phase_planes(torch, np, power, cfg, arrays, qarrays)
+    log(f"PHASE 19 took {time.perf_counter() - t0:.3f}s")
+
     for rec in records:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                     "max_abs_err"):
             if rec[key] is not None and not math.isfinite(rec[key]):
                 raise RuntimeError(f"{rec['name']}: {key} not finite")
+    log(f"chip_smoke took {time.perf_counter() - t_main:.3f}s")
     log(power)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

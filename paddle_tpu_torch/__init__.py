@@ -27,6 +27,12 @@ follow the JAX package so each counterpart is easy to find:
   * `quant`                 int8 PTQ of decode weights, int8 KV pages
   * `inference.decode`      the paged-KV continuous-batching DecodeEngine
   * `inference.serve`       the PDI1/PDI2 decode server
+  * `observability`, `profiler`, `core.monitor`
+                            the metrics registry and admin plane, request
+                            spans, tracez, profilez, memz, varz / SLO, the
+                            stall flight recorder; RecordEvent tables and
+                            torch.profiler device traces; stat counters and
+                            per-card memory
   * `nn`, `amp`, `optimizer`, `io`, `static`, `distributed.fleet`, `hapi`
                             the training slice: layers and functionals,
                             gradient clips, op-by-op AMP with dynamic
@@ -79,6 +85,8 @@ from .distributed.parallel import DataParallel  # noqa: F401
 from .framework import ParamAttr, load, save
 from .hapi import Model, callbacks, flops, summary
 from . import device, inference, observability, quant, utils  # noqa: F401
+from . import profiler  # noqa: F401
+from .core import monitor  # noqa: F401
 from . import tensor  # noqa: F401,E402  (the paddle.tensor alias module)
 
 # LoD-era type aliases, as in the JAX package: a LoDTensor and a VarBase

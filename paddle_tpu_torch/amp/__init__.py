@@ -95,9 +95,19 @@ def _is_float(t):
     return isinstance(t, torch.Tensor) and t.is_floating_point()
 
 
+_profiler_hook = [None]  # paddle_tpu_torch.profiler installs its per-op hook
+
+
 def maybe_cast_inputs(op_name, tensors):
     """The inputs of op `op_name`, cast per the active `auto_cast` (a
-    list; non-tensors and integer tensors pass through)."""
+    list; non-tensors and integer tensors pass through).
+
+    Every op of the port passes here once under the name the JAX
+    package's tape dispatches it by (the library ops through
+    `ops._dispatch.cast_in`, the functionals directly), so this is also
+    where the profiler sees each dispatch."""
+    if _profiler_hook[0] is not None:
+        _profiler_hook[0](op_name)
     st = amp_state()
     tensors = list(tensors)
     if st is None:

@@ -188,10 +188,21 @@ define_env_flag(
     "Per-request wire payload budget in bytes for serve frames "
     "(inference/serve.py); default 256 MiB.")
 define_env_flag(
+    "PADDLE_TPU_MEMZ_OOM_DUMPS", 4,
+    "OOM forensic dumps retained by the memory plane "
+    "(observability/memz.py) and served at /memz?oom=1 — each captures "
+    "the pool's per-owner rollups, fragmentation map, and allocation "
+    "ring tail at the moment a PageExhausted fired.")
+define_env_flag(
+    "PADDLE_TPU_MEMZ_RING_CAPACITY", 4096,
+    "Capacity of the memz allocation event ring "
+    "(observability/memz.py): alloc/retain/release/exhausted events "
+    "from every page pool, overwritten on wrap. 0 disables recording.")
+define_env_flag(
     "PADDLE_TPU_METRICS_PORT", None,
-    "Admin-plane port for /metrics, /healthz and /statusz "
-    "(inference/serve.py). 0 = ephemeral port; unset disables the admin "
-    "server.", parser=int)
+    "Admin-plane port for /metrics,/healthz,/statusz,/varz,/alertz,"
+    "/tracez,/profilez,/memz (inference/serve.py). 0 = ephemeral port; "
+    "unset disables the admin server.", parser=int)
 define_env_flag(
     "PADDLE_TPU_SERVE_IDLE_TIMEOUT", 600.0,
     "Seconds an idle client connection is kept open before the server "
@@ -211,6 +222,38 @@ define_env_flag(
     "(prompt forward + KV export) or 'decode' (KV import + token "
     "streaming). Non-unified roles imply PADDLE_TPU_DECODE_HANDOFF.")
 define_env_flag(
+    "PADDLE_TPU_SLO_AVAILABILITY", 0.999,
+    "Availability SLO target fraction for burn-rate alerts "
+    "(observability/slo.py).")
+define_env_flag(
+    "PADDLE_TPU_SLO_BURN", "2,10",
+    "Burn-rate alert factors 'warn,firing' (observability/slo.py).")
+define_env_flag(
+    "PADDLE_TPU_SLO_LATENCY_TARGET", 0.99,
+    "Fraction of requests that must beat PADDLE_TPU_SLO_P99_MS "
+    "(observability/slo.py).")
+define_env_flag(
+    "PADDLE_TPU_SLO_P99_MS", 0.0,
+    "Latency SLO threshold in milliseconds; 0 disables the latency "
+    "objective (observability/slo.py).")
+define_env_flag(
+    "PADDLE_TPU_SLO_TENANTS", "",
+    "Comma-separated tenant names that get per-tenant availability "
+    "objectives on /alertz (observability/slo.py), e.g. 'batch,search'; "
+    "empty registers no per-tenant objectives.")
+define_env_flag(
+    "PADDLE_TPU_SLO_WINDOWS", "60,300",
+    "Burn-rate evaluation windows 'short,long' in seconds "
+    "(observability/slo.py).")
+define_env_flag(
+    "PADDLE_TPU_STALL_DUMP", "",
+    "Directory for flight-recorder stall dumps (observability/"
+    "flight_recorder.py); empty disables the watchdog.")
+define_env_flag(
+    "PADDLE_TPU_STALL_TIMEOUT", 60.0,
+    "Seconds without a heartbeat before the flight recorder declares a "
+    "stall and dumps thread stacks (observability/flight_recorder.py).")
+define_env_flag(
     "PADDLE_TPU_TENANT_QUOTA", "",
     "Per-tenant service-rate quotas, 'tenant:rate,...' with '*' for "
     "unlisted tenants: tokens/second in the decode engine "
@@ -222,6 +265,33 @@ define_env_flag(
     "unlisted tenants (inference/batching.py tenant_weights). Admission "
     "picks the most-underserved tenant by tokens_served/weight; unlisted "
     "tenants weigh 1.0.")
+
+define_env_flag(
+    "PADDLE_TPU_TRACEZ_CAPACITY", 65536,
+    "Event capacity of the per-process tracez ring (observability/"
+    "tracez.py); oldest events are overwritten when full. 0 disables "
+    "event recording entirely.")
+define_env_flag(
+    "PADDLE_TPU_TRACE_FILE", "",
+    "JSONL sink for sampled request traces (observability/spans.py); "
+    "empty writes them to stderr.")
+define_env_flag(
+    "PADDLE_TPU_TRACE_MAX_BYTES", 64 << 20,
+    "Size cap in bytes for the JSONL trace file (observability/spans.py): "
+    "at the cap the file rotates to <path>.1, keeping the live file plus "
+    "one predecessor. <= 0 disables rotation.")
+define_env_flag(
+    "PADDLE_TPU_TRACE_SAMPLE", 0.0,
+    "Request-trace sampling rate clamped to [0,1] (observability/spans.py); "
+    "0 disables sampling.")
+define_env_flag(
+    "PADDLE_TPU_VARZ_CAPACITY", 400,
+    "Ring-buffer capacity (snapshot count) for /varz time-series history "
+    "(observability/timeseries.py), min 8.")
+define_env_flag(
+    "PADDLE_TPU_VARZ_INTERVAL", 10.0,
+    "Sampler period in seconds for /varz time-series history "
+    "(observability/timeseries.py), min 0.05.")
 
 define_flag("use_pallas_attention", True,
             "Route qualifying scaled_dot_product_attention calls (no mask, "

@@ -12,7 +12,6 @@ import sys
 import time
 from typing import List, Optional
 
-import torch
 
 __all__ = ["Callback", "CallbackList", "ProgBarLogger", "ModelCheckpoint",
            "LRScheduler", "EarlyStopping", "MetricsLogger", "VisualDL",
@@ -273,14 +272,14 @@ class MetricsLogger(Callback):
     ``TRAIN_METRICS``): the monotonic time, event, epoch and step, steps/s
     over the window and the numeric entries of ``logs`` (the loss, read
     off the device here, and the metrics). With `hbm` and a model on a
-    CUDA device, ``hbm_bytes_in_use`` maps that device (``"cuda:0"``) to
-    its allocated bytes (`torch.cuda.memory_stats`); on the CPU there is
-    nothing to report and the key is left out, as the JAX package leaves
-    it out for a backend that reports nothing. The port has no async step
-    pipeline, so the keys the JAX package takes from
-    ``model._async_pipeline.stats()`` (``steps_in_flight``,
-    ``host_blocked_s``, ``steps_submitted``, ``window``) are not
-    written."""
+    CUDA device, ``hbm_bytes_in_use`` maps every visible card
+    (``"cuda:0"``, ...) to its allocated bytes (`core.monitor`, as in the
+    JAX package); on the CPU there is nothing to report and the key is
+    left out, as the JAX package leaves it out for a backend that reports
+    nothing. The port has no async step pipeline, so the keys the JAX
+    package takes from ``model._async_pipeline.stats()``
+    (``steps_in_flight``, ``host_blocked_s``, ``steps_submitted``,
+    ``window``) are not written."""
 
     def __init__(self, log_freq: int = 50, path: Optional[str] = None,
                  hbm: bool = True):
@@ -320,9 +319,10 @@ class MetricsLogger(Callback):
         dev = getattr(self.model, "_device", None)
         if dev is None or dev.type != "cuda":
             return {}
-        used = torch.cuda.memory_stats(dev).get("allocated_bytes.all.current")
-        return {} if used is None else {
-            f"cuda:{dev.index if dev.index is not None else 0}": used}
+        from ..core import monitor
+        return {d: st["bytes_in_use"]
+                for d, st in monitor.all_device_memory_stats().items()
+                if st.get("bytes_in_use") is not None}
 
     def _payload(self, logs, event):
         now = time.monotonic()

@@ -64,7 +64,22 @@ Port of paddle_tpu's `inference/decode.py` `DecodeEngine` (one tenant):
     latency histograms, TTFT, the page pool, the prefix cache, the
     speculation counters, tenants, preemptions and quotas), the
     ``paddle_tpu_handoff_*`` and ``paddle_tpu_kv_tier_*`` families, which
-    `inference.serve` exposes on ``/metrics``.
+    `inference.serve` exposes on ``/metrics``;
+  * **the observability planes**, as in the JAX engine: request ids from
+    `observability.spans.next_request_id` and a queue / prefill / decode
+    `SpanRecorder` record per finished stream; tracez events for the
+    tick phases (``decode.admit``, ``decode.cow``, ``decode.emit``,
+    ``decode.sample``, ``decode.step``, the speculative ``decode.draft``
+    / ``decode.verify`` / ``decode.accept``) and the handoff
+    (``handoff.export`` / ``handoff.import``); every device entry point
+    goes through the engine's `_timed` hook under the JAX package's label
+    (``decode.prefill``, ``decode.pstep``, ``decode.pcow``,
+    ``decode.pgather``, ``decode.ptier``, ``decode.dprefill``,
+    ``decode.droll``, ``decode.dcow``, ``decode.verify``), which feeds
+    profilez and an ``exec:<label>`` tracez span without adding a
+    synchronization; the page pool registers with memz (owner rollups,
+    the ghost-page audit over the engine's live stream ids) and an
+    exhausted pool leaves an OOM forensic dump.
 
 Unlike the JAX engine, whose pools are donated and functionally updated,
 this engine updates its pools in place, and it runs eagerly (no AOT
@@ -73,14 +88,12 @@ the migration worker against snapshots and staging buffers, and handoff
 jobs are parked for the scheduler. Chaos sites (`testing.chaos`):
 ``decode.stream`` per token delivery, ``decode.page_alloc`` per page
 allocation, ``decode.preempt`` per preemption, ``page.migrate`` per tier
-migration batch. Spans, tracez events and memz are later slices of the
-port.
+migration batch.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-import itertools
 import json
 import queue
 import threading
@@ -91,8 +104,9 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import framework
+from .. import framework, profiler  # noqa: F401  (JAX module surface)
 from ..core import flags as _flags
+from ..core import monitor  # noqa: F401  (JAX module surface)
 from ..core.device import resolve_device
 from ..memory.migration import (HostPageStore, MigrationEngine, Residency,
                                 TieredPageAllocator, deserialize_pages,
@@ -103,6 +117,10 @@ from ..models.gpt import (GPTConfig, gpt_paged_decode_fns,
                           gpt_paged_prefill_fns, gpt_paged_rollout_fns,
                           gpt_paged_verify_fns, params_from_numpy)
 from ..observability import counter, gauge, histogram
+from ..observability import memz as _memz
+from ..observability.profilez import PROFILER as _PROFILER
+from ..observability.spans import SpanRecorder, next_request_id
+from ..observability.tracez import RING as _RING
 from ..quant.kv import kv_pool_zeros, validate_kv_dtype
 from ..quant.ptq import is_quantized, quantize_params
 from ..testing import chaos
@@ -118,8 +136,6 @@ DEFAULT_MAX_NEW_TOKENS = 64
 HBM_FRACTION = 0.5             # share of free device memory slots may fill
 DEFAULT_PAGE_TOKENS = 16       # mirrors PADDLE_TPU_DECODE_PAGE_TOKENS
 ARTIFACT_FORMAT = "paddle_tpu.decode.v1"
-
-_REQ_IDS = itertools.count(1)
 
 # the token-bucket clock of the tenant quotas (tests replace it)
 _quota_clock = time.monotonic
@@ -359,7 +375,7 @@ class _HandoffJob:
     __slots__ = ("id",)
 
     def __init__(self):
-        self.id = next(_REQ_IDS)
+        self.id = next_request_id()
 
 
 def _tree_map(fn, pools):
@@ -372,6 +388,32 @@ def _tree_map(fn, pools):
 def _trie_owner(digest: bytes) -> tuple:
     """Allocator owner tag for a prefix-trie node (short digest hex)."""
     return ("trie", digest.hex()[:12])
+
+
+def _pool_bytes(pools) -> int:
+    return sum(t.numel() * t.element_size() for t in pool_leaves(pools))
+
+
+def _observe(label: str, t0: float, t1: float, block: float,
+             donated: int):
+    """One finished dispatch into tracez and profilez."""
+    _RING.complete(f"exec:{label}", t0, t1 + block)
+    _PROFILER.observe(label, t1 - t0, block, donated)
+
+
+def _settle(pending: list, wait: bool = False) -> list:
+    """Observe every dispatch of `pending` whose end event has completed
+    (all of them, waiting, with `wait`); returns those still pending."""
+    keep = []
+    for item in pending:
+        label, t0, t1, donated, start, end = item
+        if wait:
+            end.synchronize()
+        elif not end.query():
+            keep.append(item)
+            continue
+        _observe(label, t0, t1, start.elapsed_time(end) / 1e3, donated)
+    return keep
 
 
 def kv_slot_bytes(cfg: GPTConfig, capacity: Optional[int] = None) -> int:
@@ -533,7 +575,7 @@ class _Req:
 
     def __init__(self, prompt, max_new, temperature, top_k, eos_id,
                  seed=None, tenant=DEFAULT_TENANT, priority=0):
-        self.id = next(_REQ_IDS)
+        self.id = next_request_id()
         self.prompt = prompt
         self.max_new = max_new
         self.temperature = temperature
@@ -886,7 +928,16 @@ class DecodeEngine:
         self._prefix = _PrefixCache(self._alloc, self.page_tokens) \
             if use_prefix else None
 
-        self._prefill, self._step = gpt_paged_decode_fns(
+        # the device entry points, each behind the dispatch hook under
+        # the JAX engine's label. The port's prefill writes the prompt's
+        # K/V straight into its pages, so it has no separate page write
+        # ("decode.pwrite" in the JAX engine); tier restores and handoff
+        # imports scatter through "decode.ptier", and the tier's spill
+        # snapshot and the handoff export gather through "decode.pgather"
+        # in both packages.
+        self._dispatched: List = []      # GPU dispatches not yet settled
+        self._donated: Dict[str, int] = {}   # label -> in-place pool bytes
+        _, self._step = gpt_paged_decode_fns(
             cfg, eps=self.eps, page_tokens=self.page_tokens)
         self._paged_prefill = gpt_paged_prefill_fns(
             cfg, eps=self.eps, page_tokens=self.page_tokens)
@@ -931,12 +982,25 @@ class DecodeEngine:
                         "prefills": 0, "preemptions": 0,
                         "preempt_resumes": 0}
         self._admissions: Dict[str, int] = {}
+        # handoff job ids holding pages, and requests popped by _schedule
+        # but not yet in _active (they hold pages during _admit): the
+        # ghost-page audit must see both as live
+        self._handoff_live: set = set()
+        self._admitting: List = []
         self._m = _decode_metrics()
         self._m["kv_page_bytes"].set(
             kv_page_bytes(cfg, self.page_tokens, self.kv_dtype))
         self._m["kv_quantized"].set(1 if self.kv_dtype == "int8" else 0)
+        self._spans = SpanRecorder(
+            component="decode", metric="paddle_tpu_decode_span_seconds",
+            help="Decode request stage latency (queue/prefill/decode)")
         self._stop = False
         self._cond = threading.Condition()
+        # memory plane: /memz renders this pool's owner attribution, and
+        # the context callback feeds the ghost-page audit the set of
+        # stream ids still alive (registered after _cond exists —
+        # _memz_context reads the queues under it)
+        _memz.register_pool(self._alloc, context_fn=self._memz_context)
         self._thread = threading.Thread(
             target=self._loop, name="decode-scheduler", daemon=True)
         self._thread.start()
@@ -1022,8 +1086,18 @@ class DecodeEngine:
             self._vpool = kv_pool_zeros(self._pool_shape(), self.kv_dtype,
                                         self.device)
 
+    def _donated_bytes(self) -> Dict[str, int]:
+        """{label: bytes of the pool tensors that entry point updates in
+        place}, fixed once the pools exist."""
+        target = _pool_bytes((self._kpool, self._vpool))
+        return {"decode.pstep": target, "decode.prefill": target,
+                "decode.pcow": target,
+                "decode.ptier": _pool_bytes(self._pools())}
+
     def _ensure_pool(self):
-        self._make_pools()
+        if not self._donated:
+            self._make_pools()
+            self._donated = self._donated_bytes()
         if self.host_pages and self._migrate is None:
             # one host arena for the engine's life, pinned on a GPU
             self._store = HostPageStore(self._pools(), self.host_pages,
@@ -1123,6 +1197,8 @@ class DecodeEngine:
         self._thread.join(timeout=30)
         if self._migrate is not None:
             self._migrate.stop()
+        self._settle(wait=True)
+        self._spans.close()
         leftovers = (list(self._active) + list(self._pending)
                      + list(self._paused)
                      + [item[1] for item in self._migrating])
@@ -1150,11 +1226,14 @@ class DecodeEngine:
                 while (not self._stop and not self._pending
                        and not self._paused and not self._active
                        and not self._migrating and not self._handoff_q):
+                    if self._dispatched:
+                        self._settle()
                     self._cond.wait(timeout=0.1)
                 if self._stop:
                     return
                 self._refill_quota()
                 newly, victims = self._schedule()
+                self._admitting = list(newly) + list(victims)
                 if not newly and not victims and not self._active \
                         and not self._handoff_q:
                     # everything queued is quota-blocked (or parked on an
@@ -1178,7 +1257,11 @@ class DecodeEngine:
                              else self._pending).appendleft(req)
                         admitting.remove(req)
                         continue
-                    if self._admit(req):
+                    t_adm = time.perf_counter()
+                    admitted = self._admit(req)
+                    _RING.complete("decode.admit", t_adm,
+                                   time.perf_counter(), {"req": req.id})
+                    if admitted:
                         self._active.append(req)
                         self._admissions[req.tenant] = \
                             self._admissions.get(req.tenant, 0) + 1
@@ -1188,6 +1271,9 @@ class DecodeEngine:
                             self._counts["preempt_resumes"] += 1
                             self._m["preempt_resumes"].inc()
                     admitting.remove(req)
+                if self._admitting:
+                    with self._cond:
+                        self._admitting = []
                 if newly or victims:
                     self._update_gauges()
                 if self._active:
@@ -1202,6 +1288,8 @@ class DecodeEngine:
                     self._m["evictions"].labels(reason="error").inc()
                     self._release_pages(req)
                 self._active = []
+                with self._cond:
+                    self._admitting = []
                 self._update_gauges()
 
     # ------------------------------------------------- QoS scheduling
@@ -1350,6 +1438,87 @@ class DecodeEngine:
             return ("handoff", req.id)
         return ("slot", req.id, getattr(req, "tenant", DEFAULT_TENANT))
 
+    def _memz_context(self) -> Dict:
+        """Engine context for /memz snapshots and OOM dumps: the ids of
+        every stream legitimately holding pages (the ghost-page audit's
+        live set) plus the ladder state that shapes allocations."""
+        with self._cond:
+            live = [r.id for r in self._active]
+            live += [r.id for r in self._pending]
+            live += [r.id for r in self._paused]
+            live += [r.id for r in self._admitting]
+            live += [item[1].id for item in self._migrating]
+            live += list(self._handoff_live)
+        return {"live_owner_ids": [str(i) for i in live],
+                "kv_ladder": list(self.kv_ladder),
+                "page_ladder": list(self.page_ladder),
+                "page_tokens": self.page_tokens,
+                "prefix_cache": self._prefix is not None}
+
+    # the page entry points (each called through `_timed`)
+
+    def _copy_pages(self, old: int, new: int):
+        """Copy one page to another in the target pools (copy-on-write;
+        data and scale of an int8 pool)."""
+        for pool in (self._kpool, self._vpool):
+            copy_page(pool, old, new)
+
+    def _gather_pages(self, fn):
+        """`fn` over every tensor of every pool: a snapshot of pages that
+        shares no storage with the pools."""
+        return _tree_map(fn, self._pools())
+
+    def _write_pages(self, rows, ids: torch.Tensor):
+        """Write page rows (one entry per pool of `_pools`) into pages
+        `ids` of every pool, in place."""
+        for pool, r in zip(self._pools(), rows):
+            write_pages(pool, r, ids)
+
+    def _timed(self, label: str, fn, *args):
+        """``fn(*args)``, a device entry point, under the JAX engine's AOT
+        label: the port's counterpart of the JAX `_ProfiledExecutable`
+        wrapper, without its ``block_until_ready``.
+
+        A call times its wall (the Python call: kernel launches are
+        asynchronous on a GPU), and on a GPU records a pair of timing
+        events around it on the current stream. Its *block* time — the
+        call's span on the device's clock, its kernels plus any gaps
+        while the device waits for the host's launches — is read from
+        those events by `_settle`, which the scheduler calls where it
+        already waits on that stream (the host read of the step's, the
+        prefill's or the verify's logits, the handoff's serialized pages)
+        or finds them done while idle; a dispatch whose events have not
+        completed yet stays pending. So the hook adds no synchronization:
+        events are recorded and queried, never waited on, until
+        ``_settle(wait=True)`` at engine stop. On the CPU a call is
+        synchronous, its block time is 0 and it is observed at once. Each
+        settled dispatch lands one ``exec:<label>`` tracez span (from the
+        call's start to its end plus its device time) and one
+        `PROFILER.observe(label, wall, block, donated)`, where `donated`
+        is the bytes of the pool tensors the call updates in place (the
+        JAX engine donates those buffers; `_donated_bytes`)."""
+        donated = self._donated.get(label, 0)
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn(*args)
+            t1 = time.perf_counter()
+            _observe(label, t0, t1, 0.0, donated)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        t1 = time.perf_counter()
+        end.record()
+        self._dispatched.append((label, t0, t1, donated, start, end))
+        return out
+
+    def _settle(self, wait: bool = False):
+        """Observe the finished GPU dispatches (see `_timed`)."""
+        if self._dispatched:
+            self._dispatched = _settle(self._dispatched, wait)
+
     def _release_pages(self, req: _Req):
         """Drop the slot's reference on every page it maps (exactly one
         ref per block-table entry). Idempotent via the list reset."""
@@ -1399,6 +1568,13 @@ class DecodeEngine:
                     retried = True
                     continue
             self._m["page_alloc_failures"].inc()
+            try:
+                # the OOM forensic dump: who held every page when this
+                # RESOURCE_EXHAUSTED fired (served at /memz?oom=1)
+                _memz.capture_oom(self._alloc, owner=owner, requested=n,
+                                  context=self._memz_context())
+            except Exception:        # forensics must not mask the error
+                pass
             raise TypedServeError(
                 ERR_RESOURCE_EXHAUSTED,
                 f"decode request {req.id}: KV page pool exhausted ({err})"
@@ -1413,8 +1589,7 @@ class DecodeEngine:
         that's the isolation)."""
         old = req.pages[slot]
         (new,) = self._alloc_pages(1, req)
-        for pool in self._pools():
-            copy_page(pool, old, new)
+        self._timed("decode.pcow", self._copy_pages, old, new)
         req.pages[slot] = new
         self._alloc.release(old, owner=self._owner_for(req))
         self._counts["cow_copies"] += 1
@@ -1454,9 +1629,10 @@ class DecodeEngine:
             return 0
         ids = torch.tensor([p for _, p in victims], dtype=torch.long,
                            device=self.device)
-        chunk = _tree_map(
+        chunk = self._timed(
+            "decode.pgather", self._gather_pages,
             lambda t: t.transpose(0, 1).index_select(0, ids)
-            .transpose(0, 1), self._pools())
+            .transpose(0, 1))
         for (d, p), h in zip(victims, handles):
             self._prefix.mark_spilled(d, p, h)
         prefix, alloc = self._prefix, self._alloc
@@ -1539,8 +1715,7 @@ class DecodeEngine:
             stream.wait_event(t.event)
             for leaf in pool_leaves(t.rows):
                 leaf.record_stream(stream)
-        for pool, rows in zip(self._pools(), t.rows):
-            write_pages(pool, rows, ids)
+        self._timed("decode.ptier", self._write_pages, t.rows, ids)
         t.rows = None
         for (d, h), p in zip(pinned, pages):
             if self._prefix.restore_entry(d, h, p):
@@ -1656,15 +1831,23 @@ class DecodeEngine:
         else:
             job = _HandoffJob()
             owner = self._owner_for(job)
-            pages = self._handoff_pages(toks, n_full, job)
+            with self._cond:
+                self._handoff_live.add(job.id)
             try:
-                ids = torch.tensor(pages, dtype=torch.long)
-                chunk = _tree_map(lambda t: gather_pages(t, ids),
-                                  self._pools())
-                arrays, meta = serialize_pages(chunk, n_full)
+                pages = self._handoff_pages(toks, n_full, job)
+                try:
+                    ids = torch.tensor(pages, dtype=torch.long)
+                    chunk = self._timed(
+                        "decode.pgather", self._gather_pages,
+                        lambda t: gather_pages(t, ids))
+                    arrays, meta = serialize_pages(chunk, n_full)
+                    self._settle()       # serialize read the pages
+                finally:
+                    for p in pages:
+                        self._alloc.release(p, owner=owner)
             finally:
-                for p in pages:
-                    self._alloc.release(p, owner=owner)
+                with self._cond:
+                    self._handoff_live.discard(job.id)
             payload.update(meta)
             payload["arrays"] = arrays
         nbytes = sum(a.nbytes for a in payload["arrays"])
@@ -1674,6 +1857,8 @@ class DecodeEngine:
         self._hm["bytes"].labels(direction="export").inc(nbytes)
         self._hm["latency"].labels(stage="export").observe(
             time.perf_counter() - t0)
+        _RING.complete("handoff.export", t0, time.perf_counter(),
+                       {"pages": n_full, "bytes": nbytes})
         return payload
 
     def _handoff_pages(self, toks: List[int], n_full: int,
@@ -1695,7 +1880,8 @@ class DecodeEngine:
         pages = self._alloc_pages(n_full, job)
         n = n_full * pt
         t0 = time.perf_counter()
-        self._paged_prefill(
+        self._timed(
+            "decode.prefill", self._paged_prefill,
             self.params, self._kpool, self._vpool,
             torch.tensor([toks[:n]], dtype=torch.long),
             torch.tensor([pages], dtype=torch.int32),
@@ -1739,6 +1925,8 @@ class DecodeEngine:
             sum(np.asarray(a).nbytes for a in payload.get("arrays") or []))
         self._hm["latency"].labels(stage="import").observe(
             time.perf_counter() - t0)
+        _RING.complete("handoff.import", t0, time.perf_counter(),
+                       {"pages": n})
         return n
 
     def _import_pages(self, payload: Dict, toks: List[int], n: int):
@@ -1768,7 +1956,14 @@ class DecodeEngine:
                     "structure",
                     f"leaf {i} is {a.dtype}{list(a.shape)}, engine pool "
                     f"wants {want_dt}{list(want)}")
-        self._land_pages(leaves, toks, n, _HandoffJob())
+        job = _HandoffJob()
+        with self._cond:
+            self._handoff_live.add(job.id)
+        try:
+            self._land_pages(leaves, toks, n, job)
+        finally:
+            with self._cond:
+                self._handoff_live.discard(job.id)
 
     def _land_pages(self, leaves, toks: List[int], n: int,
                     job: _HandoffJob):
@@ -1782,10 +1977,10 @@ class DecodeEngine:
         ids = torch.tensor(pages, dtype=torch.long, device=self.device)
         it = iter(torch.from_numpy(np.require(a, requirements=("C", "W")))
                   .to(self.device) for a in leaves)
-        for pool in self._pools():
-            rows = tuple(next(it) for _ in pool) \
+        rows = [tuple(next(it) for _ in pool)
                 if isinstance(pool, tuple) else next(it)
-            write_pages(pool, rows, ids)
+                for pool in self._pools()]
+        self._timed("decode.ptier", self._write_pages, rows, ids)
         # the trie takes its own reference per inserted page; dropping
         # ours makes it the sole owner — imported pages age out (or spill
         # to the host tier) exactly like any cached prefix
@@ -1868,13 +2063,15 @@ class DecodeEngine:
             return False
         req.pages = pages
         t0 = time.perf_counter()
-        logits, _, _ = self._paged_prefill(
+        logits, _, _ = self._timed(
+            "decode.prefill", self._paged_prefill,
             self.params, self._kpool, self._vpool,
             torch.tensor([toks], dtype=torch.long),
             torch.tensor([pages], dtype=torch.int32),
             torch.tensor([plen], dtype=torch.long))
         row = logits[0].float().cpu().numpy()
         req.prefill_s = time.perf_counter() - t0
+        self._settle()
         self._counts["prefills"] += 1
         self._m["prefills"].inc()
         self._m["prefill_latency"].observe(req.prefill_s)
@@ -1899,6 +2096,7 @@ class DecodeEngine:
             self._prefix.insert(toks, pages[:plen // pt])
         eos = req.eos_id is not None and tok == req.eos_id
         req.stream._push_token(tok, eos)
+        _RING.instant("decode.emit", {"req": req.id})
         if eos or len(req.generated) >= req.max_new \
                 or req.cache_len >= self.cfg.max_seq_len:
             self._finish(req, "eos" if eos else "length")
@@ -1909,6 +2107,7 @@ class DecodeEngine:
     # ------------------------------------------------------------ step
 
     def _step_once(self):
+        t_tick = time.perf_counter()
         pt = self.page_tokens
         # provision the write target for row cache_len: a fresh page at
         # a page boundary, a copy-on-write if the target page is shared
@@ -1919,7 +2118,10 @@ class DecodeEngine:
                 if slot >= len(req.pages):
                     req.pages.extend(self._alloc_pages(1, req))
                 elif self._alloc.refcount(req.pages[slot]) > 1:
+                    t_cow = time.perf_counter()
                     self._cow(req, slot)
+                    _RING.complete("decode.cow", t_cow,
+                                   time.perf_counter(), {"req": req.id})
             except TypedServeError as err:
                 req.stream._push_error(err)
                 self._m["evictions"].labels(reason="exhausted").inc()
@@ -1943,16 +2145,19 @@ class DecodeEngine:
             ltok[j] = req.last_tok
             clen[j] = req.cache_len
         t0 = time.perf_counter()
-        logits, _, _ = self._step(
+        logits, _, _ = self._timed(
+            "decode.pstep", self._step,
             self.params, self._kpool, self._vpool, torch.from_numpy(tables),
             torch.from_numpy(ltok), torch.from_numpy(clen))
         lognp = logits.float().cpu().numpy()
         dt = time.perf_counter() - t0
+        self._settle()
         self._step_s += dt
         self._m["step_latency"].observe(dt)
         self._last_b_rung, self._last_w_rung = b_rung, w_rung
         self._steps += 1
         self._m["steps"].inc()
+        t_sample = time.perf_counter()
         finished = []
         emitted = 0
         for j, req in enumerate(reqs):
@@ -1987,6 +2192,7 @@ class DecodeEngine:
                 self._m["ttft"].observe(time.monotonic() - req.t_submit)
             eos = req.eos_id is not None and tok == req.eos_id
             req.stream._push_token(tok, eos)
+            _RING.instant("decode.emit", {"req": req.id})
             if eos or len(req.generated) >= req.max_new \
                     or req.cache_len >= self.cfg.max_seq_len:
                 self._finish(req, "eos" if eos else "length")
@@ -1995,6 +2201,11 @@ class DecodeEngine:
         self._tokens += emitted
         if emitted:
             self._m["tokens"].inc(emitted)
+        now = time.perf_counter()
+        _RING.complete("decode.sample", t_sample, now, {"reqs": len(reqs)})
+        _RING.complete("decode.step", t_tick, now,
+                       {"batch": len(reqs), "b_rung": b_rung,
+                        "w_rung": w_rung})
         if finished:
             done = {r.id for r in finished}
             self._active = [r for r in reqs if r.id not in done]
@@ -2003,6 +2214,13 @@ class DecodeEngine:
     def _finish(self, req: _Req, reason: str):
         req.stream._push_done()
         self._m["evictions"].labels(reason=reason).inc()
+        now = time.monotonic()
+        self._spans.record(req.id, {
+            "queue": req.t_admit - req.t_submit,
+            "prefill": req.prefill_s,
+            "decode": now - req.t_admit,
+        }, extra={"tokens": len(req.generated),
+                  "prompt_len": len(req.prompt)})
 
     def _dist(self, row: np.ndarray, req: _Req) -> np.ndarray:
         """The request's sampling distribution over the vocab (its
@@ -2182,8 +2400,29 @@ class SpecDecodeEngine(DecodeEngine):
                                          self.device)
 
     def _pools(self):
-        """Copy-on-write copies the page in BOTH models' pools."""
+        """The tier and the handoff move a page in BOTH models' pools."""
         return (self._kpool, self._vpool, self._dkpool, self._dvpool)
+
+    def _donated_bytes(self) -> Dict[str, int]:
+        out = super()._donated_bytes()
+        draft = _pool_bytes((self._dkpool, self._dvpool))
+        out.update({"decode.dprefill": draft, "decode.droll": draft,
+                    "decode.dcow": draft,
+                    "decode.verify": out["decode.pstep"]})
+        return out
+
+    def _copy_draft_pages(self, old: int, new: int):
+        for pool in (self._dkpool, self._dvpool):
+            copy_page(pool, old, new)
+
+    def _cow(self, req: _Req, slot: int):
+        """Copy-on-write for speculation copies the page in BOTH models'
+        pools — one page id names a target page and a draft page — as
+        two entry points, "decode.pcow" and "decode.dcow"."""
+        old = req.pages[slot]
+        super()._cow(req, slot)
+        self._timed("decode.dcow", self._copy_draft_pages, old,
+                    req.pages[slot])
 
     # ---------------------------------------------------------- warmup
 
@@ -2205,8 +2444,9 @@ class SpecDecodeEngine(DecodeEngine):
         tables = torch.zeros((b, w), dtype=torch.int32)
         z = torch.zeros(b, dtype=torch.long)
         for kk in self.k_ladder:
-            self._rollout(self._draft_params, self._dkpool, self._dvpool,
-                          tables, torch.zeros((b, kk), dtype=torch.long), z)
+            self._rollout(self._draft_params, self._dkpool,
+                          self._dvpool, tables,
+                          torch.zeros((b, kk), dtype=torch.long), z)
             self._verify(self.params, self._kpool, self._vpool, tables,
                          torch.zeros((b, kk + 1), dtype=torch.long), z)
         if self.device.type == "cuda":
@@ -2239,10 +2479,11 @@ class SpecDecodeEngine(DecodeEngine):
         agrees on)."""
         seq = (req.prompt + req.generated)[:req.cache_len]
         n = -(-len(seq) // self.page_tokens)
-        self._dprefill(self._draft_params, self._dkpool, self._dvpool,
-                       torch.tensor([seq], dtype=torch.long),
-                       torch.tensor([req.pages[:n]], dtype=torch.int32),
-                       torch.tensor([len(seq)]))
+        self._timed("decode.dprefill", self._dprefill, self._draft_params,
+                    self._dkpool, self._dvpool,
+                    torch.tensor([seq], dtype=torch.long),
+                    torch.tensor([req.pages[:n]], dtype=torch.int32),
+                    torch.tensor([len(seq)]))
         self._spec["draft_prefills"] += 1
 
     def _preempt_stash(self, req: _Req):
@@ -2263,6 +2504,7 @@ class SpecDecodeEngine(DecodeEngine):
     # ------------------------------------------------------------ tick
 
     def _step_once(self):
+        t_tick = time.perf_counter()
         pt = self.page_tokens
         cap = self.cfg.max_seq_len
         tick_k = max(r.spec_k for r in self._active)
@@ -2282,7 +2524,11 @@ class SpecDecodeEngine(DecodeEngine):
                         self._alloc_pages(need - len(req.pages), req))
                 for s in range(lo, need):
                     if self._alloc.refcount(req.pages[s]) > 1:
+                        t_cow = time.perf_counter()
                         self._cow(req, s)
+                        _RING.complete("decode.cow", t_cow,
+                                       time.perf_counter(),
+                                       {"req": req.id})
             except TypedServeError as err:
                 req.stream._push_error(err)
                 self._m["evictions"].labels(reason="exhausted").inc()
@@ -2295,6 +2541,7 @@ class SpecDecodeEngine(DecodeEngine):
         reqs = self._active
         if not reqs:
             return
+        t_draft = time.perf_counter()
         b_rung = next_bucket(len(reqs), self.batch_ladder)
         w_rung = next_bucket(max(len(r.pages) for r in reqs),
                              self.page_ladder)
@@ -2315,11 +2562,13 @@ class SpecDecodeEngine(DecodeEngine):
             for i in range(tick_k):
                 forced[j, i] = seq[dl + i] if dl + i < len(seq) else -1
         t0 = time.perf_counter()
-        drafts, _, _ = self._rollout(
+        drafts, _, _ = self._timed(
+            "decode.droll", self._rollout,
             self._draft_params, self._dkpool, self._dvpool, tables,
             torch.from_numpy(forced), torch.from_numpy(dlen))
         dnp = drafts.cpu().numpy()
         t1 = time.perf_counter()
+        self._settle()
         self._spec["rollout_seconds"] += t1 - t0
         self._spec["draft_steps"] += tick_k
         self._m["spec_draft_steps"].inc(tick_k)
@@ -2329,6 +2578,8 @@ class SpecDecodeEngine(DecodeEngine):
                 if req.draft_len >= len(seqs[j]) - 1:
                     chains[j].append(int(dnp[j, i]))
                 req.draft_len += 1
+        t_verify = time.perf_counter()
+        _RING.complete("decode.draft", t_draft, t_verify, {"k": tick_k})
         # 3. verify: one multi-token target forward scores (and writes
         # the K/V of) up to K1 positions per slot — the un-consumed
         # committed tokens first, then this tick's drafts
@@ -2345,11 +2596,13 @@ class SpecDecodeEngine(DecodeEngine):
             clen[j] = req.cache_len
             meta.append((n_known, nd))
         t2 = time.perf_counter()
-        logits, amax, _, _ = self._verify(
+        logits, amax, _, _ = self._timed(
+            "decode.verify", self._verify,
             self.params, self._kpool, self._vpool, tables,
             torch.from_numpy(vtoks), torch.from_numpy(clen))
         amaxnp = amax.cpu().numpy()
         dt = time.perf_counter() - t2
+        self._settle()
         lognp = None   # full logits only cross to the host when sampling
         self._spec["verify_seconds"] += dt
         self._step_s += dt
@@ -2357,6 +2610,8 @@ class SpecDecodeEngine(DecodeEngine):
         self._last_b_rung, self._last_w_rung = b_rung, w_rung
         self._steps += 1
         self._m["steps"].inc()
+        t_accept = time.perf_counter()
+        _RING.complete("decode.verify", t_verify, t_accept, {"k1": K1})
         # 4. acceptance + rollback, per slot on the host
         finished = []
         for j, req in enumerate(reqs):
@@ -2454,6 +2709,7 @@ class SpecDecodeEngine(DecodeEngine):
             self._note_token(req, len(emitted))
             done_eos = req.eos_id is not None and emitted[-1] == req.eos_id
             req.stream._push_tokens(emitted, done_eos)
+            _RING.instant("decode.emit", {"req": req.id, "n": len(emitted)})
             if first:
                 self._m["ttft"].observe(time.monotonic() - req.t_submit)
             if done_eos or len(req.generated) >= req.max_new \
@@ -2461,6 +2717,10 @@ class SpecDecodeEngine(DecodeEngine):
                 self._finish(req, "eos" if done_eos else "length")
                 self._release_pages(req)
                 finished.append(req)
+        now = time.perf_counter()
+        _RING.complete("decode.accept", t_accept, now, {"reqs": len(reqs)})
+        _RING.complete("decode.step", t_tick, now,
+                       {"batch": len(reqs), "k": tick_k})
         if finished:
             done = {r.id for r in finished}
             self._active = [r for r in reqs if r.id not in done]

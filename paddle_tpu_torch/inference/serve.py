@@ -51,7 +51,12 @@ engine a host-RAM KV tier of N pages.
 
 With ``--metrics-port`` (or PADDLE_TPU_METRICS_PORT; 0 = an ephemeral
 port) the daemon mounts `observability.AdminServer` (``/metrics``,
-``/healthz``, ``/statusz``) and prints ``METRICS <port>`` first. It prints
+``/healthz``, ``/statusz``, ``/varz``, ``/alertz``, ``/tracez``,
+``/profilez``, ``/memz``), with the uptime and per-card memory
+collectors, a started `TimeSeriesStore` and an `SLOEngine` over
+`serve_objectives()`, and prints ``METRICS <port>`` first; every request
+lands one ``serve.request`` tracez span, and `InferenceServer.stats_line`
+renders the ``SERVE_STATS {json}`` line of `profiler.serve_stats`. It prints
 ``SERVING <port>`` once it listens, and on SIGTERM drains (answers every
 request in flight), prints ``DECODE STATS device=... kv_dtype=...
 steps=N prefills=N tokens=N`` (a speculative engine adds
@@ -61,8 +66,8 @@ counted since ``SERVING`` (``paged_decode_attention_launches=N
 paged_decode_attention_int8_launches=N int8_weight_matmul_launches=N``,
 so a run can show the kernels served its requests), then ``DRAINED
 ok=<bool>``, and exits 0. The one-shot (non-decode) predictor mode, the
-router, the membership advertisement of a role and the admin plane's
-other endpoints are later slices of the port.
+router and the membership advertisement of a role are later slices of
+the port.
 """
 from __future__ import annotations
 
@@ -78,6 +83,7 @@ import time
 import numpy as np
 
 from ..core import flags as _flags
+from ..observability.tracez import RING as _RING
 from ..utils.net import recv_exact
 from .errors import (ERR_INTERNAL, ERR_INVALID_ARGUMENT, TypedServeError,
                      error_code)
@@ -350,6 +356,7 @@ class InferenceServer:
         self._engine = load_for_decode(model_prefix, device=device, **kw)
         self.warmup_steps = self._engine.warmup(verbose=True) if warmup \
             else 0
+        self._t0 = time.monotonic()
         self._idle_timeout = float(
             _flags.env_value("PADDLE_TPU_SERVE_IDLE_TIMEOUT"))
         self._request_timeout = float(
@@ -373,11 +380,25 @@ class InferenceServer:
         self.metrics_port = None
         if metrics_port is None:
             metrics_port = _flags.env_value("PADDLE_TPU_METRICS_PORT")
+        self._varz = None
+        self._slo = None
         if metrics_port is not None and int(metrics_port) >= 0:
-            from ..observability import AdminServer
+            from ..observability import (AdminServer, SLOEngine,
+                                         TimeSeriesStore,
+                                         install_default_collectors,
+                                         serve_objectives)
+            install_default_collectors()
+            # windowed history + SLO verdicts ride the same admin plane:
+            # /varz is the ring-buffer view, /alertz the burn-rate
+            # judgment over it
+            self._varz = TimeSeriesStore()
+            self._varz.start()
+            self._slo = SLOEngine(self._varz, serve_objectives())
             self._admin = AdminServer(port=int(metrics_port), host=host,
                                       health_fn=self._health,
-                                      status_fn=self._status)
+                                      status_fn=self._status,
+                                      varz_fn=self._varz.varz,
+                                      alertz_fn=self._slo.alertz)
             self.metrics_port = self._admin.port
 
     @property
@@ -402,7 +423,11 @@ class InferenceServer:
         return not reasons, reasons
 
     def _status(self) -> dict:
-        return {
+        from .. import profiler
+        from ..core import monitor
+        from ..observability import memz as _memz
+
+        st = {
             "engine": "decode",
             "port": self.port,
             "metrics_port": self.metrics_port,
@@ -411,14 +436,34 @@ class InferenceServer:
             "role": self.role,
             "draining": self._draining.is_set(),
             "inflight_requests": self.inflight_requests,
+            "uptime_s": round(time.monotonic() - self._t0, 3),
             "config": {
                 "idle_timeout_s": self._idle_timeout,
                 "request_timeout_s": self._request_timeout,
                 "max_request_bytes": max_request_bytes(),
             },
             "warmup_steps": self.warmup_steps,
+            "compiles": len(profiler.compile_events()),
+            "serve": profiler.serve_stats(),
+            "device_memory": monitor.all_device_memory_stats(),
             "decode": self._engine.stats(),
         }
+        # the memory plane's compact block: per-pool owner rollups +
+        # fragmentation + ghost count (full detail lives at /memz)
+        try:
+            st["memory"] = _memz.status_block()
+        except Exception as e:
+            st["memory"] = {"error": repr(e)}
+        return st
+
+    def stats_line(self) -> str:
+        """One ``SERVE_STATS {json}`` line from the registry snapshot;
+        ``ts_monotonic`` makes consecutive lines orderable and
+        rate-computable without wall-clock trust."""
+        from .. import profiler
+        stats = profiler.serve_stats()
+        stats["ts_monotonic"] = round(time.monotonic(), 3)
+        return "SERVE_STATS " + json.dumps(stats)
 
     def _accept_loop(self):
         while not self._stop.is_set():
@@ -595,6 +640,7 @@ class InferenceServer:
                     return
                 with self._conn_lock:
                     self._conn_inflight += 1
+                t_req = time.perf_counter()
                 try:
                     if ctx is not None \
                             and (ctx.get("kv_export") is not None
@@ -608,6 +654,8 @@ class InferenceServer:
                 finally:
                     with self._conn_lock:
                         self._conn_inflight -= 1
+                    _RING.complete("serve.request", t_req,
+                                   time.perf_counter())
                 if self._draining.is_set():
                     return
         finally:
@@ -661,6 +709,7 @@ class InferenceServer:
         self._engine.stop()
         if self._admin is not None:
             self._admin.stop()
+            self._varz.stop()
         with self._conn_lock:
             conns = list(self._conns.items())
         for _, conn in conns:
@@ -739,7 +788,8 @@ def main(argv=None):
                          "refetch on demand; default "
                          "PADDLE_TPU_DECODE_HOST_PAGES (0 = tiering off)")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="mount /metrics + /healthz + /statusz on this "
+                    help="mount /metrics + /healthz + /statusz + /varz + "
+                         "/alertz + /tracez + /profilez + /memz on this "
                          "port (0 = ephemeral; default off, or "
                          "PADDLE_TPU_METRICS_PORT)")
     ap.add_argument("--warmup", action="store_true",

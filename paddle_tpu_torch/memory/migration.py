@@ -51,8 +51,9 @@ no scheduler thread ever blocks on this worker.
 
 Observability: the ``paddle_tpu_kv_tier_*`` families (resident pages per
 tier, spill/refetch counters, per-direction migration latency, in-flight
-depth). The JAX package's ``page.spill`` / ``page.refetch`` tracez spans
-wait for the port's tracez.
+depth), one ``page.spill`` / ``page.refetch`` tracez span per retired
+batch (from its submission to its retirement), and a
+``spill`` / ``refetch`` memz ring event per page as its handle commits.
 """
 from __future__ import annotations
 
@@ -65,7 +66,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .page_allocator import PageAllocator, gather_pages
+from .page_allocator import PageAllocator, _ring_record, gather_pages
 
 __all__ = ["Residency", "TieredPageAllocator", "HostPageStore",
            "MigrationEngine", "MigrationTicket", "gather_pages",
@@ -204,6 +205,9 @@ class TieredPageAllocator(PageAllocator):
                                  f"in flight")
             self._residency[handle] = Residency.HOST
             self._spilled += 1
+            host_free = len(self._host_free)
+        # ring event after the lock, same discipline as the base class
+        _ring_record("spill", self.label, ("tier", handle), 1, host_free)
 
     # -------------------------------------------------------- refetches
 
@@ -221,6 +225,10 @@ class TieredPageAllocator(PageAllocator):
         with self._lock:
             self._refetched += 1
         self.host_drop(handle)
+        with self._lock:
+            host_free = len(self._host_free)
+        _ring_record("refetch", self.label, ("tier", handle), 1,
+                     host_free)
 
     def host_drop(self, handle: int) -> None:
         """Free a host slot (restore landed, spill failed, refetch
@@ -619,6 +627,11 @@ class MigrationEngine:
             self._retire_err(t, exc, t0)
             return
         t.duration_s = time.perf_counter() - t0
+        from ..observability.tracez import RING as _RING
+
+        span = "page.spill" if t.direction == "out" else "page.refetch"
+        _RING.complete(span, t0, time.perf_counter(),
+                       {"pages": t.count})
         self._m["migration_seconds"].labels(
             direction=t.direction).observe(t.duration_s)
         key = "spill" if t.direction == "out" else "refetch"

@@ -28,9 +28,10 @@ Owner attribution: every alloc/retain/release accepts an optional
 attribute each used page to its **primary owner** (the first
 still-holding tagger), so the per-owner page counts always sum to
 exactly ``pages_used``; `retag` moves one reference between tags when
-it changes hands (a host-tier refetch landing in the prefix trie). The
-JAX package also records each operation on its memz ring; that plane is
-not ported yet.
+it changes hands (a host-tier refetch landing in the prefix trie). Each
+alloc / retain / release / release_range / exhausted lands one event on
+the memz allocation ring (`observability.memz.RING`), recorded after the
+allocator's lock is dropped, as in the JAX package.
 
 `write_pages` / `copy_page` / `gather_pages` are the pool ops that pair
 with the bookkeeping, as torch index ops over a pool whose axis 1 is the
@@ -77,6 +78,21 @@ class PageExhausted(RuntimeError):
 def owner_str(owner) -> str:
     """Stable printable form of an owner tag (JSON-safe dict key)."""
     return ":".join(str(x) for x in owner)
+
+
+_RING = None
+
+
+def _ring_record(op: str, pool: str, owner, n: int, free: int) -> None:
+    """Land one event on the memz allocation ring (lazily bound so
+    `memory` never imports `observability` at module load). Called only
+    outside the allocator lock."""
+    global _RING
+    ring = _RING
+    if ring is None:
+        from ..observability import memz as _memz
+        ring = _RING = _memz.RING
+    ring.record(op, pool, owner, n, free)
 
 
 class PageAllocator:
@@ -144,10 +160,12 @@ class PageAllocator:
                 self._allocs += n
                 self._high_water = max(self._high_water, len(self._refs))
         if pages is None:
+            _ring_record("exhausted", self.label, tag, n, free)
             raise PageExhausted(
                 f"pool '{self.label}': requested {n} pages for "
                 f"{owner_str(tag)}, {free} free of {self.num_pages}",
                 pool=self.label, owner=tag, requested=n, free=free)
+        _ring_record("alloc", self.label, tag, n, free - n)
         return pages
 
     def retain(self, page: int, owner: Optional[Tuple] = None) -> int:
@@ -158,8 +176,11 @@ class PageAllocator:
             if page not in self._refs:
                 raise ValueError(f"retain of unallocated page {page}")
             self._refs[page] += 1
+            refs = self._refs[page]
             self._owner_add(page, tag)
-            return self._refs[page]
+            free = len(self._free)
+        _ring_record("retain", self.label, tag, 1, free)
+        return refs
 
     def release(self, page: int, owner: Optional[Tuple] = None) -> int:
         """Drop a reference; the page rejoins the free list at zero.
@@ -172,11 +193,15 @@ class PageAllocator:
             if refs > 1:
                 self._refs[page] = refs - 1
                 self._owner_drop(page, tag)
-                return refs - 1
-            del self._refs[page]
-            self._owners.pop(page, None)
-            insort(self._free, page)
-            return 0
+                left = refs - 1
+            else:
+                del self._refs[page]
+                self._owners.pop(page, None)
+                insort(self._free, page)
+                left = 0
+            free = len(self._free)
+        _ring_record("release", self.label, tag, 1, free)
+        return left
 
     def release_range(self, ids, from_idx: int,
                       owner: Optional[Tuple] = None) -> int:
@@ -201,6 +226,9 @@ class PageAllocator:
                     del self._refs[p]
                     self._owners.pop(p, None)
                     insort(self._free, p)
+            free = len(self._free)
+        if tail:
+            _ring_record("release", self.label, tag, len(tail), free)
         return len(tail)
 
     def retag(self, page: int, old: Tuple, new: Tuple) -> None:
@@ -244,6 +272,13 @@ class PageAllocator:
             by_tenant[tenant] = by_tenant.get(tenant, 0) + 1
         return by_owner, by_kind, by_tenant
 
+    def owned_pages(self) -> List[Tuple[int, Tuple, int]]:
+        """Snapshot of ``(page, primary_owner, refcount)`` for every
+        allocated page — the memz ghost-page audit's raw material."""
+        with self._lock:
+            return [(p, next(iter(self._owners.get(p) or [UNTAGGED])),
+                     r) for p, r in self._refs.items()]
+
     def stats(self) -> Dict:
         """Occupancy + fragmentation snapshot (all counts exclude the
         reserved null page). Fragmentation is 1 − largest contiguous
@@ -277,6 +312,20 @@ class PageAllocator:
             "owner_kinds": by_kind,
             "tenants": by_tenant,
         }
+
+    def fragmentation_map(self) -> List[List[int]]:
+        """Free-space layout as ``[start, length]`` runs over the sorted
+        free list — the OOM forensic dump's picture of *where* the holes
+        are, not just how many."""
+        with self._lock:
+            free = list(self._free)
+        runs: List[List[int]] = []
+        for p in free:
+            if runs and p == runs[-1][0] + runs[-1][1]:
+                runs[-1][1] += 1
+            else:
+                runs.append([p, 1])
+        return runs
 
 
 # ----------------------------------------------------------- pool ops

@@ -1,21 +1,35 @@
-"""Admin HTTP endpoint: /metrics, /healthz and /statusz, with a / index.
+"""Admin HTTP endpoint: /metrics, /healthz, /statusz, /varz, /alertz,
+/tracez, /profilez, /memz, with a / index.
 
-Port of paddle_tpu's `observability/admin.py` `AdminServer`: a stdlib
-``http.server`` front-end the decode daemon mounts on ``--metrics-port``
-/ ``PADDLE_TPU_METRICS_PORT`` — off by default, loopback by default like
-the data-plane socket. All routes are GET:
+Port of paddle_tpu's `observability/admin.py`: a stdlib ``http.server``
+front-end (no new dependencies) the decode daemon exposes on
+``--metrics-port`` / ``PADDLE_TPU_METRICS_PORT`` — off by default;
+loopback by default, like the data-plane socket. All routes are GET:
 
   * ``/``         — index: every endpoint this server mounts, as links.
   * ``/metrics``  — Prometheus text exposition 0.0.4 from the registry
-    (Content-Type ``text/plain; version=0.0.4``).
-  * ``/healthz``  — liveness: 200 ``{"status": "ok"}`` while the supplied
-    ``health_fn`` reports healthy, 503 with the reasons list otherwise.
-  * ``/statusz``  — one JSON snapshot from ``status_fn`` plus uptime.
+    (Content-Type ``text/plain; version=0.0.4``), scrape-ready.
+  * ``/healthz``  — liveness: 200 ``{"status": "ok"}`` while the
+    supplied ``health_fn`` reports healthy, 503 with the reasons list
+    otherwise (a load balancer or k8s probe points here).
+  * ``/statusz``  — one JSON snapshot: serve stats, engine state,
+    warmup, per-device memory, the memory plane, uptime, config.
+  * ``/varz``     — bounded windowed history (``varz_fn``, normally
+    :meth:`..timeseries.TimeSeriesStore.varz`); 404 when not mounted.
+  * ``/alertz``   — SLO verdicts (``alertz_fn``, normally
+    :meth:`..slo.SLOEngine.alertz`); 404 when not mounted.
+  * ``/tracez``   — the event ring as Chrome trace-event JSON (open in
+    ui.perfetto.dev). Defaults to this process's ring; a router mounts
+    a merged fleet view instead.
+  * ``/profilez`` — per-executable continuous-profiler summary, top-N
+    by total block time.
+  * ``/memz``     — the memory plane: every registered page pool's
+    per-owner attribution, fragmentation map and ghost-page audit;
+    ``/memz?oom=1`` serves the retained OOM forensic dumps. Defaults
+    to this process's pools; a router mounts a merged fleet view.
 
-Any other path, the JAX package's ``/tracez``, ``/profilez``, ``/memz``,
-``/varz`` and ``/alertz`` among them (not ported yet), answers 404 with
-the list of mounted endpoints. Handlers never run model code, so a scrape
-cannot perturb the request path beyond a registry read.
+Handlers never execute model code, so a scrape can never trigger a
+kernel launch or perturb the request path beyond a registry/ring read.
 """
 from __future__ import annotations
 
@@ -25,7 +39,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional, Tuple
 
+from . import memz as _memz
 from . import metrics as _metrics
+from . import profilez as _profilez
+from . import tracez as _tracez
 
 __all__ = ["AdminServer", "CONTENT_TYPE_METRICS"]
 
@@ -37,24 +54,44 @@ class AdminServer:
 
     ``health_fn() -> (healthy, reasons)``: reasons is a list of strings
     explaining an unhealthy verdict (empty when healthy). ``status_fn()
-    -> dict`` supplies the /statusz body. Both default to trivial
-    implementations, so the server is usable standalone."""
+    -> dict`` supplies the /statusz body; both default to trivial
+    always-healthy implementations so the server is usable standalone.
+    """
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
                  registry: Optional[_metrics.MetricsRegistry] = None,
                  health_fn: Optional[
                      Callable[[], Tuple[bool, list]]] = None,
-                 status_fn: Optional[Callable[[], dict]] = None):
+                 status_fn: Optional[Callable[[], dict]] = None,
+                 varz_fn: Optional[Callable[[], dict]] = None,
+                 alertz_fn: Optional[Callable[[], dict]] = None,
+                 tracez_fn: Optional[Callable[[], dict]] = None,
+                 profilez_fn: Optional[Callable[[], dict]] = None,
+                 memz_fn: Optional[Callable[..., dict]] = None):
         self.registry = registry or _metrics.REGISTRY
         self.health_fn = health_fn or (lambda: (True, []))
         self.status_fn = status_fn
+        self.varz_fn = varz_fn
+        self.alertz_fn = alertz_fn
+        # tracez/profilez default to the process-global ring/profiler so
+        # every admin server ships the execution timeline; a router
+        # passes its own tracez_fn to serve a merged fleet view
+        self.tracez_fn = tracez_fn or (lambda: _tracez.RING.chrome_trace())
+        self.profilez_fn = profilez_fn or \
+            (lambda: _profilez.PROFILER.profilez())
+        # memz defaults to the process pool registry; a router passes a
+        # memz_fn serving the merged fleet view. Called as
+        # memz_fn(oom=<bool>) from the ?oom=1 query.
+        self.memz_fn = memz_fn or _memz.snapshot
         self._t0 = time.monotonic()
         admin = self
 
         class _Handler(BaseHTTPRequestHandler):
+            # one admin request must not block the next: ThreadingHTTPServer
+            # already threads per connection; keep them short-lived
             protocol_version = "HTTP/1.1"
 
-            def log_message(self, *a):     # stdout belongs to the daemon
+            def log_message(self, *a):     # stdout belongs to SERVE_STATS
                 pass
 
             def _reply(self, code: int, body: bytes, ctype: str):
@@ -79,6 +116,31 @@ class AdminServer:
                                     "application/json")
                     elif path == "/statusz":
                         body = json.dumps(admin._status(),
+                                          default=str).encode()
+                        self._reply(200, body, "application/json")
+                    elif path == "/varz" and admin.varz_fn is not None:
+                        body = json.dumps(admin.varz_fn(),
+                                          default=str).encode()
+                        self._reply(200, body, "application/json")
+                    elif path == "/alertz" and \
+                            admin.alertz_fn is not None:
+                        body = json.dumps(admin.alertz_fn(),
+                                          default=str).encode()
+                        self._reply(200, body, "application/json")
+                    elif path == "/tracez":
+                        body = json.dumps(admin.tracez_fn(),
+                                          default=str).encode()
+                        self._reply(200, body, "application/json")
+                    elif path == "/profilez":
+                        body = json.dumps(admin.profilez_fn(),
+                                          default=str).encode()
+                        self._reply(200, body, "application/json")
+                    elif path == "/memz":
+                        from urllib.parse import parse_qs, urlsplit
+                        q = parse_qs(urlsplit(self.path).query)
+                        oom = (q.get("oom") or ["0"])[0] \
+                            not in ("", "0", "false")
+                        body = json.dumps(admin.memz_fn(oom=oom),
                                           default=str).encode()
                         self._reply(200, body, "application/json")
                     elif path == "/":
@@ -112,16 +174,27 @@ class AdminServer:
                                         name=f"admin-http-{self.port}")
         self._thread.start()
 
-    @staticmethod
-    def endpoints() -> dict:
+    def endpoints(self) -> dict:
         """path -> one-line description for every mounted route."""
-        return {
+        out = {
             "/metrics": "Prometheus text exposition (registry scrape)",
             "/healthz": "liveness verdict (200 ok / 503 + reasons)",
             "/statusz": "one-shot JSON status snapshot",
+            "/tracez": "event ring as Chrome trace-event JSON "
+                       "(open in ui.perfetto.dev)",
+            "/profilez": "per-executable profiler, top-N by block time",
+            "/memz": "page-pool owner attribution + ghost audit "
+                     "(?oom=1 = retained OOM forensic dumps)",
         }
+        if self.varz_fn is not None:
+            out["/varz"] = "windowed time-series history"
+        if self.alertz_fn is not None:
+            out["/alertz"] = "SLO burn-rate verdicts"
+        return out
 
     def _index(self) -> str:
+        """The / index page: mounted endpoints as links, so operators
+        stop guessing paths."""
         rows = "\n".join(
             f'  <li><a href="{p}"><code>{p}</code></a> — {desc}</li>'
             for p, desc in sorted(self.endpoints().items()))
@@ -130,8 +203,8 @@ class AdminServer:
                 f"<body><h1>paddle_tpu_torch admin :{self.port}</h1>\n"
                 f"<ul>\n{rows}\n</ul></body></html>\n")
 
-    # a raising callback degrades to "unhealthy, reason" / a minimal
-    # status body instead of a 500
+    # wrapped so a raising callback degrades to "unhealthy, reason" /
+    # a minimal status body instead of a 500
     def _health(self) -> Tuple[bool, list]:
         try:
             ok, reasons = self.health_fn()

@@ -5,8 +5,7 @@ it: the jnp function's own name for the elementwise ops ("add",
 "power", "arcsin", "_true_divide_f32", ...) and the name of the inner
 function for the rest ("<lambda>" for `max`, `mean`, `clip`, ...; "f"
 for `cumsum`, `scale`, ...), so that O1 and O2 cast the same inputs as
-there. `sum`, whose JAX name is "f", casts under "sum_all", a name on
-neither list, as before. Result dtypes follow the JAX package under x64:
+there (`sum` among the latter: "f"). Result dtypes follow the JAX package under x64:
 a float function of an int64 tensor is float64, of other ints float32;
 an integer tensor meeting a Python float becomes float64; reductions of
 ints sum in int64.
@@ -205,7 +204,7 @@ amin = min
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):
     """Integer and bool sums are int64, as in the JAX package."""
     dt = dtype_mod.convert_dtype(dtype)
-    (a,) = cast_in("sum_all", as_t(x))
+    (a,) = cast_in("f", as_t(x))
     if dt is None and is_int_like(a):
         dt = torch.int64
     if axis is None and not keepdim:

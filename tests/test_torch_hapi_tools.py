@@ -153,13 +153,18 @@ def test_metrics_logger_and_visualdl_files_match_jax(tmp_path):
 
 def test_metrics_logger_hbm_on_a_cuda_model_only(monkeypatch):
     """On a CUDA device the entry is {"cuda:<i>": allocated bytes} from
-    torch.cuda.memory_stats; elsewhere it is left out."""
+    torch.cuda.memory_stats (through core.monitor, one card visible);
+    elsewhere it is left out."""
     cb = tcbks.MetricsLogger()
 
     class M:
         _device = torch.device("cuda", 0)
 
     cb.set_model(M())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev: (0, 80 << 30))
     monkeypatch.setattr(torch.cuda, "memory_stats",
                         lambda dev: {"allocated_bytes.all.current": 1234})
     cb.on_train_begin()

@@ -15,9 +15,10 @@ against the JAX package.
   * the admin plane: `serve --device cpu --metrics-port 0` prints
     ``METRICS <port>``; `/metrics` serves ``text/plain; version=0.0.4``
     with the decode families and the request's tokens, `/healthz` 200,
-    `/statusz` the engine's stats, `/` the index, and unknown paths
-    (`/tracez` among them) 404 with the endpoint list; a failing health
-    check answers 503 with its reason.
+    `/statusz` the engine's stats, `/` the index, `/tracez` and `/memz`
+    200, and an unknown path 404 with the endpoint list (the JAX
+    package's eight); a failing health check answers 503 with its
+    reason.
 """
 import dataclasses
 import json
@@ -226,11 +227,14 @@ def test_serve_metrics_port_exposes_the_decode_families(tmp_path):
         code, _, body = _get(base + "/")
         assert code == 200 and all(p in body for p in
                                    ("/metrics", "/healthz", "/statusz"))
-        for path in ("/tracez", "/memz", "/nope"):
+        for path in ("/tracez", "/memz"):
             code, _, body = _get(base + path)
-            assert code == 404
-            assert json.loads(body)["endpoints"] == \
-                ["/healthz", "/metrics", "/statusz"]
+            assert code == 200 and json.loads(body)
+        code, _, body = _get(base + "/nope")
+        assert code == 404
+        assert json.loads(body)["endpoints"] == \
+            ["/alertz", "/healthz", "/memz", "/metrics", "/profilez",
+             "/statusz", "/tracez", "/varz"]
         proc.send_signal(signal.SIGTERM)
         rest = proc.stdout.read()
         assert proc.wait(timeout=60) == 0 and "DRAINED ok=True" in rest

@@ -19,7 +19,6 @@ import paddle_tpu_torch  # noqa: E402,F401
 
 ITEM8_PREDICTOR = ("queue 1 item 8: the predictor API, the one-shot "
                    "DynamicBatcher and the server's predictor mode")
-ITEM6 = "queue 1 item 6: the profiler and the rest of observability"
 ITEM7 = "queue 1 item 7: multi-GPU over NCCL"
 ITEM8 = "queue 1 item 8: export and static graph"
 ITEM9 = "queue 1 item 9: nn breadth"
@@ -33,7 +32,6 @@ def _group(reason, names):
 
 EXPECTED_ABSENT = {
     "": {
-        **_group(ITEM6, "monitor profiler"),
         **_group(ITEM8, "jit onnx data"),
         **_group(ITEM10, """
             legacy_alias create_global_var create_parameter crop_tensor
@@ -157,15 +155,7 @@ EXPECTED_ABSENT = {
         **_group(ITEM7, "data_generator dataset metrics"),
         **_group(IMPL, "jax"),
     },
-    "observability": _group(ITEM6, """
-        ExecProfiler FlightRecorder MEM_RING MemRing Objective PROFILER RING
-        SLOEngine SpanRecorder TimeSeriesStore TraceRing capture_oom
-        capture_thread_stacks fetch_memz fetch_trace flight_recorder
-        install_default_collectors load_trace memz merge_memz merge_traces
-        next_request_id oom_dumps profilez register_pool request_id_base
-        ring_capacity router_objectives serve_objectives slo
-        slo_burn_factors slo_windows spans stall_dump_dir stall_timeout
-        timeseries trace_sample_rate tracez varz_capacity varz_interval"""),
+    "observability": {},
     "nn.initializer": {
         **_group(ITEM9, """
             Assign Bilinear Dirac Initializer KaimingNormal KaimingUniform
@@ -175,7 +165,6 @@ EXPECTED_ABSENT = {
         **_group(IMPL, "Tensor dtype_mod jax jnp np random_mod"),
     },
     "utils": {
-        **_group(ITEM6, "Profiler ProfilerOptions get_profiler"),
         **_group(ITEM10, """
             OpLastCheckpointChecker collective_bench compat cpp_extension
             custom_op deprecated download dump_config op_bench register_op
@@ -217,7 +206,6 @@ EXPECTED_ABSENT = {
             threading time"""),
     },
     "inference.decode": {
-        **_group(ITEM6, "SpanRecorder next_request_id monitor profiler"),
         **_group(ITEM8, "AotCache"),
         **_group(IMPL, "jax jnp quantize_kv"),
         **_group("not paddle API: a JAX ShapeDtypeStruct for AOT tracing",
@@ -227,7 +215,6 @@ EXPECTED_ABSENT = {
 
 ABSENT_MODULES = {
     "jit": ITEM8,
-    "profiler": ITEM6,
     "text": ITEM10,
     "distribution": ITEM10,
     "incubate": ITEM10,
